@@ -79,6 +79,12 @@ class MiniGridEnv:
     def observation(self, state: EnvState) -> dict:
         return obs_lib.gen_obs(state, self.agent_view_size, self.see_through_walls)
 
+    def observation_packed(self, state: EnvState) -> torch.Tensor:
+        """int32[N, v*v] packed view, the learner's observation: cell (i, j)
+        of ``core/obs.gen_obs_packed`` at i*v + j, unseen cells 0."""
+        packed = obs_lib.gen_obs_packed(state, self.agent_view_size, self.see_through_walls)
+        return packed.reshape(packed.shape[0], -1)
+
     def reset(self, num_envs: int, generator: torch.Generator | None = None, device=None):
         """``num_envs`` fresh episodes; returns (obs, state)."""
         state = self._generate(num_envs, generator, device)

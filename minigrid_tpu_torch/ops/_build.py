@@ -1,6 +1,7 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  The first call of
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` are headers
+they share).  The first call of
 ``load_library(name)`` compiles it for Hopper (``sm_90a``) into
 ``ops/build/<name>-<hash>.so``, keyed by a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is reused.  Building needs
@@ -79,3 +80,4 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib
+

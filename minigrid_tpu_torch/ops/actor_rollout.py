@@ -1,0 +1,278 @@
+"""Whole-collection actor kernel: the policy inside the environment loop.
+
+Port of ``minigrid_tpu/ops/actor_rollout.py`` for families without a fused
+ext.  The kernel (``csrc/actor_rollout.cu``, CUDA C++ for Hopper) replaces
+the Pallas kernel ``_actor_kernel``: for T steps every env observes (the
+packed view), runs the actor MLP on its one-hot features, samples its
+action by Gumbel-argmax from injected random bits, steps and auto-resets
+from an R-slot reset cache (``core/env.step_cached`` semantics).  Only the
+trajectory leaves the kernel.
+
+The actor's arithmetic is the TPU kernel's, which differs from
+``rl/model.ActorCritic`` in where it rounds: layer 1 adds an f32 bias to the
+f32 sum, applies ReLU and then rounds to bf16; layer 2 likewise; the heads
+take bf16 weights with an f32 bias.  ``actor_policy_reference`` is that
+arithmetic in plain PyTorch.
+
+``fused_actor_rollout_core`` dispatches on the device of the state: CUDA
+tensors launch the kernel (or raise), CPU tensors run
+``actor_rollout_reference``.  ``KERNEL_LAUNCHES`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from minigrid_tpu_torch.core.env import cache_slot
+from minigrid_tpu_torch.core.state import FIELDS, EnvState, select
+from minigrid_tpu_torch.ops._build import load_library
+from minigrid_tpu_torch.ops.fused_rollout import check_env_and_state, from_env_minor, to_env_minor
+from minigrid_tpu_torch.parallel.vector import MAX_FUSED_CELLS, fused_eligible
+
+# Hidden sizes the CUDA source instantiates: PPO's 256 and the tests' 64.
+COMPILED_HIDDEN = (64, 256)
+# Envs per thread block; the kernel takes N that this divides.
+ENVS_PER_BLOCK = 32
+# The kernel's head rows: num_actions logits + 1 value.
+MAX_ACTIONS = 7
+# Launches of the CUDA kernel since import (or since a caller reset it).
+KERNEL_LAUNCHES = 0
+# The kernel's logp and value against ``actor_policy_reference``: both round
+# at the same points, and their f32 sums of bf16 products, taken in another
+# order, are nearly exact, so they agree far inside the bf16 tolerance (2e-2)
+# that holds the port's actor to the JAX package's.
+PLAIN_ATOL = 1e-4
+
+_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+class ActorWeights(NamedTuple):
+    """The actor's weights in the kernel's layout (no TPU padding)."""
+
+    w1: torch.Tensor  # bf16 [v*v*20 + 4, H]  (flax Dense_0 kernel)
+    b1: torch.Tensor  # f32 [H]
+    w2: torch.Tensor  # bf16 [H, H]  (flax Dense_1 kernel, [in, out])
+    b2: torch.Tensor  # f32 [H]
+    wh: torch.Tensor  # bf16 [A + 1, H]: the A logit rows, then the value row
+    bh: torch.Tensor  # f32 [A + 1]
+
+
+@torch.no_grad()
+def repack_actor_params(model) -> ActorWeights:
+    """``rl/model.ActorCritic`` parameters -> the kernel's weights."""
+    bf16 = torch.bfloat16
+    heads = torch.cat([model.Dense_2.kernel, model.Dense_3.kernel], dim=1)  # [H, A + 1]
+    return ActorWeights(
+        w1=model.Dense_0.kernel.to(bf16).contiguous(),
+        b1=model.Dense_0.bias.float().contiguous(),
+        w2=model.Dense_1.kernel.to(bf16).contiguous(),
+        b2=model.Dense_1.bias.float().contiguous(),
+        wh=heads.t().to(bf16).contiguous(),
+        bh=torch.cat([model.Dense_2.bias, model.Dense_3.bias]).float().contiguous(),
+    )
+
+
+def draw_bits(generator: torch.Generator | None, shape, device) -> torch.Tensor:
+    """Uniform int32 random bits (all 32 bits), the sampler's input."""
+    return torch.randint(-(2**31), 2**31, shape, generator=generator, device=device, dtype=torch.int32)
+
+
+def actor_policy_reference(weights: ActorWeights, packed: torch.Tensor, direction: torch.Tensor):
+    """The kernel's actor in plain PyTorch: logits f32 [N, A], value f32 [N]."""
+    from minigrid_tpu_torch.rl.model import embed_obs_packed
+
+    x = embed_obs_packed(packed, direction).float()
+    h1 = torch.relu(x @ weights.w1.float() + weights.b1).to(torch.bfloat16).float()
+    h2 = torch.relu(h1 @ weights.w2.float() + weights.b2).to(torch.bfloat16).float()
+    heads = h2 @ weights.wh.float().t() + weights.bh
+    return heads[:, :-1], heads[:, -1]
+
+
+def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
+    """Gumbel-argmax over ``logits`` f32 [N, A] from ``bits`` int32 [A, N]
+    (the construction behind ``jax.random.categorical``): u = (the top 24
+    bits + 0.5) / 2^24, z = logits - log(-log u), the first maximum wins.
+    Returns (action int32 [N], logp f32 [N])."""
+    u = (((bits >> 8) & 0xFFFFFF).float() + 0.5) * (1.0 / (1 << 24))
+    z = logits.t() + -torch.log(-torch.log(u))
+    action = torch.argmax(z, dim=0)  # the first of equal maxima
+    m = logits.max(dim=-1).values
+    lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
+    logp = logits.gather(1, action[:, None])[:, 0] - lse
+    return action.to(torch.int32), logp
+
+
+def supports_fused_actor(env, device, num_envs: int, hidden: int) -> bool:
+    """Whether the kernel runs this configuration: what ``parallel/vector.
+    fused_eligible`` asks of the random-policy kernel, plus a compiled
+    hidden size, at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
+    return (
+        fused_eligible(env, device)
+        and hidden in COMPILED_HIDDEN
+        and 1 <= env.num_actions <= MAX_ACTIONS
+        and num_envs % ENVS_PER_BLOCK == 0
+    )
+
+
+def fused_actor_rollout(env, model, states: EnvState, generator, num_steps: int, resets_per_chunk: int = 2):
+    """Collect ``num_steps`` on-policy steps of ``model`` (an
+    ``rl/model.ActorCritic``) with the actor in the kernel.
+
+    Draws the R-slot reset cache and then the sampling bits [T, A, N] from
+    ``generator``.  Returns ``(final_states, traj)`` with time-major [T, N]
+    leaves: obs (int32 [T, N, v*v] packed), direction, action, logp, value,
+    reward, done (bool), as ``rl/rollout.collect_trajectory``.
+    """
+    n, device = states.step_count.shape[0], states.device
+    cache = env.batch_reset_cache(n, resets_per_chunk, generator, device)
+    noise = draw_bits(generator, (num_steps, env.num_actions, n), device)
+    return fused_actor_rollout_core(env, repack_actor_params(model), states, cache, noise)
+
+
+def fused_actor_rollout_core(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
+    """The collection over explicit ``cache`` (leaves [N, R, ...]) and
+    sampling bits ``noise`` int32 [T, A, N]: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if states.device.type == "cpu":
+        return actor_rollout_reference(env, weights, states, cache, noise)
+    return _launch(env, weights, states, cache, noise)
+
+
+def actor_rollout_reference(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
+    """Plain PyTorch version of the kernel, on any device: a loop over T of
+    observe, the plain actor, sample and ``step_cached``."""
+    used = torch.zeros(states.step_count.shape[0], dtype=torch.int32, device=states.device)
+    out = {k: [] for k in ("obs", "direction", "action", "logp", "value", "reward", "done")}
+    st = states
+    for bits in noise:
+        obs = env.observation_packed(st)
+        logits, value = actor_policy_reference(weights, obs, st.agent_dir)
+        action, logp = sample_actions(logits, bits)
+        stepped, reward = env.step_env(st, action)
+        done = stepped.terminated | stepped.truncated
+        for k, x in zip(out, (obs, st.agent_dir, action, logp, value, reward, done)):
+            out[k].append(x)
+        st = select(done, cache_slot(cache, used), stepped)
+        used = used + done.int()
+    return st, {k: torch.stack(v) for k, v in out.items()}
+
+
+@torch.no_grad()
+def check_trajectory(env, weights: ActorWeights, states, cache, noise, final, traj, atol=2e-2, margin=1e-2):
+    """Hold a trajectory collected from ``states`` with reset ``cache`` and
+    sampling bits ``noise`` [T, A, N] to the actor kernel's three contracts;
+    raises AssertionError where one fails.
+
+    1. Env replay: ``step_cached`` on the trajectory's actions with the same
+       cache gives its obs, direction, reward (rtol 1e-6: XLA may contract
+       the reward into an FMA) and done at every step, and ``final``.
+    2. Policy: ``actor_policy_reference`` on its obs gives its logp and value
+       to ``atol`` (bf16 rounding).
+    3. Sampling: ``sample_actions`` on its bits and the plain actor's logits
+       gives its action wherever the top two Gumbel scores are more than
+       ``margin`` apart, and at least 99% of positions are that far apart.
+
+    Returns (max abs err of logp and value, positions within the margin).
+    """
+
+    def ensure(cond, message):
+        if not cond:
+            raise AssertionError(message)
+
+    n = states.step_count.shape[0]
+    used = torch.zeros(n, dtype=torch.int32, device=states.device)
+    st = states
+    err, ties = 0.0, 0
+    for t, bits in enumerate(noise):
+        obs, direction, action = traj["obs"][t], traj["direction"][t], traj["action"][t]
+        ensure(torch.equal(env.observation_packed(st), obs), f"obs differs at t={t}")
+        ensure(torch.equal(st.agent_dir, direction), f"direction differs at t={t}")
+        logits, value = actor_policy_reference(weights, obs, direction)
+        logp = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
+        err = max(err, float((logp - traj["logp"][t]).abs().max()), float((value - traj["value"][t]).abs().max()))
+        u = (((bits >> 8) & 0xFFFFFF).float() + 0.5) * (1.0 / (1 << 24))
+        z = (logits.t() + -torch.log(-torch.log(u))).sort(dim=0, descending=True).values
+        clear = (z[0] - z[1]) > margin
+        sampled, _ = sample_actions(logits, bits)
+        ensure(bool(((sampled == action) | ~clear).all()), f"sampled action differs at t={t}")
+        ties += int((~clear).sum())
+        stepped, reward = env.step_env(st, action)
+        done = stepped.terminated | stepped.truncated
+        ensure(torch.allclose(reward, traj["reward"][t], rtol=1e-6, atol=0), f"reward differs at t={t}")
+        ensure(torch.equal(done, traj["done"][t]), f"done differs at t={t}")
+        st = select(done, cache_slot(cache, used), stepped)
+        used = used + done.int()
+    for f in FIELDS:
+        ensure(torch.equal(getattr(st, f), getattr(final, f)), f"final state field {f} differs")
+    ensure(err <= atol, f"logp/value differ from the plain actor by {err}")
+    ensure(ties <= 0.01 * noise.shape[0] * n, f"{ties} near-ties: fewer than 99% of positions compared")
+    return err, ties
+
+
+def _require(cond: bool, message: str) -> None:
+    if not cond:
+        raise ValueError(f"actor_rollout kernel: {message}")
+
+
+def _launch(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
+    global KERNEL_LAUNCHES
+    r = check_env_and_state(env, states, cache, "actor_rollout")
+    device = states.device
+    n = states.step_count.shape[0]
+    na = env.num_actions
+    v2 = env.agent_view_size**2
+    cells = env.width * env.height
+    _require(cells <= MAX_FUSED_CELLS, f"{cells} grid cells; the kernel takes at most {MAX_FUSED_CELLS}")
+    _require(n % ENVS_PER_BLOCK == 0, f"num_envs {n} is not a multiple of {ENVS_PER_BLOCK}")
+    _require(1 <= na <= MAX_ACTIONS, f"{na} actions; the kernel takes 1 to {MAX_ACTIONS}")
+    t = noise.shape[0]
+    _require(noise.shape == (t, na, n), f"noise must be [T, {na}, {n}], got {tuple(noise.shape)}")
+    _require(noise.dtype == torch.int32 and noise.device == device, "noise must be int32 on the state's device")
+    hidden = weights.w2.shape[0]
+    _require(hidden in COMPILED_HIDDEN, f"hidden size {hidden} has no compiled instantiation")
+    for name, x, shape, dtype in (
+        ("w1", weights.w1, (v2 * 20 + 4, hidden), torch.bfloat16),
+        ("b1", weights.b1, (hidden,), torch.float32),
+        ("w2", weights.w2, (hidden, hidden), torch.bfloat16),
+        ("b2", weights.b2, (hidden,), torch.float32),
+        ("wh", weights.wh, (na + 1, hidden), torch.bfloat16),
+        ("bh", weights.bh, (na + 1,), torch.float32),
+    ):
+        _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}")
+        _require(x.dtype == dtype and x.device == device, f"{name} must be {dtype} on {device}")
+
+    grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
+    w = [x.contiguous() for x in weights]
+    bits = noise.contiguous()
+    traj = {
+        "obs": torch.empty((t, n, v2), dtype=torch.int32, device=device),
+        "direction": torch.empty((t, n), dtype=torch.int32, device=device),
+        "action": torch.empty((t, n), dtype=torch.int32, device=device),
+        "logp": torch.empty((t, n), dtype=torch.float32, device=device),
+        "value": torch.empty((t, n), dtype=torch.float32, device=device),
+        "reward": torch.empty((t, n), dtype=torch.float32, device=device),
+        "done": torch.empty((t, n), dtype=torch.bool, device=device),
+    }
+
+    lib = load_library("actor_rollout")
+    fn = lib.actor_rollout_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, *w, *traj.values()]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            *(x.data_ptr() for x in pointers),
+            env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n, na, hidden,
+            int(bool(getattr(env, "fused_no_objects", False))),
+            int(bool(getattr(env, "fused_static_mission", False))),
+            int(env.see_through_walls),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"actor_rollout kernel launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return from_env_minor(states, grid, cont, sc, mis), traj

@@ -9,7 +9,9 @@
 // (_view_bits_block and _obs_checksum_block: view cells, the carried object
 // at the agent cell, the bit-parallel occlusion flood).
 //
-// Design.  One thread runs one env through all T steps.  Every array is
+// Design.  One thread runs one env through all T steps; the transition,
+// the cache reset and the view are the device functions of minigrid_env.cuh,
+// which the actor kernel (actor_rollout.cu) shares.  Every array is
 // env-minor ([..., N]): grid and contents [W*H, N], the 8 scalar rows
 // [8, N], mission [M, N], cache [R, W*H, N] / [R, 8, N] / [R, M, N],
 // actions [T, N].  The state lives in the output buffers, which the wrapper
@@ -30,38 +32,17 @@
 // [W*H][blockDim] tile is free of bank conflicts whatever cell each thread
 // reads), and spread one env over several threads of a warp for the view.
 //
-// Bit-exactness with the JAX package: the reward is computed with
-// round-to-nearest intrinsics, never contracted into an FMA; the per-env
-// checksum is accumulated in uint32 so that it wraps as int32 does in JAX.
+// Bit-exactness with the JAX package: the per-env checksum is accumulated in
+// uint32 so that it wraps as int32 does in JAX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "minigrid_env.cuh"
+
 namespace {
 
-constexpr int OBJ_EMPTY = 1;
-constexpr int OBJ_WALL = 2;
-constexpr int OBJ_FLOOR = 3;
-constexpr int OBJ_DOOR = 4;
-constexpr int OBJ_KEY = 5;
-constexpr int OBJ_BALL = 6;
-constexpr int OBJ_BOX = 7;
-constexpr int OBJ_GOAL = 8;
-constexpr int OBJ_LAVA = 9;
-constexpr int STATE_OPEN = 0;
-constexpr int STATE_LOCKED = 2;
-constexpr int COLOR_GREY = 5;
-constexpr int WALL_CELL = OBJ_WALL | (COLOR_GREY << 8);
-
-constexpr int ACT_LEFT = 0;
-constexpr int ACT_RIGHT = 1;
-constexpr int ACT_FORWARD = 2;
-constexpr int ACT_PICKUP = 3;
-constexpr int ACT_DROP = 4;
-constexpr int ACT_TOGGLE = 5;
-
-// Scalar-row order, as in the TPU kernel (fused_rollout.py:62).
-enum { ROW_AX, ROW_AY, ROW_DIR, ROW_CARRY, ROW_STEP, ROW_MAX, ROW_TERM, ROW_TRUNC, NUM_SC };
+using namespace minigrid;
 
 constexpr int THREADS = 128;
 
@@ -82,89 +63,13 @@ struct Args {
   int W, H, R, M, T, N;
 };
 
-__device__ __forceinline__ bool can_overlap(int t, int s) {
-  return t == OBJ_EMPTY || t == OBJ_FLOOR || t == OBJ_GOAL || t == OBJ_LAVA ||
-         (t == OBJ_DOOR && s == STATE_OPEN);
-}
-
-__device__ __forceinline__ bool can_pickup(int t) {
-  return t == OBJ_KEY || t == OBJ_BALL || t == OBJ_BOX;
-}
-
-__device__ __forceinline__ bool see_behind(int cell) {
-  const int t = cell & 0xFF;
-  const int s = (cell >> 16) & 0xFF;
-  return !(t == OBJ_WALL || (t == OBJ_DOOR && s != STATE_OPEN));
-}
-
-// Sum of the visible packed cells of the agent's V x V view
-// (_view_bits_block + _obs_checksum_block).  View cell (i, j) lies at
-// agent + f * (V-1-j) - r * (V/2 - i), with f the facing vector and
-// r = (-f_y, f_x); cells outside the grid read as walls.
-template <int V, bool SEE_THROUGH>
-__device__ __forceinline__ uint32_t view_checksum(const int* grid, size_t N, int W, int H,
-                                                  int ax, int ay, int d, int carry) {
-  const int fx = (d == 0) - (d == 2);
-  const int fy = (d == 1) - (d == 3);
-  const int rx = -fy;
-  const int ry = fx;
-  int view[V][V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      if (i == V / 2 && j == V - 1) {
-        // The carried object, or empty, at the agent cell.
-        view[i][j] = carry != 0 ? (carry & 0xFFFF) : OBJ_EMPTY;
-      } else {
-        const int wx = ax + fx * (V - 1 - j) - rx * (V / 2 - i);
-        const int wy = ay + fy * (V - 1 - j) - ry * (V / 2 - i);
-        const bool inside = wx >= 0 && wx < W && wy >= 0 && wy < H;
-        view[i][j] = inside ? grid[(size_t)(wx * H + wy) * N] : WALL_CELL;
-      }
-    }
-  }
-
-  uint32_t sum = 0;
-  if (SEE_THROUGH) {
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-#pragma unroll
-      for (int j = 0; j < V; ++j) sum += (uint32_t)view[i][j];
-    return sum;
-  }
-
-  // Bit-parallel occlusion flood (minigrid_tpu/core/obs.py:108-154): bit i
-  // of row j's mask is view column i; light floods right in closed carry
-  // form, left by V-1 single spreads, and lit transparent cells light the
-  // three cells above them.
-  constexpr int FULL = (1 << V) - 1;
-  int up = 1 << (V / 2);
-#pragma unroll
-  for (int j = V - 1; j >= 0; --j) {
-    int t = 0;
-#pragma unroll
-    for (int i = 0; i < V; ++i) t |= see_behind(view[i][j]) ? (1 << i) : 0;
-    const int m_r = up | ((((up & t) + t) & FULL) ^ t);
-    const int cond_r = m_r & t & ((1 << (V - 1)) - 1);
-    const int new_up = cond_r | ((cond_r << 1) & FULL);
-    int m_l = m_r;
-#pragma unroll
-    for (int k = 0; k < V - 1; ++k) m_l |= (m_l & t) >> 1;
-    const int cond_l = m_l & t & ~1;
-    up = new_up | cond_l | (cond_l >> 1);
-#pragma unroll
-    for (int i = 0; i < V; ++i) sum += ((m_l >> i) & 1) ? (uint32_t)view[i][j] : 0u;
-  }
-  return sum;
-}
-
 template <int V, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
 __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= a.N) return;
   const size_t N = (size_t)a.N;
   const int W = a.W, H = a.H, WH = a.W * a.H;
+  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.R};
 
   // This env's column of every env-minor array: element k at [k * N].
   int* grid = a.grid + n;
@@ -173,112 +78,33 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a) {
   int* mis = a.mis + n;
   const int* act = a.actions + n;
 
-  int ax = sc[ROW_AX * N], ay = sc[ROW_AY * N], d = sc[ROW_DIR * N];
-  int carry = sc[ROW_CARRY * N], step = sc[ROW_STEP * N], max_steps = sc[ROW_MAX * N];
-  int term = sc[ROW_TERM * N], trunc = sc[ROW_TRUNC * N];
-
+  Scalars s = load_scalars(sc, N);
   int used = 0, done_count = 0;
   uint32_t obs_sum = 0;
   float rew_sum = 0.0f;
 
   for (int t = 0; t < a.T; ++t) {
-    const int action = act[(size_t)t * N];
-
-    // -- Core transition (_step_block, fused_rollout.py:98-206) --
-    step += 1;
-    const int dx = (d == 0) - (d == 2);
-    const int dy = (d == 1) - (d == 3);
-    const int fx = min(max(ax + dx, 0), W - 1);
-    const int fy = min(max(ay + dy, 0), H - 1);
-    const size_t fidx = (size_t)(fx * H + fy) * N;
-    const int fcell = grid[fidx];
-    const int ftype = fcell & 0xFF;
-    const int fcolor = (fcell >> 8) & 0xFF;
-    const int fstate = (fcell >> 16) & 0xFF;
-
-    if (action == ACT_LEFT) d = (d + 3) & 3;
-    if (action == ACT_RIGHT) d = (d + 1) & 3;
-    const bool is_fwd = action == ACT_FORWARD;
-    if (is_fwd && can_overlap(ftype, fstate)) {
-      ax = fx;
-      ay = fy;
-    }
-    const bool hit_goal = is_fwd && ftype == OBJ_GOAL;
-    const bool terminated = hit_goal || (is_fwd && ftype == OBJ_LAVA);
-    float reward = 0.0f;
-    if (hit_goal) {
-      reward = __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn((float)step, (float)max_steps)));
-    }
-
-    if (!NO_OBJECTS) {
-      const int fcont = cont[fidx];
-      const bool hands_free = carry == 0;
-      const bool do_pickup = action == ACT_PICKUP && can_pickup(ftype) && hands_free;
-      const bool do_drop = action == ACT_DROP && ftype == OBJ_EMPTY && !hands_free;
-      const bool has_key = (carry & 0xFF) == OBJ_KEY && ((carry >> 8) & 0xFF) == fcolor;
-      const int door_state = fstate == STATE_LOCKED ? (has_key ? STATE_OPEN : STATE_LOCKED)
-                                                    : (fstate == STATE_OPEN ? 1 : 0);
-      const bool toggle_door = action == ACT_TOGGLE && ftype == OBJ_DOOR;
-      const bool toggle_box = action == ACT_TOGGLE && ftype == OBJ_BOX;
-      // The four branches are mutually exclusive.
-      if (do_pickup) {
-        grid[fidx] = OBJ_EMPTY;
-        cont[fidx] = 0;
-        carry = ftype | (fcolor << 8) | (fcont << 16);
-      } else if (do_drop) {
-        grid[fidx] = carry & 0xFFFF;
-        cont[fidx] = (carry >> 16) & 0xFFFF;
-        carry = 0;
-      } else if (toggle_door) {
-        grid[fidx] = (fcell & 0xFFFF) | (door_state << 16);
-      } else if (toggle_box) {
-        grid[fidx] = fcont == 0 ? OBJ_EMPTY : fcont;
-        cont[fidx] = 0;
-      }
-    }
-    // Overwritten every step, not accumulated.
-    term = terminated;
-    trunc = step >= max_steps;
-    const bool done = term || trunc;
+    const float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, act[(size_t)t * N]);
+    const bool done = s.term || s.trunc;
     rew_sum += reward;
     done_count += done;
-
-    // -- Auto-reset from the cache (fused_rollout.py:445-479) --
     if (done) {
-      const int slot = min(used, a.R - 1);
-      const int* cg = a.cgrid + (size_t)slot * WH * N + n;
-      for (int c = 0; c < WH; ++c) grid[(size_t)c * N] = cg[(size_t)c * N];
-      if (!NO_OBJECTS) {
-        const int* cc = a.ccont + (size_t)slot * WH * N + n;
-        for (int c = 0; c < WH; ++c) cont[(size_t)c * N] = cc[(size_t)c * N];
-      }
-      const int* cs = a.csc + (size_t)slot * NUM_SC * N + n;
-      ax = cs[ROW_AX * N];
-      ay = cs[ROW_AY * N];
-      d = cs[ROW_DIR * N];
-      carry = cs[ROW_CARRY * N];
-      step = cs[ROW_STEP * N];
-      max_steps = cs[ROW_MAX * N];
-      term = cs[ROW_TERM * N];
-      trunc = cs[ROW_TRUNC * N];
-      if (!STATIC_MISSION) {
-        const int* cm = a.cmis + (size_t)slot * a.M * N + n;
-        for (int m = 0; m < a.M; ++m) mis[(size_t)m * N] = cm[(size_t)m * N];
-      }
+      cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
       used += 1;
     }
-
-    if (COMPUTE_OBS) obs_sum += view_checksum<V, SEE_THROUGH>(grid, N, W, H, ax, ay, d, carry);
+    if (COMPUTE_OBS) {
+      // Sum of the visible packed cells (_obs_checksum_block).
+      int view[V][V];
+      view_cells<V>(grid, N, W, H, s, view);
+      hide_unseen<V, SEE_THROUGH>(view);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+#pragma unroll
+        for (int j = 0; j < V; ++j) obs_sum += (uint32_t)view[i][j];
+    }
   }
 
-  sc[ROW_AX * N] = ax;
-  sc[ROW_AY * N] = ay;
-  sc[ROW_DIR * N] = d;
-  sc[ROW_CARRY * N] = carry;
-  sc[ROW_STEP * N] = step;
-  sc[ROW_MAX * N] = max_steps;
-  sc[ROW_TERM * N] = term;
-  sc[ROW_TRUNC * N] = trunc;
+  store_scalars(sc, N, s);
   a.used[n] = used;
   a.obs[n] = (int)obs_sum;
   a.rew[n] = rew_sum;

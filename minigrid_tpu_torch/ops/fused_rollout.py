@@ -114,27 +114,26 @@ def fused_rollout_reference(env, states: EnvState, cache: EnvState, actions: tor
     )
 
 
-def _require(cond: bool, message: str) -> None:
+def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
     if not cond:
-        raise ValueError(f"fused_rollout kernel: {message}")
+        raise ValueError(f"{what} kernel: {message}")
 
 
-def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compute_obs: bool):
-    global KERNEL_LAUNCHES
+def check_env_and_state(env, states: EnvState, cache: EnvState, what: str) -> int:
+    """Raise unless a whole-rollout kernel takes this env, state and reset
+    cache (CUDA, default hooks, no ext, a compiled view size, int32 leaves of
+    the right shapes on one device); returns R."""
     device = states.device
-    _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)")
-    _require(supports_fused(env), f"{type(env).__name__} has step hooks the kernel does not run")
-    _require(getattr(env, "fused_ext", None) is None, "fused exts are not ported yet")
+    _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)", what)
+    _require(supports_fused(env), f"{type(env).__name__} has step hooks the kernel does not run", what)
+    _require(getattr(env, "fused_ext", None) is None, "fused exts are not ported yet", what)
     v = env.agent_view_size
-    _require(v in COMPILED_VIEW_SIZES, f"view size {v} has no compiled instantiation")
+    _require(v in COMPILED_VIEW_SIZES, f"view size {v} has no compiled instantiation", what)
     n = states.step_count.shape[0]
     w, h = env.width, env.height
-    wh = w * h
-    t = actions.shape[0]
     r = cache.step_count.shape[1] if cache.step_count.dim() == 2 else 0
     m = states.mission.shape[-1]
-    _require(r >= 1 and cache.step_count.shape[0] == n, "cache leaves must be [N, R >= 1, ...]")
-    _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
+    _require(r >= 1 and cache.step_count.shape[0] == n, "cache leaves must be [N, R >= 1, ...]", what)
     for name, x, shape in (
         ("grid", states.grid, (n, w, h)),
         ("contains", states.contains, (n, w, h)),
@@ -143,29 +142,75 @@ def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compu
         ("cache contains", cache.contains, (n, r, w, h)),
         ("cache mission", cache.mission, (n, r, m)),
     ):
-        _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}")
+        _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}", what)
     every = [getattr(states, f) for f in ("grid", "contains", "mission")] + [
         getattr(cache, f) for f in ("grid", "contains", "mission")
     ]
-    _require(all(x.dtype == torch.int32 for x in every + [actions]), "tensors must be int32")
-    _require(all(x.device == device for x in every + [actions]), "tensors on different devices")
+    _require(all(x.dtype == torch.int32 for x in every), "state tensors must be int32", what)
+    _require(all(x.device == device for x in every), "tensors on different devices", what)
+    return r
 
-    def rows(s: EnvState) -> list[torch.Tensor]:
-        return [
-            s.agent_x, s.agent_y, s.agent_dir, s.carrying, s.step_count, s.max_steps,
-            s.terminated.int(), s.truncated.int(),
+
+def _rows(s: EnvState) -> torch.Tensor:
+    """The 8 scalar rows of the kernels, stacked on a new leading axis."""
+    return torch.stack(
+        [
+            x.to(torch.int32)
+            for x in (
+                s.agent_x, s.agent_y, s.agent_dir, s.carrying, s.step_count, s.max_steps,
+                s.terminated, s.truncated,
+            )
         ]
+    )
 
-    # Env-minor layout: the kernel's thread n reads column n.  These copies
-    # are the kernel's in/out state buffers.
-    grid = states.grid.reshape(n, wh).t().contiguous()
-    cont = states.contains.reshape(n, wh).t().contiguous()
-    sc = torch.stack([x.to(torch.int32) for x in rows(states)]).contiguous()
-    mis = states.mission.t().contiguous()
-    cgrid = cache.grid.reshape(n, r, wh).permute(1, 2, 0).contiguous()
-    ccont = cache.contains.reshape(n, r, wh).permute(1, 2, 0).contiguous()
-    csc = torch.stack([x.to(torch.int32) for x in rows(cache)]).permute(2, 0, 1).contiguous()
-    cmis = cache.mission.permute(1, 2, 0).contiguous()
+
+def to_env_minor(states: EnvState, cache: EnvState) -> tuple[torch.Tensor, ...]:
+    """The kernels' env-minor buffers (thread n reads column n): state grid
+    and contents [W*H, N], scalar rows [8, N], mission [M, N], and the cache
+    as [R, W*H, N], [R, W*H, N], [R, 8, N], [R, M, N].  The state buffers
+    are fresh copies the kernel updates in place."""
+    n, r = cache.step_count.shape
+    wh = states.grid.shape[1] * states.grid.shape[2]
+    return (
+        states.grid.reshape(n, wh).t().contiguous(),
+        states.contains.reshape(n, wh).t().contiguous(),
+        _rows(states).contiguous(),
+        states.mission.t().contiguous(),
+        cache.grid.reshape(n, r, wh).permute(1, 2, 0).contiguous(),
+        cache.contains.reshape(n, r, wh).permute(1, 2, 0).contiguous(),
+        _rows(cache).permute(2, 0, 1).contiguous(),
+        cache.mission.permute(1, 2, 0).contiguous(),
+    )
+
+
+def from_env_minor(states: EnvState, grid, cont, sc, mis) -> EnvState:
+    """``states`` with the kernel's final env-minor buffers put back."""
+    n, w, h = states.grid.shape
+    return states.replace(
+        grid=grid.t().reshape(n, w, h).contiguous(),
+        contains=cont.t().reshape(n, w, h).contiguous(),
+        agent_x=sc[0],
+        agent_y=sc[1],
+        agent_dir=sc[2],
+        carrying=sc[3],
+        step_count=sc[4],
+        max_steps=sc[5],
+        terminated=sc[6] != 0,
+        truncated=sc[7] != 0,
+        mission=mis.t().contiguous(),
+    )
+
+
+def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compute_obs: bool):
+    global KERNEL_LAUNCHES
+    r = check_env_and_state(env, states, cache, "fused_rollout")
+    device = states.device
+    n = states.step_count.shape[0]
+    t = actions.shape[0]
+    _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
+    _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
+
+    grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     acts = actions.contiguous()
     used = torch.zeros(n, dtype=torch.int32, device=device)
     obs = torch.zeros_like(used)
@@ -180,7 +225,7 @@ def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compu
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             *(x.data_ptr() for x in (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, used, obs, rew, done)),
-            w, h, v, r, m, t, n,
+            env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
             int(bool(getattr(env, "fused_no_objects", False))),
             int(bool(getattr(env, "fused_static_mission", False))),
             int(env.see_through_walls),
@@ -191,21 +236,8 @@ def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compu
         raise RuntimeError(f"fused_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
 
-    final = states.replace(
-        grid=grid.t().reshape(n, w, h).contiguous(),
-        contains=cont.t().reshape(n, w, h).contiguous(),
-        agent_x=sc[0],
-        agent_y=sc[1],
-        agent_dir=sc[2],
-        carrying=sc[3],
-        step_count=sc[4],
-        max_steps=sc[5],
-        terminated=sc[6] != 0,
-        truncated=sc[7] != 0,
-        mission=mis.t().contiguous(),
-    )
     return (
-        final,
+        from_env_minor(states, grid, cont, sc, mis),
         rew.sum(),
         wrap_int32(done.sum(dtype=torch.int64)),
         wrap_int32(obs.sum(dtype=torch.int64)),

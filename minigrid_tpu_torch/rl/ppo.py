@@ -1,0 +1,241 @@
+"""PPO learner over the batched environment.
+
+Counterpart of ``minigrid_tpu/rl/ppo.py``: collect ``rollout_steps`` on-policy
+steps of every env, compute GAE, and take one clipped-surrogate update over
+minibatches that are contiguous time slices of the trajectory.  Gradients
+are clipped by global norm and applied by Adam, both written as optax's
+``clip_by_global_norm`` and ``adam`` compute them.
+
+On a CUDA device the collection runs in the whole-collection actor kernel
+(ops/actor_rollout.py) and every first layer of the update, the minibatch
+losses and the bootstrap value alike, runs through the fused embed +
+dense-1 kernels (ops/embed_dense.py); a configuration the kernels do not
+take raises.  On a CPU device the same calls run their plain PyTorch
+versions.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from minigrid_tpu_torch.parallel.reset_budget import resets_for
+from minigrid_tpu_torch.rl.model import ActorCritic, apply_packed_fused
+from minigrid_tpu_torch.rl.rollout import collect_trajectory
+
+
+class PPOConfig(NamedTuple):
+    rollout_steps: int = 128
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_coef: float = 0.5
+    entropy_coef: float = 0.01
+    learning_rate: float = 2.5e-4
+    max_grad_norm: float = 0.5
+    # Pre-generated levels per env per rollout chunk; None sizes the cache
+    # from parallel/reset_budget.resets_for.  The emitted
+    # ``max_episodes_per_chunk`` metric is to be held to this value.
+    resets_per_chunk: int | None = None
+    # Gradient minibatches per update (time slices) and epochs over the rollout.
+    num_minibatches: int = 8
+    update_epochs: int = 1
+    # Linear learning-rate anneal to 0 over this many train_step calls
+    # (None: constant).
+    lr_anneal_updates: int | None = None
+
+
+class AdamState(NamedTuple):
+    count: int  # updates applied so far
+    mu: dict[str, torch.Tensor]
+    nu: dict[str, torch.Tensor]
+
+
+class TrainState(NamedTuple):
+    params: ActorCritic
+    opt_state: AdamState
+    env_states: Any
+    generator: torch.Generator
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
+
+
+def adam_init(model: ActorCritic) -> AdamState:
+    zeros = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+
+
+@torch.no_grad()
+def apply_gradients(model: ActorCritic, grads: dict[str, torch.Tensor], state: AdamState, lr: float, max_grad_norm: float) -> AdamState:
+    """optax ``chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=1e-5))``
+    applied to ``model``'s parameters in place; returns the new state.
+
+    Clipping scales by ``max_norm / norm`` only when ``norm >= max_norm``
+    (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` always).
+    """
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    clip = norm >= max_grad_norm
+    count = state.count + 1
+    # optax takes the bias corrections' powers in float32.
+    b1, b2 = (torch.tensor(b, dtype=torch.float32, device=norm.device) for b in (ADAM_B1, ADAM_B2))
+    correct1, correct2 = 1 - b1**count, 1 - b2**count
+    mu, nu = {}, {}
+    for name, p in model.named_parameters():
+        g = torch.where(clip, grads[name] / norm * max_grad_norm, grads[name])
+        mu[name] = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[name]
+        nu[name] = (1 - ADAM_B2) * g * g + ADAM_B2 * state.nu[name]
+        p.add_(-lr * (mu[name] / correct1 / (torch.sqrt(nu[name] / correct2) + ADAM_EPS)))
+    return AdamState(count, mu, nu)
+
+
+def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None, *, _plain: bool = False):
+    """Build ``(init_fn, train_step)`` for the given env family.
+
+    ``init_fn(generator, num_envs) -> TrainState`` resets ``num_envs`` envs
+    and initialises the network on the generator's device;
+    ``train_step(state) -> (TrainState, metrics)`` collects and updates.
+    ``train_step.rollout``, ``.update`` and ``.gae`` are its phases, and
+    ``.loss_fn(apply, batch)`` its minibatch loss.  The parameters are
+    updated in place.  ``_plain=True`` is a timing reference, not a
+    learner option: it runs the plain versions on a CUDA device too, which
+    ``chip_smoke.py`` times the kernels against.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "training over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
+        )
+    resets_per_chunk = (
+        config.resets_per_chunk
+        if config.resets_per_chunk is not None
+        else resets_for(env, config.rollout_steps)
+    )
+    steps_per_update = config.num_minibatches * config.update_epochs
+
+    def learning_rate(count: int) -> float:
+        # optax.linear_schedule(lr, 0, lr_anneal_updates * steps_per_update).
+        if config.lr_anneal_updates is None:
+            return config.learning_rate
+        frac = min(count, config.lr_anneal_updates * steps_per_update) / (
+            config.lr_anneal_updates * steps_per_update
+        )
+        return config.learning_rate * (1.0 - frac)
+
+    def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:
+        device = generator.device
+        _, env_states = env.reset(num_envs, generator, device)
+        model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, device)
+        return TrainState(model, adam_init(model), env_states, generator)
+
+    def apply_fn(model: ActorCritic):
+        """The forward the update uses: through the embed + dense-1 kernels
+        (on a CPU tensor that op is the plain version)."""
+        if _plain:
+            return lambda obs, direction: model(obs, direction, packed=True)
+        return lambda obs, direction: apply_packed_fused(model, obs, direction)
+
+    def rollout(model: ActorCritic, env_states, generator):
+        return collect_trajectory(
+            env, model, env_states, generator, config.rollout_steps, resets_per_chunk, fused_actor=not _plain
+        )
+
+    def gae(values, rewards, dones, last_value):
+        """adv_t = delta_t + gamma * lambda * nonterm_t * adv_{t+1}, as a
+        reverse recurrence over T."""
+        nonterm = 1.0 - dones.float()
+        next_values = torch.cat([values[1:], last_value[None]], dim=0)
+        delta = rewards + config.gamma * next_values * nonterm - values
+        coef = config.gamma * config.gae_lambda * nonterm
+        advs = torch.empty_like(values)
+        adv = torch.zeros_like(last_value)
+        for t in range(values.shape[0] - 1, -1, -1):
+            adv = delta[t] + coef[t] * adv
+            advs[t] = adv
+        return advs
+
+    def loss_fn(apply, batch):
+        obs, direction, action, old_logp, adv, target = batch
+        logits, value = apply(obs, direction)
+        logp_all = torch.log_softmax(logits, dim=-1)
+        logp = logp_all.gather(-1, action.long()[..., None])[..., 0]
+        ratio = torch.exp(logp - old_logp)
+        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        pg = -torch.minimum(
+            ratio * adv_n, torch.clamp(ratio, 1 - config.clip_eps, 1 + config.clip_eps) * adv_n
+        ).mean()
+        v_loss = 0.5 * torch.square(value - target).mean()
+        entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
+        loss = pg + config.value_coef * v_loss - config.entropy_coef * entropy
+        return loss, (pg, v_loss, entropy)
+
+    def update(model: ActorCritic, opt_state: AdamState, env_states, traj):
+        """GAE and the minibatched clipped-surrogate update on a collected
+        trajectory; returns (model, opt_state, metrics)."""
+        obs, direction, action, logp, value, reward, done = traj
+        apply = apply_fn(model)
+        with torch.no_grad():
+            _, last_value = apply(env.observation_packed(env_states), env_states.agent_dir)
+            adv = gae(value, reward, done, last_value)
+        target = adv + value
+        num_steps = obs.shape[0]
+        if num_steps % config.num_minibatches != 0:
+            raise ValueError(
+                f"rollout_steps={num_steps} must divide into num_minibatches="
+                f"{config.num_minibatches} (time-axis slicing)"
+            )
+        mb_t = num_steps // config.num_minibatches
+        data = (obs, direction, action, logp, adv, target)
+        names, params = zip(*model.named_parameters())
+        auxes = []
+        for _ in range(config.update_epochs):
+            for b in range(config.num_minibatches):
+                batch = tuple(x[b * mb_t : (b + 1) * mb_t] for x in data)
+                loss, aux = loss_fn(apply, batch)
+                grads = torch.autograd.grad(loss, params)
+                opt_state = apply_gradients(
+                    model, dict(zip(names, grads)), opt_state,
+                    learning_rate(opt_state.count), config.max_grad_norm,
+                )
+                auxes.append(torch.stack([a.detach() for a in aux]))
+        pg, v_loss, entropy = torch.stack(auxes).mean(dim=0)
+        metrics = {
+            "pg_loss": pg,
+            "value_loss": v_loss,
+            "entropy": entropy,
+            "reward_per_step": reward.mean(),
+            "episodes": done.sum(),
+            # Reset-budget certification (parallel/reset_budget): the most
+            # episodes any env finished this chunk; above resets_per_chunk
+            # the reset cache replayed its last level (exempt for
+            # deterministic_generation families).
+            "max_episodes_per_chunk": done.int().sum(dim=0).max(),
+        }
+        return model, opt_state, metrics
+
+    def train_step(state: TrainState):
+        env_states, traj = rollout(state.params, state.env_states, state.generator)
+        model, opt_state, metrics = update(state.params, state.opt_state, env_states, traj)
+        return TrainState(model, opt_state, env_states, state.generator), metrics
+
+    train_step.rollout = rollout
+    train_step.update = update
+    train_step.gae = gae
+    train_step.loss_fn = loss_fn
+    return init_fn, train_step
+
+
+def make_train(env, config: PPOConfig = PPOConfig(), hidden: int = 256):
+    """``train(generator, num_envs, num_updates) -> (TrainState, metrics)``:
+    ``num_updates`` train steps, with each metric stacked over them."""
+    init_fn, train_step = make_ppo(env, config, hidden=hidden)
+
+    def train(generator: torch.Generator, num_envs: int, num_updates: int):
+        state = init_fn(generator, num_envs)
+        history = []
+        for _ in range(num_updates):
+            state, metrics = train_step(state)
+            history.append(metrics)
+        return state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
+
+    return train

@@ -1,0 +1,82 @@
+"""On-policy trajectory collection for the learners.
+
+Counterpart of ``minigrid_tpu/rl/rollout.py``.  Trajectories are time-major,
+with the observation as the packed int32 [T, N, v*v] view
+(``MiniGridEnv.observation_packed``), which ``rl/model.embed_obs_packed``
+embeds to the same features as the uint8 image.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from minigrid_tpu_torch.ops.actor_rollout import (
+    draw_bits,
+    fused_actor_rollout,
+    sample_actions,
+)
+from minigrid_tpu_torch.parallel.reset_budget import resets_for
+
+
+class Trajectory(NamedTuple):
+    obs: torch.Tensor  # int32 [T, N, v*v] packed view
+    direction: torch.Tensor  # int32 [T, N]
+    action: torch.Tensor  # int32 [T, N]
+    logp: torch.Tensor  # f32 [T, N], behaviour-policy log prob
+    value: torch.Tensor  # f32 [T, N]
+    reward: torch.Tensor  # f32 [T, N]
+    done: torch.Tensor  # bool [T, N]
+
+
+@torch.no_grad()
+def collect_trajectory(
+    env,
+    model,
+    env_states,
+    generator: torch.Generator | None,
+    rollout_steps: int,
+    resets_per_chunk: int | None = None,
+    fused_actor: bool = False,
+    mesh=None,
+):
+    """``rollout_steps`` policy steps of ``model`` (an ``rl/model.ActorCritic``)
+    in every env; returns (env_states, Trajectory).
+
+    ``fused_actor=True`` on CUDA tensors takes the whole-collection CUDA
+    kernel (ops/actor_rollout.py): the env state, reset cache and actor
+    weights stay on the card for all steps and only the trajectory is
+    written.  A configuration the kernel does not take raises there
+    (``supports_fused_actor`` says which it takes).  On CPU tensors, or with
+    ``fused_actor=False``, every step is the plain loop: the packed
+    observation, ``model``'s forward, Gumbel-argmax sampling from bits
+    drawn from ``generator``, and the batched step with auto-reset.  Both
+    sample with ``ops/actor_rollout.sample_actions``; the kernel's actor
+    rounds as the TPU kernel does, the plain loop as ``model`` does.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "collection over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
+        )
+    num_envs = env_states.step_count.shape[0]
+    if resets_per_chunk is None:
+        resets_per_chunk = resets_for(env, rollout_steps)
+    if fused_actor and env_states.device.type == "cuda":
+        env_states, traj = fused_actor_rollout(
+            env, model, env_states, generator, rollout_steps, resets_per_chunk
+        )
+        return env_states, Trajectory(**traj)
+
+    steps = []
+    for _ in range(rollout_steps):
+        obs = env.observation_packed(env_states)
+        direction = env_states.agent_dir
+        logits, value = model(obs, direction, packed=True)
+        bits = draw_bits(generator, (logits.shape[-1], num_envs), env_states.device)
+        action, logp = sample_actions(logits, bits)
+        stepped, reward = env.step_env(env_states, action)
+        done = stepped.terminated | stepped.truncated
+        env_states = env.autoreset(stepped, generator)
+        steps.append((obs, direction, action, logp, value, reward, done))
+    return env_states, Trajectory(*(torch.stack(x) for x in zip(*steps)))

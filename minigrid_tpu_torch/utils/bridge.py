@@ -1,10 +1,17 @@
-"""Carry environment state between the JAX package and this one, as numpy.
+"""Carry environment state and network parameters between the JAX package
+and this one, as numpy.
 
 ``state_from_numpy`` takes a JAX ``EnvState`` (or reset cache) whose leaves
 were turned into numpy arrays, given as a mapping of field name to array,
 and returns this package's ``EnvState`` on ``device``.  Fields this package
 does not hold (``rng``; ``extra``, which fixed-start Empty does not use) are
-ignored.  ``state_to_numpy`` is the inverse.  Neither imports JAX.
+ignored.  ``state_to_numpy`` is the inverse.
+
+``params_from_flax`` turns the flax ``ActorCritic`` parameter tree (nested
+dicts of numpy arrays: ``Dense_0..3`` with ``kernel [in, out]`` and
+``bias``) into the ``state_dict`` of ``rl/model.ActorCritic``, which keeps
+the same layout; ``params_to_flax`` is the inverse.  None of them imports
+JAX.
 """
 
 from __future__ import annotations
@@ -34,3 +41,24 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> EnvState:
 def state_to_numpy(state: EnvState) -> dict[str, np.ndarray]:
     """Mapping of field name to numpy array (int32, bool flags)."""
     return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+
+
+def params_from_flax(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
+    """``state_dict`` (``"Dense_0.kernel"``, ...) of a flax parameter tree,
+    with or without its top-level ``"params"`` key."""
+    layers = tree["params"] if "params" in tree else tree
+    return {
+        f"{layer}.{name}": torch.from_numpy(np.array(value, dtype=np.float32)).to(device)
+        for layer, leaves in layers.items()
+        for name, value in leaves.items()
+    }
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The flax parameter tree ``{"params": {"Dense_0": {"kernel", "bias"}}}``
+    of a ``state_dict``, as numpy arrays."""
+    layers: dict[str, dict[str, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        layer, name = key.split(".")
+        layers.setdefault(layer, {})[name] = value.detach().cpu().numpy()
+    return {"params": layers}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on a GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 These tests need an NVIDIA GPU and ``nvcc``; they skip without them.  They
 import no JAX, so they also run where JAX is not installed:
@@ -15,8 +15,11 @@ import torch
 import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.ops import actor_rollout as ar
+from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
+from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 
@@ -79,3 +82,126 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     env7 = mgt.make("MiniGrid-Empty-8x8-v0")
     with pytest.raises(ValueError, match="actions"):
         fr.fused_rollout_core(env7, states, cache, actions[:, :16])
+
+
+def _embed_inputs(device, m, hidden, seed):
+    rng = np.random.default_rng(seed)
+    env = MiniGridEnv(9, 7, max_steps=100)
+    states = state_from_numpy(random_states(rng, (m,), 9, 7), device)
+    packed = env.observation_packed(states)
+    w1 = torch.from_numpy(rng.normal(0, 0.03, (49 * 20 + 4, hidden)).astype(np.float32)).to(device)
+    b1 = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32)).to(device)
+    dy = torch.from_numpy(rng.normal(0, 1e-2, (m, hidden)).astype(np.float32)).to(device, torch.bfloat16)
+    return packed, states.agent_dir, w1, b1, dy
+
+
+@pytest.mark.parametrize("hidden", [64, 256])
+def test_embed_dense_kernels_match_plain_version(device, hidden):
+    m = 5000  # a ragged last backward chunk
+    packed, direction, w1, b1, dy = _embed_inputs(device, m, hidden, 3)
+    before = dict(ed.KERNEL_LAUNCHES)
+    w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+    out = ed.embed_dense1(w1g, b1g, packed, direction)
+    dw, db = torch.autograd.grad(out, (w1g, b1g), dy)
+    torch.cuda.synchronize()
+    assert ed.KERNEL_LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    w1p, b1p = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+    want = ed.embed_dense1_reference(w1p, b1p, packed, direction)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, hidden)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    for got, ref in zip((dw, db), torch.autograd.grad(want, (w1p, b1p), dy)):
+        scale = max(1.0, float(ref.abs().max()))
+        torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2 * scale)
+    dw2, db2 = ed._backward(packed, direction, dy)
+    assert torch.equal(dw2, dw) and torch.equal(db2, db)  # deterministic
+
+
+def _actor_case(device, kind, n=2048, t=16, hidden=64, seed=0):
+    from minigrid_tpu_torch.rl.model import ActorCritic
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "empty5x5":
+        env = mgt.make("MiniGrid-Empty-5x5-v0", max_steps=8)
+        _, states = env.reset(n, gen, device)
+        cache = env.batch_reset_cache(n, 2, gen, device)
+    else:
+        rng = np.random.default_rng(seed)
+        env = MiniGridEnv(9, 7, max_steps=100)
+        states = state_from_numpy(random_states(rng, (n,), 9, 7), device)
+        cache = state_from_numpy(random_states(rng, (n, 2), 9, 7, fresh=True), device)
+    model = ActorCritic(hidden, env.num_actions, generator=gen, device=device)
+    with torch.no_grad():  # nonzero biases: init leaves them 0
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    weights = ar.repack_actor_params(model)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    return env, weights, states, cache, noise
+
+
+@pytest.mark.parametrize("kind", ["empty5x5", "synthetic"])
+def test_actor_kernel_meets_the_contracts(device, kind):
+    env, weights, states, cache, noise = _actor_case(device, kind)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) > 0
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, atol=ar.PLAIN_ATOL)
+
+
+def test_train_step_goes_through_the_kernels(device):
+    env = mgt.make("MiniGrid-Empty-8x8-v0")
+    config = PPOConfig(rollout_steps=16, num_minibatches=2)
+    init_fn, train_step = make_ppo(env, config, hidden=64)
+    state = init_fn(torch.Generator(device=device).manual_seed(0), 1024)
+    before = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
+    state, metrics = train_step(state)
+    torch.cuda.synchronize()
+    after = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 3, 2)
+    assert all(bool(torch.isfinite(metrics[k])) for k in ("pg_loss", "value_loss", "entropy"))
+
+
+def test_new_wrappers_reject_what_their_kernels_do_not_take(device):
+    packed, direction, w1, b1, dy = _embed_inputs(device, 64, 64, 1)
+    with pytest.raises(ValueError, match="need CUDA"):
+        ed._forward(w1.cpu(), b1.cpu(), packed.cpu(), direction.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        ed._forward(w1, b1, packed.long(), direction)
+    with pytest.raises(ValueError, match="w1 must be"):
+        ed._forward(w1[:-1], b1, packed, direction)
+    with pytest.raises(ValueError, match="hidden size 1000"):
+        ed._forward(torch.zeros(984, 1000, device=device), torch.zeros(1000, device=device), packed, direction)
+    with pytest.raises(ValueError, match="bf16"):
+        ed._backward(packed, direction, dy.float())
+
+    env, weights, states, cache, noise = _actor_case(device, "empty5x5", n=64, t=2)
+    with pytest.raises(ValueError, match="noise must be"):
+        ar.fused_actor_rollout_core(env, weights, states, cache, noise[:, :3])
+    with pytest.raises(ValueError, match="w1 must be"):
+        ar.fused_actor_rollout_core(env, weights._replace(w1=weights.w1.float()), states, cache, noise)
+    with pytest.raises(ValueError, match="hidden size 96"):
+        wide = ar.ActorWeights(
+            torch.zeros(984, 96, dtype=torch.bfloat16, device=device), torch.zeros(96, device=device),
+            torch.zeros(96, 96, dtype=torch.bfloat16, device=device), torch.zeros(96, device=device),
+            torch.zeros(8, 96, dtype=torch.bfloat16, device=device), torch.zeros(8, device=device),
+        )
+        ar.fused_actor_rollout_core(env, wide, states, cache, noise)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ar.fused_actor_rollout_core(
+            env, weights, states.map(lambda x: x[:48]), cache.map(lambda x: x[:48]), noise[:, :, :48]
+        )
+    env5 = mgt.make("MiniGrid-Empty-5x5-v0", agent_view_size=5)
+    with pytest.raises(ValueError, match="view size 5"):
+        ar.fused_actor_rollout_core(env5, weights, states, cache, noise)
+    with pytest.raises(ValueError, match="need CUDA"):
+        ar._launch(env, weights, states.map(lambda x: x.cpu()), cache, noise)
+
+
+def test_learner_raises_where_the_actor_kernel_does_not_run(device):
+    env = mgt.make("MiniGrid-Empty-8x8-v0")
+    init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=8, num_minibatches=1), hidden=96)
+    state = init_fn(torch.Generator(device=device).manual_seed(0), 64)
+    with pytest.raises(ValueError, match="hidden size 96"):
+        train_step(state)

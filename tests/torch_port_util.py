@@ -5,10 +5,19 @@ cross between the two as numpy arrays (``minigrid_tpu_torch.utils.bridge``)."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
+import minigrid_tpu as mg
+from minigrid_tpu.core.env import MiniGridEnv as JEnv
+from minigrid_tpu.core.state import EnvState as JState
+from minigrid_tpu.rl import model as jmodel
 from minigrid_tpu_torch.core.state import FIELDS
-from minigrid_tpu_torch.utils.bridge import state_from_numpy, state_to_numpy
+from minigrid_tpu_torch.rl import model as tmodel
+from minigrid_tpu_torch.utils.bridge import params_from_flax, state_from_numpy, state_to_numpy
+from minigrid_tpu_torch.utils.synthetic import random_states
+
+HIDDEN = 64  # the narrow width of the network tests
 
 
 def jax_to_numpy(state) -> dict[str, np.ndarray]:
@@ -27,3 +36,54 @@ def assert_states_equal(port_state, jax_state, what: str = "") -> None:
     want = jax_to_numpy(jax_state)
     for f in FIELDS:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f"{what}: {f}")
+
+
+def jax_state(arrays):
+    """A JAX ``EnvState`` of numpy field arrays (zero rng keys)."""
+    keys = jnp.zeros(arrays["step_count"].shape + (2,), jnp.uint32)
+    return JState(**{k: jnp.asarray(v) for k, v in arrays.items()}, rng=keys)
+
+
+def observations(n_each=128, seed=0):
+    """Packed views and directions of Empty-5x5 resets and of random
+    object-rich 9x7 states (occlusion, doors, carried objects), from JAX."""
+    env = mg.make("MiniGrid-Empty-5x5-v0")
+    _, states = jax.jit(jax.vmap(env.reset))(jax.random.split(jax.random.PRNGKey(seed), n_each))
+    rich_env = JEnv(9, 7, max_steps=100)
+    rich = jax_state(random_states(np.random.default_rng(seed), (n_each,), 9, 7))
+    packed = [
+        jax.vmap(lambda s, e=e: e.observation_packed(s).reshape(-1))(st)
+        for e, st in ((env, states), (rich_env, rich))
+    ]
+    return (
+        np.concatenate([np.asarray(p) for p in packed]),
+        np.concatenate([np.asarray(states.agent_dir), np.asarray(rich.agent_dir)]),
+    )
+
+
+def with_bias_noise(params, seed, scale=0.1):
+    """``params`` (a flax tree of numpy arrays) with N(0, ``scale``) noise
+    added to every bias, which flax initialises to 0, so that the bias
+    arithmetic and its rounding order are compared too."""
+    rng = np.random.default_rng(seed)
+
+    def noisy(path, x):
+        if path[-1].key != "bias":
+            return x
+        return (x + rng.normal(0, scale, x.shape)).astype(x.dtype)
+
+    return jax.tree_util.tree_map_with_path(noisy, params)
+
+
+def flax_params(packed, direction, hidden=HIDDEN, seed=1):
+    """A flax ``ActorCritic`` and its parameters: flax's init, with nonzero
+    biases (``with_bias_noise``)."""
+    model = jmodel.ActorCritic(hidden=hidden, num_actions=7)
+    params = model.init(jax.random.PRNGKey(seed), packed[:1], direction[:1], packed=True)
+    return model, with_bias_noise(jax.tree.map(np.array, params), seed)
+
+
+def port_model(params, hidden=HIDDEN):
+    model = tmodel.ActorCritic(hidden=hidden, num_actions=7)
+    model.load_state_dict(params_from_flax(params))
+    return model
