@@ -34,10 +34,23 @@ Phases, one output line each; any failure raises and exits non-zero:
    and value to atol 1e-4, sampled actions equal where the top two Gumbel
    scores are more than 1e-2 apart), finite losses, and
    the env-steps/s of a train step, rollout and update apart, through the
-   kernels and through the plain versions.
+   kernels and through the plain versions;
+8. the counter-reset slice: for each of ``MiniGrid-Empty-Random-5x5-v0``,
+   ``MiniGrid-LavaCrossingS9N2-v0`` and ``MiniGrid-Dynamic-Obstacles-8x8-v0``
+   at 65536 envs x 256 steps, ``make``, ``env.reset`` on the card,
+   ``rollout_random`` and the observation-consuming ``fused_rollout``
+   through the kernel's ext instantiations (2 launches, counted), each held
+   against the plain version on the replayed actions and seeds (every state
+   field and ``extra`` leaf, done count and checksum exact, ``max_used``
+   0, reward total to rtol 1e-5), ``assert_chain_covered``, and the kernel
+   and the plain version timed in turns.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Every kernel entry of the JSON line carries its time, its plain version's,
+its bound (the larger of its bytes over 3.35 TB/s and its operations over
+the card's peak for their type) and, where one PyTorch call computes the
+same function, that call's time (``library_ms``; the port never calls it).
+The second-to-last line is that JSON summary of the kernels; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
@@ -92,6 +106,19 @@ BF16_ATOL = 2e-2
 # Sampled actions are compared where the top two Gumbel scores differ by more.
 TIE_MARGIN = 1e-2
 KERNELS = ("fused_rollout", "embed_dense", "actor_rollout")
+SOURCE = "minigrid_tpu_torch/ops/csrc/fused_rollout.cu"
+REPLACES = "minigrid_tpu/ops/fused_rollout.py:335"
+# The counter-reset slice: bench.py's TRACKED families with in-kernel resets.
+COUNTER_IDS = ("MiniGrid-Empty-Random-5x5-v0", "MiniGrid-LavaCrossingS9N2-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0")
+# The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
+# CUDA cores' 32-bit rate (taken for integer ALU work too) and bf16 on the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+# Integer operations of one threefry2x32-20 evaluation: 20 rounds of add,
+# rotate and xor, 5 key injections of 3 adds, 2 initial adds, 2 xors.
+THREEFRY_OPS = 79
 
 
 def check(ok: bool, message: str) -> None:
@@ -113,6 +140,24 @@ def card_line() -> str:
         timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ext_report(log: str) -> str:
+    """ptxas' registers, stack frames and spills of the rollout kernel's
+    instantiations, per ext struct (NoExt and the family exts)."""
+    groups: dict[str, list[tuple[int, int, int]]] = {}
+    for block in log.split("Compiling entry function")[1:]:
+        ext = re.search(r"8minigrid\d+([A-Za-z]+Ext)", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
+        if ext and regs:
+            stack, spill = (int(frame.group(1)), int(frame.group(2))) if frame else (0, 0)
+            groups.setdefault(ext.group(1), []).append((int(regs.group(1)), stack, spill))
+    return "fused_rollout instantiations: " + "; ".join(
+        f"{name} x{len(v)}: {min(r for r, _, _ in v)}-{max(r for r, _, _ in v)} registers, "
+        f"stack frame up to {max(f for _, f, _ in v)} bytes, {sum(sp for _, _, sp in v)} bytes spilled"
+        for name, v in sorted(groups.items())
+    )
 
 
 def replay_goldens(device) -> int:
@@ -163,14 +208,52 @@ def replay_goldens(device) -> int:
     return len(files)
 
 
+def bound(nbytes: float, op_seconds: float) -> tuple[float, str]:
+    """The least time in ms the card could take for work that moves
+    ``nbytes`` and whose operations take ``op_seconds`` at the card's peak
+    rates for their types, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, op_seconds) * 1e3, "bytes" if t_bytes >= op_seconds else "operations"
+
+
+def rollout_bytes(states, steps: int, resets: int = 0, ext_scalars: int = 0, seeds: bool = False) -> int:
+    """Bytes a whole-rollout call must move: the actions, the state read and
+    written (grid, contents, 8 scalar rows, mission, extra scalars), the
+    reset cache or the seeds read, and the four per-env outputs written."""
+    n, w, h = states.grid.shape
+    state = n * (2 * w * h + 8 + states.mission.shape[-1]) * 4
+    return 4 * steps * n + 2 * (state + 4 * n * ext_scalars) + resets * state + 8 * n * seeds + 16 * n
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, library_ms=None) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms[0],
+        "bound_by": bound_ms[1],
+        "library_ms": library_ms,
+    }
+
+
 def compare(kernel_out, plain_out, what: str) -> float:
-    """Assert the kernel's rollout equals the plain version's; returns the
-    largest absolute difference over everything compared."""
+    """Assert the kernel's rollout equals the plain version's, ``extra``
+    included; returns the largest absolute difference over everything
+    compared."""
     final_k, rew_k, done_k, chk_k, used_k = kernel_out
     final_p, rew_p, done_p, chk_p, used_p = plain_out
     for f in FIELDS:
         a, b = getattr(final_k, f), getattr(final_p, f)
         check(a.shape == b.shape and torch.equal(a, b), f"{what}: state field {f} differs")
+    check((final_k.extra is None) == (final_p.extra is None), f"{what}: extra on one side only")
+    for k, b in (final_p.extra or {}).items():
+        a = final_k.extra[k]
+        check(a.shape == b.shape and torch.equal(a, b), f"{what}: extra leaf {k} differs")
     for name, a, b in (("done count", done_k, done_p), ("checksum", chk_k, chk_p), ("used", used_k, used_p)):
         check(int(a) == int(b), f"{what}: {name} {int(a)} != {int(b)}")
     rk, rp = float(rew_k), float(rew_p)
@@ -209,6 +292,96 @@ def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int):
     )
     cache = env.batch_reset_cache(n, resets, gen, device)
     return actions, cache, fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+
+
+def replay_counter(env, states, snapshot, compute_obs: bool):
+    """The plain version on the actions and reset seeds that
+    ``fused_rollout`` drew from a generator in state ``snapshot``, on a
+    counter-reset family."""
+    device = states.device
+    gen = torch.Generator(device=device)
+    gen.set_state(snapshot)
+    n = states.step_count.shape[0]
+    actions = torch.randint(0, env.num_actions, (NUM_STEPS, n), generator=gen, device=device, dtype=torch.int32)
+    seeds = draw_seeds(gen, n, device)
+    return actions, seeds, fr.fused_rollout_reference(env, states, None, actions, compute_obs, seeds)
+
+
+def threefry_evaluations(env, env_steps: int, resets: int) -> int:
+    """The threefry evaluations a counter-reset rollout needs: per reset the
+    episode seed and the placement pairs (and Dynamic-Obstacles' walk
+    seed), per env-step one per two walking balls."""
+    if hasattr(env, "n_obstacles"):
+        words = env.n_obstacles + (2 if env.agent_start_pos is None else 0)
+        return resets * (2 + (words + 1) // 2) + env_steps * ((env.n_obstacles + 1) // 2)
+    if hasattr(env, "num_crossings"):
+        return resets * (1 + (3 * env.num_crossings + 1) // 2)
+    return resets * 2
+
+
+def counter_slice(env_id: str, device, card: str) -> dict:
+    """Phase 8, one family: the counter-reset path at bench.py's size."""
+    env = mgt.make(env_id)
+    check(fused_eligible(env, device), f"{env_id} must take the kernel on {device}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    _, states = env.reset(NUM_ENVS, gen)
+    check(states.grid.device == device, f"{env_id}: reset on {states.grid.device}")
+    snap_random = gen.get_state()
+    fr.KERNEL_LAUNCHES = 0
+    out_random = rollout_random(env, states, gen, NUM_STEPS)
+    snap_obs = gen.get_state()
+    out_obs = fr.fused_rollout(env, states, gen, NUM_STEPS, compute_obs=True)
+    torch.cuda.synchronize()
+    launches = fr.KERNEL_LAUNCHES
+    check(launches == 2, f"{env_id}: the slice launched the kernel {launches} times, expected 2")
+
+    final, total_r, total_done, max_used = out_random
+    check(final.grid.shape == (NUM_ENVS, env.width, env.height), f"{env_id}: final grid shape")
+    # Each of these families ends 3.5 to 15 episodes per env in 256 steps
+    # under a random policy (parallel/reset_budget.py's means).
+    check(np.isfinite(float(total_r)) and int(total_done) > NUM_ENVS, f"{env_id}: episode count")
+    check(int(max_used) == 0 and int(out_obs[4]) == 0, f"{env_id}: max_used on the counter path")
+    check(int(final.step_count.max()) < env.max_steps, f"{env_id}: a step count past max_steps")
+    _, _, plain_random = replay_counter(env, states, snap_random, False)
+    err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
+    actions, seeds, plain_obs = replay_counter(env, states, snap_obs, True)
+    err = max(err, compare(out_obs, plain_obs, f"{env_id} fused_rollout compute_obs"))
+
+    def chunk(carry):
+        st, g = carry
+        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS)
+        return (st, g), (r, d, mu)
+
+    resets = resets_for(env, NUM_STEPS)
+    observed = assert_chain_covered(chunk, (states, gen), resets, env)
+    phase(
+        8,
+        f"{env_id} {NUM_ENVS} envs x {NUM_STEPS} steps: {launches} kernel launches, outputs and extra == plain "
+        f"version, {int(total_done)} episodes, reward {float(total_r)}, max used 0 (chain {observed}, R={resets})",
+    )
+
+    times = {}
+    for compute_obs in (False, True):
+        k = partial(fr.fused_rollout_core, env, states, None, actions, compute_obs, seeds)
+        p = partial(fr.fused_rollout_reference, env, states, None, actions, compute_obs, seeds)
+        tp1, tk1, tk2, tp2 = time_ms(p, 1), time_ms(k, 5), time_ms(k, 5), time_ms(p, 1)
+        times[compute_obs] = (min(tk1, tk2), min(tp1, tp2))
+        k_ms, p_ms = times[compute_obs]
+        print(
+            f"steps/s ({card}) {env_id} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: "
+            f"kernel {NUM_ENVS * NUM_STEPS / k_ms * 1e3:.6g} ({k_ms:.4f} ms), plain "
+            f"{NUM_ENVS * NUM_STEPS / p_ms * 1e3:.6g} ({p_ms:.4f} ms), kernel/plain speed {p_ms / k_ms:.3g}x",
+            flush=True,
+        )
+    # Observations off: the state with its extra scalars, the actions and
+    # the seeds move; the threefry evaluations this run's resets need are
+    # integer work at the CUDA cores' rate.
+    scalars = env.fused_ext.n_scalars
+    ops = THREEFRY_OPS * threefry_evaluations(env, NUM_ENVS * NUM_STEPS, int(total_done))
+    return kernel_entry(
+        f"fused_rollout[{env_id}]", SOURCE, REPLACES, launches, err, *times[False],
+        bound(rollout_bytes(states, NUM_STEPS, 0, scalars, seeds=True), ops / CUDA_CORE_OPS_PER_S),
+    )
 
 
 def time_ms(fn, reps: int) -> float:
@@ -283,25 +456,56 @@ def embed_dense_check(device, card: str) -> list[dict]:
             f"plain {times[name][1]:.4f} ms",
             flush=True,
         )
+    # The library yardstick: one embedding_bag over the 148 rows each sample
+    # selects (3 per view cell, 1 for the direction), plus b1, and that
+    # call's autograd backward.
+    rows = onehot_rows(packed, direction)
+    w1l = w1.clone().requires_grad_()
+    lib_out = torch.nn.functional.embedding_bag(rows, w1l, mode="sum") + b1
+    lib_err = float((lib_out.detach().to(torch.bfloat16).float() - out_p.float()).abs().max())
+    check(lib_err <= BF16_ATOL, f"the embedding_bag yardstick differs from the plain version by {lib_err}")
+    def lib_fwd():
+        return torch.nn.functional.embedding_bag(rows, w1, mode="sum") + b1
+
+    lib_bwd = partial(torch.autograd.grad, lib_out, (w1l,), dy.float(), retain_graph=True)
+    library = {"fwd": time_ms(lib_fwd, 10), "bwd": time_ms(lib_bwd, 10)}
+    m, v2 = packed.shape
+    # Each sample adds its 148 selected rows of H columns (forward) or adds
+    # dy into them (backward), in f32 on the CUDA cores.
+    ops = m * rows.shape[1] * PPO_HIDDEN
+    moved = {
+        "fwd": (m * (v2 + 1) + w1.numel() + b1.numel()) * 4 + m * PPO_HIDDEN * 2,
+        "bwd": m * (v2 + 1) * 4 + m * PPO_HIDDEN * 2 + (w1.numel() + b1.numel()) * 4,
+    }
+    for name in times:
+        print(f"embed_dense1 {name} ({card}) library call {library[name]:.4f} ms", flush=True)
     phase(
         6,
         f"embed_dense1 at M={EMBED_SAMPLES}, H={PPO_HIDDEN}: forward max abs err {fwd_err}, "
         f"backward max abs err {bwd_err}, backward bit-identical across calls",
     )
 
-    def entry(name, line, err, ms):
-        return {
-            "name": f"embed_dense1_{name}",
-            "route": "cuda",
-            "source": "minigrid_tpu_torch/ops/csrc/embed_dense.cu",
-            "replaces": f"minigrid_tpu/ops/embed_dense.py:{line}",
-            "launches": 0,
-            "max_abs_err": err,
-            "ms": ms[0],
-            "plain_ms": ms[1],
-        }
+    def entry(name, line, err):
+        return kernel_entry(
+            f"embed_dense1_{name}", "minigrid_tpu_torch/ops/csrc/embed_dense.cu",
+            f"minigrid_tpu/ops/embed_dense.py:{line}", 0, err, *times[name],
+            bound(moved[name], ops / CUDA_CORE_OPS_PER_S), library[name],
+        )
 
-    return [entry("fwd", 103, fwd_err, times["fwd"]), entry("bwd", 115, bwd_err, times["bwd"])]
+    return [entry("fwd", 103, fwd_err), entry("bwd", 115, bwd_err)]
+
+
+def onehot_rows(packed, direction) -> torch.Tensor:
+    """int64 [M, 3*V*V + 1]: the feature rows each sample selects (type,
+    color and clipped state per view cell, then the direction)."""
+    v2 = packed.shape[1]
+    base = torch.arange(v2, device=packed.device) * 20
+    p = packed.long()
+    return torch.cat(
+        [base + (p & 0xFF), base + 11 + ((p >> 8) & 0xFF), base + 17 + ((p >> 16) & 0xFF).clamp(max=2),
+         v2 * 20 + direction.long()[:, None]],
+        dim=1,
+    )
 
 
 def ppo_slice(device, card: str) -> tuple[dict, dict]:
@@ -394,16 +598,26 @@ def ppo_slice(device, card: str) -> tuple[dict, dict]:
             flush=True,
         )
 
-    actor_entry = {
-        "name": "actor_rollout",
-        "route": "cuda",
-        "source": "minigrid_tpu_torch/ops/csrc/actor_rollout.cu",
-        "replaces": "minigrid_tpu/ops/actor_rollout.py:164",
-        "launches": launches_k2,
-        "max_abs_err": err,
-        "ms": k2_ms,
-        "plain_ms": p2_ms,
-    }
+    # The actor kernel's bound: the noise, state and cache read, the state
+    # and the trajectory written, the weights read once; layer 1 adds the
+    # 148 selected rows in f32 on the CUDA cores, layer 2 and the heads are
+    # bf16 products at the tensor cores' rate.
+    n_pos = PPO_STEPS * PPO_ENVS
+    v2 = env.agent_view_size**2
+    moved = (
+        noise.numel() * 4
+        + rollout_bytes(states0, 0, cache.step_count.shape[1])
+        + sum(w.numel() * w.element_size() for w in weights)
+        + n_pos * (v2 * 4 + 5 * 4 + 1)
+    )
+    op_seconds = n_pos * (
+        (3 * v2 + 1) * PPO_HIDDEN / CUDA_CORE_OPS_PER_S
+        + 2 * PPO_HIDDEN * (PPO_HIDDEN + env.num_actions + 1) / BF16_TENSOR_OPS_PER_S
+    )
+    actor_entry = kernel_entry(
+        "actor_rollout", "minigrid_tpu_torch/ops/csrc/actor_rollout.cu", "minigrid_tpu/ops/actor_rollout.py:164",
+        launches_k2, err, k2_ms, p2_ms, bound(moved, op_seconds),
+    )
     return actor_entry, launches_k3
 
 
@@ -435,6 +649,8 @@ def main() -> None:
             f"{spilled} bytes spilled)"
         )
     phase(2, f"kernels loaded after {time.perf_counter() - t0:.1f} s; " + "; ".join(built))
+    if "fused_rollout" in _build.BUILD_INFO:
+        print(ext_report(_build.BUILD_INFO["fused_rollout"][1]), flush=True)
 
     n_files = replay_goldens(device)
     phase(3, f"{n_files} step fixtures and process_vis bit-exact on {device}")
@@ -499,23 +715,19 @@ def main() -> None:
             flush=True,
         )
 
-    k_ms, p_ms = times[False]
-    rollout_entry = {
-        "name": "fused_rollout",
-        "route": "cuda",
-        "source": "minigrid_tpu_torch/ops/csrc/fused_rollout.cu",
-        "replaces": "minigrid_tpu/ops/fused_rollout.py:335",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }
+    # Observations off: the state, the R-slot cache and the actions; the
+    # per-step integer work is a few dozen operations per env.
+    rollout_entry = kernel_entry(
+        "fused_rollout", SOURCE, REPLACES, launches, max_err, *times[False],
+        bound(rollout_bytes(states, NUM_STEPS, resets), 0.0),
+    )
 
     embed_entries = embed_dense_check(device, card)
     actor_entry, launches_k3 = ppo_slice(device, card)
     embed_entries[0]["launches"] = launches_k3["fwd"]
     embed_entries[1]["launches"] = launches_k3["bwd"]
-    summary = {"kernels": [rollout_entry, actor_entry, *embed_entries]}
+    counter_entries = [counter_slice(env_id, device, card) for env_id in COUNTER_IDS]
+    summary = {"kernels": [rollout_entry, *counter_entries, actor_entry, *embed_entries]}
     print(json.dumps(summary), flush=True)
     device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

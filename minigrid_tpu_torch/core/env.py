@@ -4,6 +4,8 @@ Counterpart of ``minigrid_tpu/core/env.py``.  An env instance holds static
 configuration only; every method takes and returns a batched ``EnvState``
 (leading env axis), where the JAX package ``vmap``s single-env functions.
 Randomness comes from an explicit ``torch.Generator`` on the state's device.
+New states go on ``device`` if given, else on the generator's device, else
+on CUDA (``core/state.resolve_device``): the CPU only when asked for.
 
 Auto-reset is fused into ``step``: where an episode ends, the returned state
 is a fresh episode, while ``terminated``/``truncated`` report the episode that
@@ -17,8 +19,9 @@ import torch
 from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.actions import NUM_ACTIONS
 from minigrid_tpu_torch.core.mission import mission_to_text
-from minigrid_tpu_torch.core.state import EnvState, select
+from minigrid_tpu_torch.core.state import EnvState, resolve_device, select
 from minigrid_tpu_torch.core.step import core_step
+from minigrid_tpu_torch.ops.prng import draw_seeds
 
 
 class MiniGridEnv:
@@ -37,6 +40,9 @@ class MiniGridEnv:
     # mission vector is a family constant, so resets never change it.
     fused_no_objects: bool = False
     fused_static_mission: bool = False
+    # The family's twin in the whole-rollout kernel (ops/fused_ext.FusedExt),
+    # or None for a default-hook family.
+    fused_ext = None
 
     def __init__(
         self,
@@ -60,7 +66,14 @@ class MiniGridEnv:
 
     # -- provided by families ------------------------------------------------
     def _generate(self, num_envs: int, generator: torch.Generator | None, device) -> EnvState:
-        raise NotImplementedError
+        """``num_envs`` fresh episodes.  A ``covers_reset`` family's generator
+        is its ext's counter-stream ``reset_block`` at episode ordinal 0, on
+        per-env seeds drawn from ``generator``; others override this."""
+        ext = self.fused_ext
+        if ext is None or not ext.covers_reset:
+            raise NotImplementedError
+        seeds = draw_seeds(generator, num_envs, device)
+        return ext.reset_block(self, seeds, torch.zeros(num_envs, dtype=torch.int32, device=device))
 
     def _map_action(self, action: torch.Tensor) -> torch.Tensor:
         """Remap actions before the core step (e.g. Memory's pickup->toggle,
@@ -87,7 +100,7 @@ class MiniGridEnv:
 
     def reset(self, num_envs: int, generator: torch.Generator | None = None, device=None):
         """``num_envs`` fresh episodes; returns (obs, state)."""
-        state = self._generate(num_envs, generator, device)
+        state = self._generate(num_envs, generator, resolve_device(generator, device))
         return self.observation(state), state
 
     def step_env(self, state: EnvState, action: torch.Tensor):
@@ -113,13 +126,13 @@ class MiniGridEnv:
 
     def reset_cache(self, num_resets: int, generator: torch.Generator | None = None, device=None):
         """``num_resets`` fresh episodes for one env (leading axis R)."""
-        return self._generate(num_resets, generator, device)
+        return self._generate(num_resets, generator, resolve_device(generator, device))
 
     def batch_reset_cache(
         self, num_envs: int, num_resets: int, generator: torch.Generator | None = None, device=None
     ) -> EnvState:
         """Reset cache with leaves [num_envs, num_resets, ...]."""
-        flat = self._generate(num_envs * num_resets, generator, device)
+        flat = self._generate(num_envs * num_resets, generator, resolve_device(generator, device))
         return flat.map(lambda a: a.reshape((num_envs, num_resets) + a.shape[1:]))
 
     def step_cached(self, state: EnvState, action: torch.Tensor, cache: EnvState, used: torch.Tensor):

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from minigrid_tpu_torch.core.constants import EMPTY_CELL, OBJ_EMPTY, WALL_CELL, cell_type
+from minigrid_tpu_torch.core.state import resolve_device
 
 
 def _coords(grid: torch.Tensor):
@@ -26,8 +27,9 @@ def _per_env(v):
 
 
 def empty_grid(n: int, width: int, height: int, device=None) -> torch.Tensor:
-    """All-empty packed int32[N, W, H] grids."""
-    return torch.full((n, width, height), EMPTY_CELL, dtype=torch.int32, device=device)
+    """All-empty packed int32[N, W, H] grids, on CUDA unless ``device`` says
+    otherwise."""
+    return torch.full((n, width, height), EMPTY_CELL, dtype=torch.int32, device=resolve_device(None, device))
 
 
 def wall_rect(grid: torch.Tensor, x: int, y: int, w: int, h: int) -> torch.Tensor:

@@ -5,10 +5,16 @@ the batch written out (``[N, ...]``) where the JAX package ``vmap``s a
 single-env struct.  A reset cache is the same dataclass with leaves
 ``[N, R, ...]``.
 
-There is no ``rng`` field: the families this package covers draw no
-randomness inside an episode (the JAX fused kernel does not thread the key
-chain either, ``minigrid_tpu/ops/fused_rollout.py:17-19``); callers pass a
+There is no ``rng`` field: randomness inside an episode comes from a
+counter-based stream seeded per episode (``ops/prng.py``, carried in
+``extra`` by the families that draw it), as in the JAX fused kernel
+(``minigrid_tpu/ops/fused_rollout.py:17-19``); callers pass a
 ``torch.Generator`` where randomness is drawn.
+
+``extra`` holds a family's own state (Dynamic-Obstacles' obstacle
+positions, say) as a dict of tensors with the same leading batch axes, or
+None.  ``FIELDS`` lists the 11 fixed fields; ``map`` and ``select`` carry
+``extra`` beside them.
 """
 
 from __future__ import annotations
@@ -38,13 +44,15 @@ class EnvState:
     terminated: torch.Tensor  # bool[*B]
     truncated: torch.Tensor  # bool[*B]
     mission: torch.Tensor  # int32[*B, MISSION_DIM]
+    extra: dict[str, torch.Tensor] | None = None  # family state, leaves [*B, ...]
 
     def replace(self, **changes) -> EnvState:
         return dataclasses.replace(self, **changes)
 
     def map(self, fn) -> EnvState:
-        """Apply ``fn`` to every field."""
-        return EnvState(**{f: fn(getattr(self, f)) for f in FIELDS})
+        """Apply ``fn`` to every field and every ``extra`` leaf."""
+        extra = None if self.extra is None else {k: fn(v) for k, v in self.extra.items()}
+        return EnvState(**{f: fn(getattr(self, f)) for f in FIELDS}, extra=extra)
 
     @property
     def agent_pos(self) -> torch.Tensor:
@@ -55,25 +63,40 @@ class EnvState:
         return self.grid.device
 
 
-FIELDS = tuple(f.name for f in dataclasses.fields(EnvState))
+FIELDS = tuple(f.name for f in dataclasses.fields(EnvState) if f.name != "extra")
+
+
+def resolve_device(generator: torch.Generator | None, device=None) -> torch.device:
+    """The device of an entry point's new tensors: ``device`` if given, else
+    the generator's, else CUDA.  A caller that wants the CPU says so."""
+    if device is not None:
+        return torch.device(device)
+    if generator is not None:
+        return generator.device
+    return torch.device("cuda")
 
 
 def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    """Per-env blend: ``a`` where ``mask`` (bool[N]) is set, else ``b``."""
+    """Per-env blend: ``a`` where ``mask`` (bool[N]) is set, else ``b``
+    (``extra`` too: both have it or neither)."""
 
     def pick(x, y):
         m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
         return torch.where(m, x, y)
 
-    return EnvState(**{f: pick(getattr(a, f), getattr(b, f)) for f in FIELDS})
+    if (a.extra is None) != (b.extra is None):
+        raise ValueError("select: one state has extra and the other has not")
+    extra = None if a.extra is None else {k: pick(v, b.extra[k]) for k, v in a.extra.items()}
+    return EnvState(**{f: pick(getattr(a, f), getattr(b, f)) for f in FIELDS}, extra=extra)
 
 
-def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None):
+def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None, extra=None):
     """Fresh batched episodes with zeroed episode counters.
 
     ``grid`` is packed int32[N, W, H] or the reference's uint8[N, W, H, 3]
     encoding; ``contains`` likewise packed or uint8[N, W, H, 2].  The other
-    arguments are per-env tensors or values shared by every env.
+    arguments are per-env tensors or values shared by every env; ``extra``
+    is the family's state, leaves [N, ...].
     """
     if grid.dim() == 4 and grid.shape[-1] == 3:
         grid = pack_grid(grid)
@@ -103,4 +126,5 @@ def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None
         terminated=false,
         truncated=false.clone(),
         mission=per_env(0 if mission is None else mission, MISSION_DIM),
+        extra=extra,
     )

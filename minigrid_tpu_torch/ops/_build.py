@@ -1,7 +1,7 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` are headers
-they share).  The first call of
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` and
+``csrc/ext/*.cuh`` are headers they share).  The first call of
 ``load_library(name)`` compiles it for Hopper (``sm_90a``) into
 ``ops/build/<name>-<hash>.so``, keyed by a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is reused.  Building needs
@@ -57,8 +57,8 @@ def load_library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256()
-    for path in sorted(CSRC.iterdir()):
-        digest.update(path.name.encode() + path.read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(CSRC)).encode() + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if not out.exists():

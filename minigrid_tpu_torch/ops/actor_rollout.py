@@ -107,10 +107,12 @@ def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
 
 def supports_fused_actor(env, device, num_envs: int, hidden: int) -> bool:
     """Whether the kernel runs this configuration: what ``parallel/vector.
-    fused_eligible`` asks of the random-policy kernel, plus a compiled
-    hidden size, at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
+    fused_eligible`` asks of the random-policy kernel, plus no fused ext
+    (the actor kernel has none of their hooks yet), a compiled hidden size,
+    at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
     return (
         fused_eligible(env, device)
+        and env.fused_ext is None
         and hidden in COMPILED_HIDDEN
         and 1 <= env.num_actions <= MAX_ACTIONS
         and num_envs % ENVS_PER_BLOCK == 0

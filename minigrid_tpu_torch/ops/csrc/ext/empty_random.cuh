@@ -1,0 +1,25 @@
+// Random-start Empty: identity step hooks and the counter-reset level
+// (minigrid_tpu_torch/envs/empty.py::_EmptyRandomResetExt; the JAX
+// package's minigrid_tpu/envs/empty.py::_EmptyRandomResetExt): the
+// walls-and-goal scaffold, the agent on the place_draw(e, 0).w0-th empty
+// cell, its direction uniform_index(place_draw(e, 0).w1, 4).
+
+#pragma once
+
+#include "../fused_ext.cuh"
+
+namespace minigrid {
+
+struct EmptyRandomExt : NoExt {
+  static constexpr bool COUNTER_RESET = true;
+
+  __device__ static void reset(const ExtParams& p, const Words& e, int* grid, size_t N, int W, int H,
+                               Scalars& s, Extra&) {
+    walled_plane(grid, N, W, H);
+    const Words b = threefry2x32(e.w0, e.w1, PLACE_TAG, 0u);
+    const int lin = draw_free_cell(grid, N, W * H, -1, b.w0);
+    s = fresh_scalars(lin / H, lin % H, uniform_index(b.w1, 4), p.max_steps);
+  }
+};
+
+}  // namespace minigrid

@@ -1,0 +1,119 @@
+// The family-extension interface of the whole-rollout kernel
+// (fused_rollout.cu) and the helpers of the counter-reset stream.
+//
+// Device side of minigrid_tpu_torch/ops/fused_ext.py (the JAX package's
+// minigrid_tpu/ops/fused_ext.py).  An ext is a struct with
+//   PRE_STEP, COUNTER_RESET  compile-time switches of the kernel's loop;
+//   MAX_K                    the most extra int32 scalars it carries;
+//   Extra                    its extra state, held in registers;
+//   load / store             Extra from / to the env's column of the
+//                            env-minor [K, N] scalar array;
+//   map_action               the action the core step sees;
+//   pre_step                 dynamics before the agent acts, on the
+//                            pre-step scalars (step count not yet counted);
+//   post_step                sees the unmapped action, may reshape the
+//                            reward, returns extra termination;
+//   reset                    a fresh level from an episode seed (used with
+//                            COUNTER_RESET in place of the reset cache).
+// NoExt is the default-hook family; a family derives from it and hides
+// what it changes, so each family is one header under ext/.  Runtime family
+// parameters come in ExtParams, by value.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "minigrid_env.cuh"
+#include "prng.cuh"
+
+namespace minigrid {
+
+constexpr int COLOR_GREEN = 1;
+constexpr int COLOR_BLUE = 2;
+constexpr int EMPTY_CELL = OBJ_EMPTY;
+constexpr int GOAL_CELL = OBJ_GOAL | (COLOR_GREEN << 8);
+constexpr int BALL_CELL = OBJ_BALL | (COLOR_BLUE << 8);
+
+// Domain-separation tags of the counter-reset stream (ops/fused_ext.py).
+constexpr uint32_t RESET_TAG = 0x72657365u;  // "rese"
+constexpr uint32_t PLACE_TAG = 0x706C6163u;  // "plac"
+
+// The kernel's ext ids (FusedExt.kernel_id).
+enum { EXT_NONE = 0, EXT_EMPTY_RANDOM = 1, EXT_CROSSING = 2, EXT_DYNAMIC_OBSTACLES = 3 };
+
+struct ExtParams {
+  int max_steps;
+  int n_obstacles;
+  int num_crossings;
+  int obstacle_cell;
+  int start_x, start_y;  // start_x < 0: a random start
+  int start_dir;
+};
+
+// The sub-seed of an env's episode with ordinal `ep` (its resets so far).
+__device__ __forceinline__ Words episode_seed(uint32_t s0, uint32_t s1, int ep) {
+  return threefry2x32(s0, s1, (uint32_t)ep, RESET_TAG);
+}
+
+// Placement word k of an episode: word k % 2 of place_draw(e, k / 2).
+__device__ __forceinline__ uint32_t place_word(const Words& e, int k) {
+  const Words pair = threefry2x32(e.w0, e.w1, PLACE_TAG, (uint32_t)(k >> 1));
+  return (k & 1) ? pair.w1 : pair.w0;
+}
+
+// The walls-and-goal scaffold (walled_plane with the goal at (W-2, H-2))
+// written into the env's grid column.
+__device__ __forceinline__ void walled_plane(int* grid, size_t N, int W, int H) {
+  for (int x = 0; x < W; ++x) {
+    for (int y = 0; y < H; ++y) {
+      const bool border = x == 0 || y == 0 || x == W - 1 || y == H - 1;
+      grid[(size_t)(x * H + y) * N] = border ? WALL_CELL : EMPTY_CELL;
+    }
+  }
+  grid[(size_t)((W - 2) * H + H - 2) * N] = GOAL_CELL;
+}
+
+// Cells of the grid column that are empty and not cell `skip` (-1: none).
+__device__ __forceinline__ int count_free(const int* grid, size_t N, int WH, int skip) {
+  int count = 0;
+  for (int k = 0; k < WH; ++k) count += (grid[(size_t)k * N] & 0xFF) == OBJ_EMPTY && k != skip;
+  return count;
+}
+
+// nth_true_index over those cells: the linear index of the target-th
+// (0-based), or 0 where there are no more than target of them.
+__device__ __forceinline__ int nth_free(const int* grid, size_t N, int WH, int skip, int target) {
+  for (int k = 0; k < WH; ++k) {
+    if ((grid[(size_t)k * N] & 0xFF) == OBJ_EMPTY && k != skip) {
+      if (target == 0) return k;
+      --target;
+    }
+  }
+  return 0;
+}
+
+// A uniform free cell (place_obj's acceptance rule), from one word.
+__device__ __forceinline__ int draw_free_cell(const int* grid, size_t N, int WH, int skip, uint32_t bits) {
+  return nth_free(grid, N, WH, skip, uniform_index(bits, max(count_free(grid, N, WH, skip), 1)));
+}
+
+// The scalar rows of a fresh episode.
+__device__ __forceinline__ Scalars fresh_scalars(int ax, int ay, int d, int max_steps) {
+  return Scalars{ax, ay, d, 0, 0, max_steps, 0, 0};
+}
+
+struct NoExt {
+  static constexpr bool PRE_STEP = false;
+  static constexpr bool COUNTER_RESET = false;
+  static constexpr int MAX_K = 0;
+  struct Extra {};
+
+  __device__ static Extra load(const int*, int, size_t, const ExtParams&) { return Extra{}; }
+  __device__ static void store(int*, int, size_t, const ExtParams&, const Extra&) {}
+  __device__ static int map_action(int action) { return action; }
+  __device__ static void pre_step(const ExtParams&, int*, size_t, int, int, const Scalars&, Extra&) {}
+  __device__ static bool post_step(const ExtParams&, int, float&, const Extra&) { return false; }
+  __device__ static void reset(const ExtParams&, const Words&, int*, size_t, int, int, Scalars&, Extra&) {}
+};
+
+}  // namespace minigrid

@@ -1,24 +1,31 @@
 // Whole-rollout random-policy kernel for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel
-// for families without a fused ext: T environment steps per env with the
-// state kept on the card, each step being the core transition
-// (_step_block), the auto-reset from the R-slot reset cache (slot
-// min(used, R-1), taken with the pre-increment `used`) and, when
-// COMPUTE_OBS, the packed-observation checksum of the post-reset state
+// Replaces the Pallas TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel:
+// T environment steps per env with the state kept on the card, each step
+// being the family's pre-step hook, the core transition (_step_block) on the
+// mapped action, the post-step hook, the auto-reset and, when COMPUTE_OBS,
+// the packed-observation checksum of the post-reset state
 // (_view_bits_block and _obs_checksum_block: view cells, the carried object
-// at the agent cell, the bit-parallel occlusion flood).
+// at the agent cell, the bit-parallel occlusion flood).  The auto-reset
+// either takes reset-cache slot min(used, R-1) (NoExt families) or, for a
+// COUNTER_RESET ext, generates a fresh level in place from the env's seed
+// and episode ordinal `used` (ext.reset_block); both use the pre-increment
+// `used`.
 //
 // Design.  One thread runs one env through all T steps; the transition,
 // the cache reset and the view are the device functions of minigrid_env.cuh,
-// which the actor kernel (actor_rollout.cu) shares.  Every array is
-// env-minor ([..., N]): grid and contents [W*H, N], the 8 scalar rows
-// [8, N], mission [M, N], cache [R, W*H, N] / [R, 8, N] / [R, M, N],
-// actions [T, N].  The state lives in the output buffers, which the wrapper
-// initialises from the input state; the kernel updates them in place and
-// allocates nothing.  NO_OBJECTS, STATIC_MISSION, SEE_THROUGH and
+// which the actor kernel (actor_rollout.cu) shares, and the family hooks
+// are an Ext struct (fused_ext.cuh, one header per family under ext/)
+// picked at launch by ext_id.  Every array is env-minor ([..., N]): grid and
+// contents [W*H, N], the 8 scalar rows [8, N], mission [M, N], the ext's
+// extra scalars [K, N], seeds [2, N], cache [R, W*H, N] / [R, 8, N] /
+// [R, M, N], actions [T, N].  The state lives in the output buffers, which
+// the wrapper initialises from the input state; the kernel updates them in
+// place and allocates nothing.  NO_OBJECTS, STATIC_MISSION, SEE_THROUGH and
 // COMPUTE_OBS are compile-time switches, as in the TPU kernel; the view
-// size V is a template parameter (7 is instantiated).
+// size V is a template parameter (7 is instantiated).  Ext families are
+// instantiated with NO_OBJECTS and STATIC_MISSION (their reset writes
+// neither contents nor mission; the wrapper requires both flags).
 //
 // What bounds it.  The per-step work is a handful of integer operations
 // around data-dependent loads: the front cell (and its contents), and with
@@ -27,10 +34,17 @@
 // loads are gathers of one 4-byte word per 32-byte sector out of L2 (the
 // Empty-8x8 grids of 65536 envs are 16 MiB and stay resident in the 50 MB
 // L2).  The kernel is bound by those gathered loads and by the latency of
-// each thread's sequential chain, at one warp per 32 envs.  What a later
+// each thread's sequential chain, at one warp per 32 envs.  The ext paths
+// add, per step, Dynamic-Obstacles' walk (9 gathered loads and 2 stores per
+// ball, one threefry per two balls), and per episode end the counter reset:
+// W*H coalesced stores of the scaffold (all threads of a warp that reset
+// write the same cell index), 2-5 threefry evaluations of 20 rounds, and
+// for Dynamic-Obstacles two W*H scans per placed ball.  The resets branch
+// within a warp, so a warp runs as long as its slowest env.  What a later
 // change could do: stage each block's grids in shared memory (an env-minor
 // [W*H][blockDim] tile is free of bank conflicts whatever cell each thread
-// reads), and spread one env over several threads of a warp for the view.
+// reads), spread one env over several threads of a warp for the view, and
+// count free cells from the scaffold's closed form instead of scanning.
 //
 // Bit-exactness with the JAX package: the per-env checksum is accumulated in
 // uint32 so that it wraps as int32 does in JAX.
@@ -38,6 +52,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ext/crossing.cuh"
+#include "ext/dynamic_obstacles.cuh"
+#include "ext/empty_random.cuh"
+#include "fused_ext.cuh"
 #include "minigrid_env.cuh"
 
 namespace {
@@ -52,19 +70,23 @@ struct Args {
   int* cont;           // [W*H, N]
   int* sc;             // [NUM_SC, N]
   int* mis;            // [M, N]
-  const int* cgrid;    // [R, W*H, N]
+  const int* cgrid;    // [R, W*H, N]  (NoExt families)
   const int* ccont;    // [R, W*H, N]
   const int* csc;      // [R, NUM_SC, N]
   const int* cmis;     // [R, M, N]
-  int* used;           // [N] reset-cache slots consumed
+  int* scal;           // [K, N] the ext's extra scalars, in and out
+  const int* seeds;    // [2, N] counter-reset seeds (COUNTER_RESET exts)
+  int* used;           // [N] resets so far (cache slots consumed)
   int* obs;            // [N] observation checksum (int32 wraparound)
   float* rew;          // [N] reward sum
   int* done;           // [N] episodes ended
   int W, H, R, M, T, N;
 };
 
-template <int V, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
-__global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a) {
+template <int V, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
+__global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const ExtParams p) {
+  static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
+                "a counter reset writes neither contents nor mission");
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= a.N) return;
   const size_t N = (size_t)a.N;
@@ -79,17 +101,30 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a) {
   const int* act = a.actions + n;
 
   Scalars s = load_scalars(sc, N);
+  typename Ext::Extra x = Ext::load(a.scal, n, N, p);
+  uint32_t seed0 = 0, seed1 = 0;
+  if constexpr (Ext::COUNTER_RESET) {
+    seed0 = (uint32_t)a.seeds[n];
+    seed1 = (uint32_t)a.seeds[N + n];
+  }
   int used = 0, done_count = 0;
   uint32_t obs_sum = 0;
   float rew_sum = 0.0f;
 
   for (int t = 0; t < a.T; ++t) {
-    const float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, act[(size_t)t * N]);
+    const int action = act[(size_t)t * N];
+    if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, W, H, s, x);
+    float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, Ext::map_action(action));
+    if (Ext::post_step(p, action, reward, x)) s.term = 1;
     const bool done = s.term || s.trunc;
     rew_sum += reward;
     done_count += done;
     if (done) {
-      cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+      if constexpr (Ext::COUNTER_RESET) {
+        Ext::reset(p, episode_seed(seed0, seed1, used), grid, N, W, H, s, x);
+      } else {
+        cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+      }
       used += 1;
     }
     if (COMPUTE_OBS) {
@@ -105,43 +140,91 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a) {
   }
 
   store_scalars(sc, N, s);
+  Ext::store(a.scal, n, N, p, x);
   a.used[n] = used;
   a.obs[n] = (int)obs_sum;
   a.rew[n] = rew_sum;
   a.done[n] = done_count;
 }
 
-// Picks the instantiation for the runtime switches, one flag at a time.
-template <int V, bool... Fixed>
-void dispatch(const Args& a, const int* flags, cudaStream_t stream) {
+// Picks the instantiation for the runtime switches, one flag at a time;
+// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH, COMPUTE_OBS.
+template <int V, class Ext, bool... Fixed>
+void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
   if constexpr (sizeof...(Fixed) == 4) {
     const int blocks = (a.N + THREADS - 1) / THREADS;
-    rollout_kernel<V, Fixed...><<<blocks, THREADS, 0, stream>>>(a);
+    rollout_kernel<V, Ext, Fixed...><<<blocks, THREADS, 0, stream>>>(a, p);
   } else {
     if (flags[sizeof...(Fixed)]) {
-      dispatch<V, Fixed..., true>(a, flags, stream);
+      dispatch<V, Ext, Fixed..., true>(a, p, flags, stream);
     } else {
-      dispatch<V, Fixed..., false>(a, flags, stream);
+      dispatch<V, Ext, Fixed..., false>(a, p, flags, stream);
     }
+  }
+}
+
+// Whether the ext's runtime parameters fit the compiled slots.
+bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
+  switch (ext_id) {
+    case EXT_EMPTY_RANDOM:
+      return K == 0 && W >= 3 && H >= 3;
+    case EXT_CROSSING: {
+      const int n_cand = (H > 3 ? (H - 3) / 2 : 0) + (W > 3 ? (W - 3) / 2 : 0);
+      return K == 0 && p.num_crossings >= 0 && p.num_crossings <= MAX_CROSSINGS &&
+             p.num_crossings <= n_cand && n_cand <= MAX_CROSSING_CANDIDATES;
+    }
+    case EXT_DYNAMIC_OBSTACLES:
+      return p.n_obstacles >= 0 && p.n_obstacles <= MAX_OBSTACLES && K == 2 * p.n_obstacles + 3 &&
+             p.start_x < W && p.start_y < H;
+    default:
+      return false;
   }
 }
 
 }  // namespace
 
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal and seeds unused);
+// a counter-reset ext takes seeds and K extra scalars (R = 0, no cache).
 extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, int* used, int* obs, float* rew, int* done,
-                                    int W, int H, int V, int R, int M, int T, int N,
-                                    int no_objects, int static_mission, int see_through,
-                                    int compute_obs, void* stream) {
-  if (V != 7 || W < 1 || H < 1 || R < 1 || M < 0 || T < 0 || N < 0) {
+                                    const int* cmis, int* scal, const int* seeds, int* used,
+                                    int* obs, float* rew, int* done, int W, int H, int V, int R,
+                                    int M, int T, int N, int K, int no_objects,
+                                    int static_mission, int see_through, int compute_obs,
+                                    int ext_id, int max_steps, int n_obstacles, int num_crossings,
+                                    int obstacle_cell, int start_x, int start_y, int start_dir,
+                                    void* stream) {
+  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
+  if (ext_id == EXT_NONE) {
+    if (R < 1 || K != 0) return (int)cudaErrorInvalidValue;
+  } else if (R != 0 || !no_objects || !static_mission || seeds == nullptr ||
+             (K > 0 && scal == nullptr) || !ext_params_ok(ext_id, p, W, H, K)) {
     return (int)cudaErrorInvalidValue;
   }
   if (N == 0) return (int)cudaSuccess;
-  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, used, obs, rew, done,
-               W, H, R, M, T, N};
+  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds,
+               used, obs, rew, done, W, H, R, M, T, N};
   const int flags[4] = {no_objects, static_mission, see_through, compute_obs};
-  dispatch<7>(a, flags, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ext_id) {
+    case EXT_NONE:
+      dispatch<7, NoExt>(a, p, flags, st);
+      break;
+    case EXT_EMPTY_RANDOM:
+      dispatch<7, EmptyRandomExt, true, true>(a, p, flags, st);
+      break;
+    case EXT_CROSSING:
+      dispatch<7, CrossingExt, true, true>(a, p, flags, st);
+      break;
+    case EXT_DYNAMIC_OBSTACLES:
+      dispatch<7, DynamicObstaclesExt, true, true>(a, p, flags, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

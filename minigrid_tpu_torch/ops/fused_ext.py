@@ -1,0 +1,110 @@
+"""Family extensions of the whole-rollout kernel: the Python side.
+
+Counterpart of ``minigrid_tpu/ops/fused_ext.py``.  The kernel
+(``csrc/fused_rollout.cu``) natively runs the default-hook transition.  A
+family whose dynamics differ (``_pre_step``, ``_map_action``,
+``_post_step``) or whose levels the kernel regenerates itself
+(``covers_reset``) publishes a ``FusedExt``: a twin of its hooks compiled
+into the kernel (``csrc/ext/*.cuh``, picked by ``kernel_id``), the packing
+of its ``EnvState.extra`` into int32 per-env scalars, and the plain
+PyTorch version of its in-kernel level generator, ``reset_block``.
+
+The counter-reset stream: every episode of an env draws from
+``episode_seed(seed, ordinal)``, where ``seed`` is two int32 words fixed per
+env for a rollout and ``ordinal`` counts the env's resets so far; placement
+draws within the episode are ``place_draw(episode_seed, j)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from minigrid_tpu_torch.core.constants import EMPTY_CELL, WALL_CELL
+from minigrid_tpu_torch.core.state import EnvState
+from minigrid_tpu_torch.ops.prng import threefry2x32
+
+# Domain-separation tags of the counter-reset stream (the JAX package's
+# values): the episode sub-seed hashes the ordinal with RESET_TAG, and
+# placement draws use PLACE_TAG as the first counter word, so they never
+# collide with the obstacle walk's (step_count, i) counters.
+RESET_TAG = 0x72657365  # "rese"
+PLACE_TAG = 0x706C6163  # "plac"
+
+
+class FusedExt:
+    """Base family extension: no extra state, identity hooks.
+
+    ``kernel_id`` names the compiled CUDA twin (``csrc/fused_ext.cuh``,
+    ``EXT_*``), or is None where the kernel has none, and then the kernel's
+    wrapper raises for the family.  ``pack_extra``/``unpack_extra`` are
+    mutually inverse and take any leading batch shape.
+    """
+
+    n_scalars: int = 0  # int32 per-env extra scalars carried by the kernel
+    n_planes: int = 0  # int32 [W*H] per-env extra planes (none ported)
+    # The family's ``_pre_step`` is the kernel's ``pre_step`` hook.
+    covers_pre_step: bool = False
+    # The kernel regenerates a fresh level at every episode end from the
+    # counter stream (``reset_block``), with no reset cache.
+    covers_reset: bool = False
+    kernel_id: int | None = None
+
+    def pack_extra(self, env, extra) -> torch.Tensor | None:
+        """``extra`` (leaves [..., inner]) -> int32 [..., n_scalars]."""
+        return None
+
+    def unpack_extra(self, env, scal: torch.Tensor | None):
+        """Inverse of ``pack_extra``."""
+        return None
+
+    def kernel_params(self, env) -> tuple[int, ...] | None:
+        """The kernel's by-value family parameters (``ExtParams`` in
+        ``csrc/fused_ext.cuh``): max_steps, n_obstacles, num_crossings,
+        obstacle_cell, start_x, start_y (-1: a random start), start_dir; or
+        None where the family's sizes exceed the compiled slots."""
+        return (env.max_steps, 0, 0, 0, -1, -1, 0)
+
+    def reset_block(self, env, seeds: torch.Tensor, ep_idx: torch.Tensor) -> EnvState:
+        """Fresh episodes from the counter stream (``covers_reset`` only):
+        ``seeds`` int32 [N, 2], ``ep_idx`` the episode ordinals [N].  The
+        plain version of the kernel's reset, bit for bit."""
+        raise NotImplementedError
+
+
+def episode_seed(seeds: torch.Tensor, ep_idx) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-episode sub-seed (two uint32 words in int64) of per-env
+    ``seeds`` int32 [N, 2] at episode ordinals ``ep_idx`` [N]."""
+    return threefry2x32(seeds[:, 0], seeds[:, 1], ep_idx, RESET_TAG)
+
+
+def place_draw(e0: torch.Tensor, e1: torch.Tensor, j: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The j-th pair of placement words of an episode."""
+    return threefry2x32(e0, e1, PLACE_TAG, j)
+
+
+def place_words(e0: torch.Tensor, e1: torch.Tensor, count: int) -> list[torch.Tensor]:
+    """The first ``count`` placement words of an episode, in draw order."""
+    words: list[torch.Tensor] = []
+    for j in range((count + 1) // 2):
+        words.extend(place_draw(e0, e1, j))
+    return words[:count]
+
+
+def nth_true_index(m: torch.Tensor, target: torch.Tensor, fallback) -> torch.Tensor:
+    """Per row of bool [N, C] ``m``, the index of its ``target``-th (0-based)
+    set entry, or ``fallback`` where the row has no more than ``target``
+    set entries.  Returns int64 [N]."""
+    hit = m & (m.long().cumsum(dim=1) - 1 == target[:, None])
+    return torch.where(hit.any(dim=1), hit.long().argmax(dim=1), torch.as_tensor(fallback).long())
+
+
+def walled_plane(n: int, width: int, height: int, device, extra_cells=()) -> torch.Tensor:
+    """Packed grids int32 [N, W*H] (cell (x, y) at x*H + y): border walls,
+    empty inside, then the (x, y, cell) ``extra_cells``."""
+    xs = torch.arange(width, device=device)[:, None]
+    ys = torch.arange(height, device=device)[None, :]
+    border = (xs == 0) | (ys == 0) | (xs == width - 1) | (ys == height - 1)
+    plane = torch.where(border, WALL_CELL, EMPTY_CELL).to(torch.int32).reshape(-1)
+    for x, y, cell in extra_cells:
+        plane[x * height + y] = cell
+    return plane.expand(n, -1).clone()

@@ -1,12 +1,15 @@
 """Whole-rollout fused kernel: T random-policy steps with the state on the card.
 
-Port of ``minigrid_tpu/ops/fused_rollout.py`` for families without a fused
-ext.  The kernel (``csrc/fused_rollout.cu``, CUDA C++ for Hopper) replaces
-the Pallas kernel ``_rollout_kernel``: per env it runs the core transition,
-the auto-reset from an R-slot reset cache and, with ``compute_obs``, a
-checksum of every packed observation (the sum of the visible view cells,
-wrapping at int32), so that observations are consumed without being
-written out.
+Port of ``minigrid_tpu/ops/fused_rollout.py``.  The kernel
+(``csrc/fused_rollout.cu``, CUDA C++ for Hopper) replaces the Pallas kernel
+``_rollout_kernel``: per env it runs the family's hooks around the core
+transition, the auto-reset and, with ``compute_obs``, a checksum of every
+packed observation (the sum of the visible view cells, wrapping at int32),
+so that observations are consumed without being written out.  Families
+without a fused ext reset from an R-slot reset cache; a ``covers_reset``
+ext with a compiled twin (``FusedExt.kernel_id``: random-start Empty,
+Crossing, Dynamic-Obstacles) regenerates a fresh level in the kernel from
+per-env seeds, with no cache.
 
 ``fused_rollout_core`` dispatches on the device of the state: CUDA tensors
 launch the kernel (or raise), CPU tensors run ``fused_rollout_reference``,
@@ -24,25 +27,53 @@ from minigrid_tpu_torch.core.env import MiniGridEnv, cache_slot
 from minigrid_tpu_torch.core.obs import view_and_vis
 from minigrid_tpu_torch.core.state import EnvState, select
 from minigrid_tpu_torch.ops._build import load_library
+from minigrid_tpu_torch.ops.prng import draw_seeds
 
-# View sizes the CUDA source instantiates (every registered ext-free family
-# uses 7).
+# View sizes the CUDA source instantiates (every registered family uses 7).
 COMPILED_VIEW_SIZES = (7,)
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 
 
 def supports_fused(env) -> bool:
-    """True if the family's transition is the default-hook core step and its
-    observation the default one: what the kernel computes."""
+    """True if the kernel can run the family's transition: the default-hook
+    core step, or a fused ext (``ops/fused_ext.py``) that twins its hooks,
+    ``_pre_step`` included where it overrides that; the observation must be
+    the default one (``minigrid_tpu/ops/fused_rollout.py:536-555``)."""
     cls = type(env)
+    if cls.observation is not MiniGridEnv.observation:
+        return False
+    ext = env.fused_ext
+    if ext is not None:
+        return ext.covers_pre_step or cls._pre_step is MiniGridEnv._pre_step
     return (
         cls._pre_step is MiniGridEnv._pre_step
         and cls._post_step is MiniGridEnv._post_step
         and cls._map_action is MiniGridEnv._map_action
-        and cls.observation is MiniGridEnv.observation
+    )
+
+
+def counter_reset(env) -> bool:
+    """Whether the family regenerates levels from the counter stream
+    (``FusedExt.covers_reset``) instead of a reset cache."""
+    return env.fused_ext is not None and env.fused_ext.covers_reset
+
+
+def compiled_ext(env) -> bool:
+    """Whether the CUDA kernel has the family's ext: none needed, or a
+    compiled counter-reset twin (``kernel_id``) of a family without objects
+    and with a constant mission, whose sizes fit the compiled slots."""
+    ext = env.fused_ext
+    if ext is None:
+        return True
+    return (
+        ext.kernel_id is not None
+        and ext.covers_reset
+        and env.fused_no_objects
+        and env.fused_static_mission
+        and ext.kernel_params(env) is not None
     )
 
 
@@ -62,32 +93,57 @@ def fused_rollout(
 ):
     """Run ``num_steps`` uniform-random steps of every env.
 
-    Draws the action stream [T, N] and then an R-slot reset cache from
-    ``generator`` (on the states' device).  Returns ``(final_states,
-    total_reward, episodes_finished, obs_checksum, max_used)``; ``max_used``
-    is the most cache slots any env consumed, which callers hold to R
-    (parallel/reset_budget).
+    Draws the action stream [T, N] from ``generator`` (on the states'
+    device), then either the per-env counter-reset seeds int32 [N, 2]
+    (``covers_reset`` families) or an R-slot reset cache.  Returns
+    ``(final_states, total_reward, episodes_finished, obs_checksum,
+    max_used)``; ``max_used`` is the most cache slots any env consumed,
+    which callers hold to R (parallel/reset_budget), and 0 on the counter
+    path, which has no cache to run out.
     """
     n, device = states.step_count.shape[0], states.device
     actions = torch.randint(
         0, env.num_actions, (num_steps, n), generator=generator, device=device, dtype=torch.int32
     )
+    if counter_reset(env):
+        return fused_rollout_core(env, states, None, actions, compute_obs, draw_seeds(generator, n, device))
     cache = env.batch_reset_cache(n, resets_per_chunk, generator, device)
     return fused_rollout_core(env, states, cache, actions, compute_obs)
 
 
-def fused_rollout_core(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compute_obs: bool = True):
+def fused_rollout_core(
+    env,
+    states: EnvState,
+    cache: EnvState | None,
+    actions: torch.Tensor,
+    compute_obs: bool = True,
+    reset_seeds: torch.Tensor | None = None,
+):
     """The rollout over explicit ``actions`` int32[T, N] and reset ``cache``
-    (leaves [N, R, ...]): the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    (leaves [N, R, ...]), or, for ``covers_reset`` families, ``cache=None``
+    and ``reset_seeds`` int32 [N, 2]: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if states.device.type == "cpu":
-        return fused_rollout_reference(env, states, cache, actions, compute_obs)
-    return _launch(env, states, cache, actions, compute_obs)
+        return fused_rollout_reference(env, states, cache, actions, compute_obs, reset_seeds)
+    return _launch(env, states, cache, actions, compute_obs, reset_seeds)
 
 
-def fused_rollout_reference(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compute_obs: bool = True):
+def fused_rollout_reference(
+    env,
+    states: EnvState,
+    cache: EnvState | None,
+    actions: torch.Tensor,
+    compute_obs: bool = True,
+    reset_seeds: torch.Tensor | None = None,
+):
     """Plain PyTorch version of the kernel, on any device: a loop over T of
-    the batched step, the cache blend and the observation checksum."""
+    the batched step (family hooks included), the auto-reset and the
+    observation checksum.  The auto-reset blends cache slot min(used, R-1),
+    or the ext's ``reset_block`` at episode ordinal ``used``, both taken
+    with the pre-increment ``used``."""
+    counter = counter_reset(env)
+    if counter and reset_seeds is None:
+        raise ValueError(f"{type(env).__name__} regenerates levels from reset_seeds; pass them")
     n = states.step_count.shape[0]
     device = states.device
     used = torch.zeros(n, dtype=torch.int32, device=device)
@@ -100,7 +156,8 @@ def fused_rollout_reference(env, states: EnvState, cache: EnvState, actions: tor
         done = stepped.terminated | stepped.truncated
         rew_sum = rew_sum + reward
         done_count = done_count + done.int()
-        st = select(done, cache_slot(cache, used), stepped)
+        fresh = env.fused_ext.reset_block(env, reset_seeds, used) if counter else cache_slot(cache, used)
+        st = select(done, fresh, stepped)
         used = used + done.int()
         if compute_obs:
             cells, vis = view_and_vis(st, env.agent_view_size, env.see_through_walls)
@@ -110,7 +167,7 @@ def fused_rollout_reference(env, states: EnvState, cache: EnvState, actions: tor
         rew_sum.sum(),
         wrap_int32(done_count.sum(dtype=torch.int64)),
         wrap_int32(checksum.sum()),
-        used.max(),
+        torch.zeros((), dtype=torch.int32, device=device) if counter else used.max(),
     )
 
 
@@ -119,35 +176,40 @@ def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
         raise ValueError(f"{what} kernel: {message}")
 
 
-def check_env_and_state(env, states: EnvState, cache: EnvState, what: str) -> int:
+def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str, ext_ok: bool = False) -> int:
     """Raise unless a whole-rollout kernel takes this env, state and reset
-    cache (CUDA, default hooks, no ext, a compiled view size, int32 leaves of
-    the right shapes on one device); returns R."""
+    cache (CUDA, hooks it runs, a compiled view size, int32 leaves of the
+    right shapes on one device); returns R, which is 0 for a counter-reset
+    family (``cache`` None).  ``ext_ok``: the kernel runs the compiled fused
+    exts (``compiled_ext``); otherwise every ext is refused."""
     device = states.device
+    name = type(env).__name__
     _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)", what)
-    _require(supports_fused(env), f"{type(env).__name__} has step hooks the kernel does not run", what)
-    _require(getattr(env, "fused_ext", None) is None, "fused exts are not ported yet", what)
+    _require(supports_fused(env), f"{name} has step hooks the kernel does not run", what)
+    if env.fused_ext is not None:
+        _require(ext_ok, f"{name}'s fused ext is not ported to this kernel yet", what)
+        _require(compiled_ext(env), f"{name}'s fused ext has no compiled CUDA twin", what)
     v = env.agent_view_size
     _require(v in COMPILED_VIEW_SIZES, f"view size {v} has no compiled instantiation", what)
     n = states.step_count.shape[0]
     w, h = env.width, env.height
-    r = cache.step_count.shape[1] if cache.step_count.dim() == 2 else 0
     m = states.mission.shape[-1]
-    _require(r >= 1 and cache.step_count.shape[0] == n, "cache leaves must be [N, R >= 1, ...]", what)
-    for name, x, shape in (
-        ("grid", states.grid, (n, w, h)),
-        ("contains", states.contains, (n, w, h)),
-        ("mission", states.mission, (n, m)),
-        ("cache grid", cache.grid, (n, r, w, h)),
-        ("cache contains", cache.contains, (n, r, w, h)),
-        ("cache mission", cache.mission, (n, r, m)),
-    ):
-        _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}", what)
-    every = [getattr(states, f) for f in ("grid", "contains", "mission")] + [
-        getattr(cache, f) for f in ("grid", "contains", "mission")
-    ]
-    _require(all(x.dtype == torch.int32 for x in every), "state tensors must be int32", what)
-    _require(all(x.device == device for x in every), "tensors on different devices", what)
+    shapes = [("grid", states.grid, (n, w, h)), ("contains", states.contains, (n, w, h)), ("mission", states.mission, (n, m))]
+    if counter_reset(env):
+        _require(cache is None, "a counter-reset family takes reset seeds, not a cache", what)
+        r = 0
+    else:
+        r = cache.step_count.shape[1] if cache.step_count.dim() == 2 else 0
+        _require(r >= 1 and cache.step_count.shape[0] == n, "cache leaves must be [N, R >= 1, ...]", what)
+        shapes += [
+            ("cache grid", cache.grid, (n, r, w, h)),
+            ("cache contains", cache.contains, (n, r, w, h)),
+            ("cache mission", cache.mission, (n, r, m)),
+        ]
+    for label, x, shape in shapes:
+        _require(tuple(x.shape) == shape, f"{label} must be {shape}, got {tuple(x.shape)}", what)
+    _require(all(x.dtype == torch.int32 for _, x, _ in shapes), "state tensors must be int32", what)
+    _require(all(x.device == device for _, x, _ in shapes), "tensors on different devices", what)
     return r
 
 
@@ -164,18 +226,24 @@ def _rows(s: EnvState) -> torch.Tensor:
     )
 
 
-def to_env_minor(states: EnvState, cache: EnvState) -> tuple[torch.Tensor, ...]:
+def to_env_minor(states: EnvState, cache: EnvState | None) -> tuple:
     """The kernels' env-minor buffers (thread n reads column n): state grid
     and contents [W*H, N], scalar rows [8, N], mission [M, N], and the cache
-    as [R, W*H, N], [R, W*H, N], [R, 8, N], [R, M, N].  The state buffers
-    are fresh copies the kernel updates in place."""
-    n, r = cache.step_count.shape
+    as [R, W*H, N], [R, W*H, N], [R, 8, N], [R, M, N] (four Nones without a
+    cache).  The state buffers are fresh copies the kernel updates in
+    place."""
+    n = states.step_count.shape[0]
     wh = states.grid.shape[1] * states.grid.shape[2]
-    return (
+    live = (
         states.grid.reshape(n, wh).t().contiguous(),
         states.contains.reshape(n, wh).t().contiguous(),
         _rows(states).contiguous(),
         states.mission.t().contiguous(),
+    )
+    if cache is None:
+        return live + (None,) * 4
+    r = cache.step_count.shape[1]
+    return live + (
         cache.grid.reshape(n, r, wh).permute(1, 2, 0).contiguous(),
         cache.contains.reshape(n, r, wh).permute(1, 2, 0).contiguous(),
         _rows(cache).permute(2, 0, 1).contiguous(),
@@ -201,14 +269,34 @@ def from_env_minor(states: EnvState, grid, cont, sc, mis) -> EnvState:
     )
 
 
-def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compute_obs: bool):
+def _pointer(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bool, reset_seeds):
     global KERNEL_LAUNCHES
-    r = check_env_and_state(env, states, cache, "fused_rollout")
+    r = check_env_and_state(env, states, cache, "fused_rollout", ext_ok=True)
     device = states.device
     n = states.step_count.shape[0]
     t = actions.shape[0]
     _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
     _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
+
+    ext = env.fused_ext
+    scal = seeds = None
+    params = (0,) * 7
+    if ext is not None:
+        params = ext.kernel_params(env)
+        if ext.n_scalars:
+            scal = ext.pack_extra(env, states.extra)
+            _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]")
+            scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
+        _require(
+            reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
+            and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
+            f"reset_seeds must be int32 [{n}, 2] on the state's device",
+        )
+        seeds = reset_seeds.t().contiguous()
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     acts = actions.contiguous()
@@ -221,25 +309,32 @@ def _launch(env, states: EnvState, cache: EnvState, actions: torch.Tensor, compu
     fn = lib.fused_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+    buffers = (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds, used, obs, rew, done)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(x.data_ptr() for x in (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, used, obs, rew, done)),
+            *(_pointer(x) for x in buffers),
             env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
-            int(bool(getattr(env, "fused_no_objects", False))),
-            int(bool(getattr(env, "fused_static_mission", False))),
+            0 if scal is None else scal.shape[0],
+            int(bool(env.fused_no_objects)),
+            int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
             int(bool(compute_obs)),
+            0 if ext is None else ext.kernel_id,
+            *params,
             stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
 
+    final = from_env_minor(states, grid, cont, sc, mis)
+    if scal is not None:
+        final = final.replace(extra=ext.unpack_extra(env, scal.t().contiguous()))
     return (
-        from_env_minor(states, grid, cont, sc, mis),
+        final,
         rew.sum(),
         wrap_int32(done.sum(dtype=torch.int64)),
         wrap_int32(obs.sum(dtype=torch.int64)),
-        used.max(),
+        torch.zeros((), dtype=torch.int32, device=device) if r == 0 else used.max(),
     )

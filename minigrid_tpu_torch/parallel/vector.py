@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from minigrid_tpu_torch.ops.fused_rollout import COMPILED_VIEW_SIZES, fused_rollout, supports_fused
+from minigrid_tpu_torch.core.state import resolve_device
+from minigrid_tpu_torch.ops.fused_rollout import COMPILED_VIEW_SIZES, compiled_ext, fused_rollout, supports_fused
 from minigrid_tpu_torch.parallel.reset_budget import resets_for
 
 # Largest grid the kernel takes (MultiRoom-scale 25x25), as in the JAX gate.
@@ -17,12 +18,13 @@ MAX_FUSED_CELLS = 625
 
 
 class VectorEnv:
-    """Lockstep batch of ``num_envs`` copies of one env family."""
+    """Lockstep batch of ``num_envs`` copies of one env family, on
+    ``device`` (CUDA unless given)."""
 
     def __init__(self, env, num_envs: int, device=None):
         self.env = env
         self.num_envs = int(num_envs)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(None, device)
 
     def reset(self, generator: torch.Generator | None = None):
         return self.env.reset(self.num_envs, generator, self.device)
@@ -33,13 +35,14 @@ class VectorEnv:
 
 def fused_eligible(env, device) -> bool:
     """Whether the whole-rollout CUDA kernel (ops/fused_rollout.py) runs this
-    configuration: a CUDA device, a default-hook family with no fused ext, at
-    most ``MAX_FUSED_CELLS`` grid cells and a compiled view size.  The kernel
+    configuration: a CUDA device, a default-hook family or one whose fused
+    ext the kernel has compiled (``compiled_ext``), at most
+    ``MAX_FUSED_CELLS`` grid cells and a compiled view size.  The kernel
     keeps the reset cache in device memory, so R does not gate it."""
     return (
         torch.device(device).type == "cuda"
         and supports_fused(env)
-        and getattr(env, "fused_ext", None) is None
+        and compiled_ext(env)
         and env.width * env.height <= MAX_FUSED_CELLS
         and env.agent_view_size in COMPILED_VIEW_SIZES
     )
@@ -47,8 +50,12 @@ def fused_eligible(env, device) -> bool:
 
 def rollout_capacity(env, num_steps: int, device, env_id: str | None = None, fused="auto") -> int:
     """The reset budget ``max_used`` must stay within for a certified
-    replay-free rollout: the per-env covering R on the fused path, 0 on the
-    per-step regeneration path (where the cache cannot run out)."""
+    replay-free rollout: the per-env covering R on the fused path (as the
+    JAX package's rule, ``minigrid_tpu/parallel/vector.py:164-182``; a
+    counter-reset family's ``max_used`` is 0 there), 0 on the per-step
+    regeneration path (where the cache cannot run out).  The JAX package's
+    shared-pool path for ``expensive_reset`` families is not ported: the
+    plain path here regenerates at every step."""
     if fused == "auto":
         fused = fused_eligible(env, device)
     return resets_for(env, num_steps, env_id) if fused else 0
@@ -69,7 +76,8 @@ def rollout_random(
     path and 0 on the per-step path.  ``fused="auto"`` takes the CUDA kernel
     where ``fused_eligible`` says it runs; otherwise every step is the
     batched ``step_env`` with per-step auto-reset.  ``resets_per_chunk=None``
-    sizes the cache with ``reset_budget.resets_for``.
+    sizes the cache with ``reset_budget.resets_for`` (a counter-reset
+    family has no cache and ignores it).
     """
     if resets_per_chunk is None:
         resets_per_chunk = resets_for(env, num_steps)

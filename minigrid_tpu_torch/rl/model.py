@@ -22,6 +22,7 @@ from torch import nn
 
 from minigrid_tpu_torch.core.actions import NUM_ACTIONS
 from minigrid_tpu_torch.core.constants import NUM_COLORS, NUM_OBJECTS
+from minigrid_tpu_torch.core.state import resolve_device
 
 PER_CELL = NUM_OBJECTS + NUM_COLORS + 3  # one-hot features per view cell
 # flax's lecun_normal draws a normal truncated to +-2 standard deviations and
@@ -66,6 +67,7 @@ class Dense(nn.Module):
 
     def __init__(self, fan_in: int, fan_out: int, generator=None, device=None):
         super().__init__()
+        device = resolve_device(generator, device)
         std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
         kernel = torch.empty(fan_in, fan_out, device=device)
         nn.init.trunc_normal_(kernel, 0.0, std, -2 * std, 2 * std, generator=generator)
@@ -86,6 +88,7 @@ class ActorCritic(nn.Module):
     ``forward(image, direction, packed=False)`` takes the uint8 (v, v, 3)
     image, or with ``packed=True`` the packed int32 [.., v*v] view; both
     embed to the same features.  Returns (logits f32 [.., A], value f32 [..]).
+    Parameters go on ``device``, else the generator's device, else CUDA.
     """
 
     def __init__(
@@ -97,6 +100,7 @@ class ActorCritic(nn.Module):
         device=None,
     ):
         super().__init__()
+        device = resolve_device(generator, device)
         self.hidden = int(hidden)
         self.num_actions = int(num_actions)
         self.view_size = int(view_size)

@@ -3,9 +3,11 @@ and this one, as numpy.
 
 ``state_from_numpy`` takes a JAX ``EnvState`` (or reset cache) whose leaves
 were turned into numpy arrays, given as a mapping of field name to array,
-and returns this package's ``EnvState`` on ``device``.  Fields this package
-does not hold (``rng``; ``extra``, which fixed-start Empty does not use) are
-ignored.  ``state_to_numpy`` is the inverse.
+and returns this package's ``EnvState`` on ``device``.  A family's
+``extra`` state comes as a mapping of leaf name to array under ``"extra"``
+(Dynamic-Obstacles: ``obstacles`` [N, n, 2], ``front_not_clear``,
+``walk_seed`` [N, 2]), dtypes kept.  ``rng``, which this package does not
+hold, is ignored.  ``state_to_numpy`` is the inverse.
 
 ``params_from_flax`` turns the flax ``ActorCritic`` parameter tree (nested
 dicts of numpy arrays: ``Dense_0..3`` with ``kernel [in, out]`` and
@@ -35,12 +37,19 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> EnvState:
     for f in FIELDS:
         dtype = torch.bool if f in _BOOL_FIELDS else torch.int32
         out[f] = torch.from_numpy(np.array(arrays[f])).to(device=device, dtype=dtype)
-    return EnvState(**out)
+    extra = arrays.get("extra")
+    if extra is not None:
+        extra = {k: torch.from_numpy(np.array(v)).to(device) for k, v in extra.items()}
+    return EnvState(**out, extra=extra)
 
 
-def state_to_numpy(state: EnvState) -> dict[str, np.ndarray]:
-    """Mapping of field name to numpy array (int32, bool flags)."""
-    return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+def state_to_numpy(state: EnvState) -> dict:
+    """Mapping of field name to numpy array (int32, bool flags), with the
+    ``"extra"`` mapping where the state has one."""
+    out = {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+    if state.extra is not None:
+        out["extra"] = {k: v.cpu().numpy() for k, v in state.extra.items()}
+    return out
 
 
 def params_from_flax(tree: Mapping, device=None) -> dict[str, torch.Tensor]:

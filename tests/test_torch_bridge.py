@@ -9,13 +9,14 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 import minigrid_tpu as mg
 from minigrid_tpu.core import constants as jc
 from minigrid_tpu.core import mission as jm
 from minigrid_tpu_torch.core import constants as tc
 from minigrid_tpu_torch.core import mission as tm
-from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.core.state import FIELDS, select
 from minigrid_tpu_torch.utils.bridge import state_from_numpy, state_to_numpy
 from torch_port_util import jax_to_numpy
 
@@ -37,6 +38,33 @@ def test_bridge_round_trip_doorkey(which):
     for f in FIELDS:
         assert back[f].dtype == arrays[f].dtype, f
         np.testing.assert_array_equal(back[f], arrays[f], err_msg=f)
+
+
+@pytest.mark.parametrize("which", ["state", "cache"])
+def test_bridge_round_trip_dynamic_obstacles_extra(which):
+    env = mg.make("MiniGrid-Dynamic-Obstacles-8x8-v0")
+    key = jax.random.PRNGKey(2)
+    if which == "state":
+        _, jstate = jax.jit(jax.vmap(env.reset))(jax.random.split(key, 32))
+        lead = (32,)
+    else:
+        jstate = env.batch_reset_cache(key, 8, 2)
+        lead = (8, 2)
+    arrays = jax_to_numpy(jstate)
+    port = state_from_numpy(arrays)
+    assert port.extra["obstacles"].shape == lead + (4, 2) and port.extra["walk_seed"].shape == lead + (2,)
+    assert port.extra["front_not_clear"].dtype == torch.bool
+    back = state_to_numpy(port)
+    assert set(back["extra"]) == set(arrays["extra"]) == {"obstacles", "front_not_clear", "walk_seed"}
+    for k, v in arrays["extra"].items():
+        assert back["extra"][k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back["extra"][k], v, err_msg=k)
+    # The port's select and map carry extra beside the fixed fields.
+    mask = torch.arange(lead[0]) % 2 == 0
+    other = port.map(lambda x: torch.zeros_like(x))
+    mixed = select(mask, port, other)
+    np.testing.assert_array_equal(mixed.extra["walk_seed"][mask].numpy(), back["extra"]["walk_seed"][mask.numpy()])
+    assert not mixed.extra["walk_seed"][~mask].any()
 
 
 def test_bridge_ignores_rng_and_requires_every_field():

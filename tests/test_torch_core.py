@@ -162,5 +162,5 @@ def test_grid_ops_match_jax():
     jfree = jax.vmap(jg.free_mask)(jgrid, jnp.asarray(pos))
     np.testing.assert_array_equal(tg.free_mask(grid, torch.from_numpy(pos)).numpy(), np.asarray(jfree))
     np.testing.assert_array_equal(
-        tg.empty_grid(2, w, h).numpy(), np.asarray(jnp.stack([jg.empty_grid(w, h)] * 2))
+        tg.empty_grid(2, w, h, "cpu").numpy(), np.asarray(jnp.stack([jg.empty_grid(w, h)] * 2))
     )

@@ -19,6 +19,7 @@ from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
+from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
@@ -84,6 +85,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         fr.fused_rollout_core(env7, states, cache, actions[:, :16])
 
 
+COUNTER_IDS = ["MiniGrid-Empty-Random-5x5-v0", "MiniGrid-LavaCrossingS9N2-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+@pytest.mark.parametrize("env_id", COUNTER_IDS)
+def test_ext_kernel_matches_plain_version(device, env_id, compute_obs):
+    # The family hooks, the extra scalars and the in-kernel counter reset;
+    # a short max_steps adds truncations to the terminations.
+    env = mgt.make(env_id, max_steps=24)
+    n, steps = 4096, 64
+    gen = torch.Generator(device=device).manual_seed(2)
+    _, states = env.reset(n, gen)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, device=device, dtype=torch.int32)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, None, actions, compute_obs, seeds)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, None, actions, compute_obs, seeds)
+    _assert_same(got, want)
+    assert (got[0].extra is None) == (want[0].extra is None)
+    for k, v in (want[0].extra or {}).items():
+        assert torch.equal(got[0].extra[k], v), k
+    assert int(got[2]) > n and int(got[4]) == 0
+
+
+def test_ext_wrappers_reject_what_their_kernels_do_not_take(device):
+    env = mgt.make("MiniGrid-Dynamic-Obstacles-8x8-v0")
+    gen = torch.Generator(device=device).manual_seed(0)
+    _, states = env.reset(64, gen)
+    actions = torch.zeros((4, 64), dtype=torch.int32, device=device)
+    seeds = torch.zeros((64, 2), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="reset_seeds"):
+        fr.fused_rollout_core(env, states, None, actions, True, seeds[:32])
+    with pytest.raises(ValueError, match="not a cache"):
+        fr.fused_rollout_core(env, states, env.batch_reset_cache(64, 1, gen), actions, True, seeds)
+    big = mgt.make("MiniGrid-Dynamic-Obstacles-16x16-v0", n_obstacles=9)
+    assert big.n_obstacles == 9 and not fused_eligible(big, device)
+    _, big_states = big.reset(64, gen)
+    with pytest.raises(ValueError, match="no compiled CUDA twin"):
+        fr.fused_rollout_core(big, big_states, None, actions, True, seeds)
+    # The actor kernel has no ext hooks yet: its wrapper and the learner raise.
+    model = ActorCritic(64, env.num_actions, generator=gen)
+    weights = ar.repack_actor_params(model)
+    noise = ar.draw_bits(gen, (4, env.num_actions, 64), device)
+    with pytest.raises(ValueError, match="not ported to this kernel"):
+        ar.fused_actor_rollout_core(env, weights, states, None, noise)
+    init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=4, num_minibatches=1), hidden=64)
+    with pytest.raises(ValueError, match="not ported to this kernel"):
+        train_step(init_fn(gen, 64))
+
+
 def _embed_inputs(device, m, hidden, seed):
     rng = np.random.default_rng(seed)
     env = MiniGridEnv(9, 7, max_steps=100)
@@ -117,8 +170,6 @@ def test_embed_dense_kernels_match_plain_version(device, hidden):
 
 
 def _actor_case(device, kind, n=2048, t=16, hidden=64, seed=0):
-    from minigrid_tpu_torch.rl.model import ActorCritic
-
     gen = torch.Generator(device=device).manual_seed(seed)
     if kind == "empty5x5":
         env = mgt.make("MiniGrid-Empty-5x5-v0", max_steps=8)

@@ -16,7 +16,10 @@ from minigrid_tpu.core.env import MiniGridEnv as JEnv
 from minigrid_tpu.core.state import EnvState as JState
 from minigrid_tpu.parallel import reset_budget as jrb
 from minigrid_tpu_torch.core.env import MiniGridEnv
+from minigrid_tpu_torch.core.state import resolve_device
 from minigrid_tpu_torch.parallel import reset_budget as trb
+from minigrid_tpu_torch.parallel.vector import VectorEnv
+from minigrid_tpu_torch.rl import model as tmodel
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 from torch_port_util import assert_states_equal
@@ -29,16 +32,57 @@ EMPTY_IDS = [
 ]
 
 
+PORTED_FAMILIES = ("MiniGrid-Empty-", "MiniGrid-LavaCrossing", "MiniGrid-SimpleCrossing", "MiniGrid-Dynamic-Obstacles-")
+SHARED_ATTRS = (
+    "width", "height", "max_steps", "see_through_walls", "agent_view_size", "deterministic_generation",
+    "fused_no_objects", "fused_static_mission", "agent_start_pos", "agent_start_dir", "n_obstacles",
+    "num_crossings", "obstacle_type",
+)
+
+
 def test_registered_ids_are_the_fixed_start_empty_subset():
-    jax_ids = set(mg.registered_ids())
-    fixed_empty = {i for i in jax_ids if i.startswith("MiniGrid-Empty-") and "Random" not in i}
-    assert set(mgt.registered_ids()) == fixed_empty == set(EMPTY_IDS)
+    # The Empty, Crossing and Dynamic-Obstacles ids, with the JAX package's
+    # kwargs and kernel flags.
+    ported = {i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES)}
+    assert set(mgt.registered_ids()) == ported and len(ported) == 20
+    assert set(EMPTY_IDS) < ported
+    for env_id in sorted(ported):
+        jenv, tenv = mg.make(env_id), mgt.make(env_id)
+        for attr in SHARED_ATTRS:
+            assert getattr(tenv, attr, None) == getattr(jenv, attr, None), (env_id, attr)
+        assert (tenv.fused_ext is None) == (getattr(jenv, "fused_ext", None) is None), env_id
 
 
-@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-Empty-Random-5x5-v0"])
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-FourRooms-v0"])
 def test_unported_ids_raise(env_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mgt.make(env_id)
+
+
+def test_entry_points_default_to_cuda():
+    # With neither a device nor a generator, new tensors go on CUDA: on a
+    # machine without one that raises, and nothing lands on the CPU quietly.
+    env = mgt.make("MiniGrid-Empty-5x5-v0")
+    assert VectorEnv(env, 4).device.type == "cuda"
+    assert VectorEnv(env, 4, "cpu").device.type == "cpu"
+    assert resolve_device(torch.Generator(), None).type == "cpu"
+    assert resolve_device(None, "cpu").type == "cpu"
+    _, st = env.reset(4, torch.Generator().manual_seed(0))
+    assert st.grid.device.type == "cpu"
+    assert tmodel.ActorCritic(16, generator=torch.Generator()).Dense_0.kernel.device.type == "cpu"
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-Empty-8x8-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"])
+def test_reset_without_device_or_generator_goes_to_cuda(env_id):
+    env = mgt.make(env_id)
+    calls = (lambda: env.reset(4)[1].grid, lambda: env.batch_reset_cache(4, 2).grid,
+             lambda: tmodel.ActorCritic(16).Dense_0.kernel)
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
 
 
 @pytest.mark.parametrize("env_id", EMPTY_IDS)
@@ -54,8 +98,8 @@ def test_empty_reset_matches_jax(env_id):
     np.testing.assert_array_equal(obs["mission"].numpy(), np.asarray(jobs["mission"]))
     assert tenv.mission_text(st.mission[0]) == "get to the green goal square"
     jcache = jenv.batch_reset_cache(jax.random.PRNGKey(1), 4, 2)
-    assert_states_equal(tenv.batch_reset_cache(4, 2), jcache, f"{env_id} cache")
-    assert_states_equal(tenv.reset_cache(3), jenv.reset_cache(jax.random.PRNGKey(2), 3), env_id)
+    assert_states_equal(tenv.batch_reset_cache(4, 2, device="cpu"), jcache, f"{env_id} cache")
+    assert_states_equal(tenv.reset_cache(3, device="cpu"), jenv.reset_cache(jax.random.PRNGKey(2), 3), env_id)
 
 
 @pytest.mark.parametrize("env_id,max_steps", [("MiniGrid-Empty-5x5-v0", 9), ("MiniGrid-Empty-8x8-v0", None)])
@@ -73,7 +117,7 @@ def test_empty_step_loop_matches_jax(env_id, max_steps):
     jfinal, (jimg, jrew, jterm, jtrunc) = jax.jit(lambda s, a: jax.lax.scan(body, s, a))(
         jst, jnp.asarray(actions)
     )
-    _, st = tenv.reset(n)
+    _, st = tenv.reset(n, device="cpu")
     rewards = []
     for t in range(steps):
         obs, st, r, term, trunc = tenv.step(st, torch.from_numpy(actions[t]))

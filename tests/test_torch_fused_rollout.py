@@ -2,7 +2,8 @@
 
 On the CPU the port's ``fused_rollout_core`` runs its plain version; the JAX
 side runs the Pallas kernel in interpret mode, as tests/test_fused_rollout.py
-does.  Both get the same states, reset cache and actions.  Integers must be
+does.  Both get the same states, actions and reset cache, or, for the
+counter-reset families, reset seeds.  Integers (``extra`` included) must be
 bit-exact; reward totals agree to rtol 1e-5, because they are summed in
 another order.  The CUDA kernel itself is held against the plain version on
 a GPU by tests/test_torch_cuda.py and ``chip_smoke.py``.
@@ -103,7 +104,7 @@ def test_cpu_dispatch_takes_the_plain_path():
     assert not fused_eligible(env, "cpu")
     assert rollout_capacity(env, 256, "cpu") == 0
     gen = torch.Generator().manual_seed(0)
-    _, states = VectorEnv(env, 64).reset(gen)
+    _, states = VectorEnv(env, 64, "cpu").reset(gen)
     final, total_r, total_done, max_used = rollout_random(env, states, gen, 300)
     assert final.step_count.shape == (64,) and int(final.step_count.max()) < env.max_steps
     assert int(total_done) >= 64 and int(max_used) == 0 and torch.isfinite(total_r)
@@ -127,3 +128,86 @@ def test_fused_rollout_draws_actions_then_cache():
         assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
     assert [float(x) for x in out[1:]] == [float(x) for x in ref[1:]]
     assert float(out[1]) > 0  # the goal is reached on Empty-5x5
+
+
+# -- counter-reset ext families (ops/fused_ext.py): hooks, extra scalars and
+#    in-kernel fresh levels ----------------------------------------------------
+
+COUNTER_CASES = {
+    # Random starts, terminations and truncations through the counter reset.
+    "empty_random5x5": ("MiniGrid-Empty-Random-5x5-v0", {"max_steps": 9}, 24, 0),
+    # Occlusion (see_through_walls=False), lava terminations, regenerated mazes.
+    "lavacrossing_s9n2": ("MiniGrid-LavaCrossingS9N2-v0", {"max_steps": 12}, 16, 1),
+    # Every hook: the walk, the action remap, collisions; 11 extra scalars.
+    "dynamic_obstacles8x8": ("MiniGrid-Dynamic-Obstacles-8x8-v0", {"max_steps": 9}, 16, 4),
+    # Random starts drawn by the counter reset, 3 balls.
+    "dynamic_obstacles_random6x6": ("MiniGrid-Dynamic-Obstacles-Random-6x6-v0", {"max_steps": 10}, 12, 9),
+}
+
+
+@pytest.mark.parametrize("case", list(COUNTER_CASES))
+def test_counter_reset_rollout_matches_jax_kernel(case):
+    env_id, kwargs, steps, seed = COUNTER_CASES[case]
+    jenv, tenv = mg.make(env_id, **kwargs), mgt.make(env_id, **kwargs)
+    _, jstates = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(seed), N))
+    rng = np.random.default_rng(seed)
+    actions = rng.integers(0, 7, (steps, N), dtype=np.int32)
+    seeds = rng.integers(-(2**31), 2**31, (N, 2)).astype(np.int32)
+    jfinal, jrew, jdone, jchk, jused = j_fused_rollout_core(
+        jenv, jstates, None, jnp.asarray(actions), True, True, jnp.asarray(seeds)  # interpret=True
+    )
+    before = fr.KERNEL_LAUNCHES
+    final, rew, done, chk, used = fr.fused_rollout_core(
+        tenv, to_port(jstates), None, torch.from_numpy(actions), True, torch.from_numpy(seeds)
+    )
+    assert fr.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    assert_states_equal(final, jfinal, case)  # extra included
+    assert int(done) == int(jdone) > N  # every env reset at least once
+    assert int(chk) == int(jchk)
+    assert int(used) == int(jused) == 0
+    np.testing.assert_allclose(float(rew), float(jrew), rtol=1e-5)
+
+
+def test_fused_rollout_draws_actions_then_seeds():
+    # On a counter-reset family fused_rollout is fused_rollout_core on the
+    # actions and then the seeds drawn from the generator (what chip_smoke.py
+    # replays), with no cache.
+    env = mgt.make("MiniGrid-Dynamic-Obstacles-8x8-v0", max_steps=20)
+    n, steps = 256, 32
+    gen = torch.Generator().manual_seed(3)
+    _, states = env.reset(n, gen)
+    snapshot = gen.get_state()
+    out = fr.fused_rollout(env, states, gen, steps, 2, compute_obs=True)
+    gen.set_state(snapshot)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, dtype=torch.int32)
+    seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, dtype=torch.int32)
+    ref = fr.fused_rollout_core(env, states, None, actions, True, seeds)
+    for f in FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
+    for k, v in ref[0].extra.items():
+        assert torch.equal(out[0].extra[k], v), k
+    assert [float(x) for x in out[1:]] == [float(x) for x in ref[1:]]
+    assert int(out[4]) == 0 and float(out[1]) < 0  # collisions cost -1
+    with pytest.raises(ValueError, match="reset_seeds"):
+        fr.fused_rollout_core(env, states, None, actions, True)
+
+
+@pytest.mark.parametrize(
+    "env_id", ["MiniGrid-Empty-Random-5x5-v0", "MiniGrid-LavaCrossingS9N2-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"]
+)
+def test_counter_families_take_the_kernel_on_cuda_and_the_plain_loop_on_cpu(env_id):
+    from minigrid_tpu_torch.ops.actor_rollout import supports_fused_actor
+
+    env = mgt.make(env_id)
+    assert fr.supports_fused(env) and fr.compiled_ext(env) and fr.counter_reset(env)
+    assert fused_eligible(env, "cuda") and not fused_eligible(env, "cpu")
+    assert not supports_fused_actor(env, "cuda", 1024, 64)  # K2 has no ext hooks yet
+    assert rollout_capacity(env, 256, "cpu") == 0
+    gen = torch.Generator().manual_seed(1)
+    _, states = VectorEnv(env, 64, "cpu").reset(gen)
+    before = fr.KERNEL_LAUNCHES
+    final, total_r, total_done, max_used = rollout_random(env, states, gen, 64)
+    assert fr.KERNEL_LAUNCHES == before
+    assert int(total_done) > 0 and int(max_used) == 0 and torch.isfinite(total_r)
+    assert (final.extra is None) == (env.fused_ext.n_scalars == 0)
+    assert int(final.step_count.max()) < env.max_steps

@@ -169,6 +169,6 @@ def test_mesh_is_not_ported_yet():
     env = mgt.make("MiniGrid-Empty-5x5-v0")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         tppo.make_ppo(env, mesh=object())
-    _, states = env.reset(4)
+    _, states = env.reset(4, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         collect_trajectory(env, None, states, None, 4, mesh=object())

@@ -20,10 +20,14 @@ from minigrid_tpu_torch.utils.synthetic import random_states
 HIDDEN = 64  # the narrow width of the network tests
 
 
-def jax_to_numpy(state) -> dict[str, np.ndarray]:
-    """The port's fields of a JAX ``EnvState`` (or cache), as numpy."""
+def jax_to_numpy(state) -> dict:
+    """The port's fields of a JAX ``EnvState`` (or cache), as numpy, with
+    its ``extra`` mapping where it has one."""
     leaves = jax.tree.map(np.asarray, state)
-    return {f: getattr(leaves, f) for f in FIELDS}
+    out = {f: getattr(leaves, f) for f in FIELDS}
+    if leaves.extra is not None:
+        out["extra"] = dict(leaves.extra)
+    return out
 
 
 def to_port(state, device="cpu"):
@@ -31,11 +35,16 @@ def to_port(state, device="cpu"):
 
 
 def assert_states_equal(port_state, jax_state, what: str = "") -> None:
-    """Every field of the port's state equals the JAX state's, bit for bit."""
+    """Every field and ``extra`` leaf of the port's state equals the JAX
+    state's, bit for bit."""
     got = state_to_numpy(port_state)
     want = jax_to_numpy(jax_state)
     for f in FIELDS:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f"{what}: {f}")
+    assert ("extra" in got) == ("extra" in want), f"{what}: extra on one side only"
+    for k, v in want.get("extra", {}).items():
+        assert got["extra"][k].dtype == v.dtype, f"{what}: extra {k} dtype"
+        np.testing.assert_array_equal(got["extra"][k], v, err_msg=f"{what}: extra {k}")
 
 
 def jax_state(arrays):
@@ -84,6 +93,6 @@ def flax_params(packed, direction, hidden=HIDDEN, seed=1):
 
 
 def port_model(params, hidden=HIDDEN):
-    model = tmodel.ActorCritic(hidden=hidden, num_actions=7)
+    model = tmodel.ActorCritic(hidden=hidden, num_actions=7, device="cpu")
     model.load_state_dict(params_from_flax(params))
     return model
