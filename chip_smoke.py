@@ -43,7 +43,25 @@ Phases, one output line each; any failure raises and exits non-zero:
    against the plain version on the replayed actions and seeds (every state
    field and ``extra`` leaf, done count and checksum exact, ``max_used``
    0, reward total to rtol 1e-5), ``assert_chain_covered``, and the kernel
-   and the plain version timed in turns.
+   and the plain version timed in turns;
+9. the learner on a counter-reset family: ``make_ppo`` on
+   ``MiniGrid-Dynamic-Obstacles-8x8-v0`` at 8192 envs x 128 steps, hidden
+   256, three train steps through the actor kernel's Dynamic-Obstacles
+   instantiation (launches per step as in phase 7), the last step's
+   trajectory held to the three contracts with the reset seeds (env replay,
+   final state and ``extra`` exact), the actor kernel timed against its
+   plain version and the train step through the kernels and the plain
+   versions; then the actor kernel on ``MiniGrid-Empty-Random-5x5-v0`` and
+   ``MiniGrid-LavaCrossingS9N2-v0`` at 4096 x 32, each held to the same
+   contracts, and timed against its plain version at 8192 x 128;
+10. IMPALA: ``make_impala`` on ``MiniGrid-Empty-8x8-v0`` (bench.py's
+   configuration, 8192 x 128, hidden 256), three train steps (per step the
+   actor kernel once, the embed + dense-1 kernels 16 times forward and 8
+   times backward), the last trajectory held to the contracts, and
+   ``impala_env_steps_per_sec`` with its rollout/update split through the
+   kernels and the plain versions; then one IMPALA train step on
+   ``MiniGrid-Dynamic-Obstacles-8x8-v0`` with the same launch counts and
+   finite losses.
 
 Every kernel entry of the JSON line carries its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
@@ -82,6 +100,8 @@ from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
+from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
+from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
@@ -110,6 +130,15 @@ SOURCE = "minigrid_tpu_torch/ops/csrc/fused_rollout.cu"
 REPLACES = "minigrid_tpu/ops/fused_rollout.py:335"
 # The counter-reset slice: bench.py's TRACKED families with in-kernel resets.
 COUNTER_IDS = ("MiniGrid-Empty-Random-5x5-v0", "MiniGrid-LavaCrossingS9N2-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0")
+# The learners on a counter-reset family: PPO (and one IMPALA step) on
+# Dynamic-Obstacles-8x8 at the PPO size, the actor kernel on the other two
+# at a small size.
+DYNOBS_ID = COUNTER_IDS[2]
+SMALL_COUNTER_IDS = COUNTER_IDS[:2]
+SMALL_ENVS = 4096
+SMALL_STEPS = 32
+ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
+ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
 # CUDA cores' 32-bit rate (taken for integer ALU work too) and bf16 on the
 # tensor cores.
@@ -142,21 +171,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ext_report(log: str) -> str:
-    """ptxas' registers, stack frames and spills of the rollout kernel's
-    instantiations, per ext struct (NoExt and the family exts)."""
+def ptxas_report(name: str, log: str) -> str:
+    """ptxas' registers, stack frames and spills of a library's kernel
+    instantiations, per ext struct (NoExt and the family exts) and, for the
+    actor kernel, per hidden size."""
     groups: dict[str, list[tuple[int, int, int]]] = {}
     for block in log.split("Compiling entry function")[1:]:
         ext = re.search(r"8minigrid\d+([A-Za-z]+Ext)", block)
+        hidden = re.search(r"actor_kernelILi\d+ELi(\d+)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
         if ext and regs:
+            key = ext.group(1) + (f" hidden {hidden.group(1)}" if hidden else "")
             stack, spill = (int(frame.group(1)), int(frame.group(2))) if frame else (0, 0)
-            groups.setdefault(ext.group(1), []).append((int(regs.group(1)), stack, spill))
-    return "fused_rollout instantiations: " + "; ".join(
-        f"{name} x{len(v)}: {min(r for r, _, _ in v)}-{max(r for r, _, _ in v)} registers, "
+            groups.setdefault(key, []).append((int(regs.group(1)), stack, spill))
+    return f"{name} instantiations: " + "; ".join(
+        f"{key} x{len(v)}: {min(r for r, _, _ in v)}-{max(r for r, _, _ in v)} registers, "
         f"stack frame up to {max(f for _, f, _ in v)} bytes, {sum(sp for _, _, sp in v)} bytes spilled"
-        for name, v in sorted(groups.items())
+        for key, v in sorted(groups.items())
     )
 
 
@@ -508,72 +540,80 @@ def onehot_rows(packed, direction) -> torch.Tensor:
     )
 
 
-def ppo_slice(device, card: str) -> tuple[dict, dict]:
-    """Phase 7: PPO on Empty-8x8 through the actor and embed + dense-1 kernels."""
-    env = mgt.make(ENV_ID)
-    config = PPOConfig(rollout_steps=PPO_STEPS)
-    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
-    gen = torch.Generator(device=device).manual_seed(0)
-    state = init_fn(gen, PPO_ENVS)
-    check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), "the slice must take the actor kernel")
+def launch_counts() -> tuple[int, int, int]:
+    """Launches so far of the actor kernel and the embed + dense-1 forward
+    and backward."""
+    return ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"]
 
+
+def zero_launch_counts() -> None:
     ar.KERNEL_LAUNCHES = 0
     ed.KERNEL_LAUNCHES.update(fwd=0, bwd=0)
+
+
+def train_and_keep_last(train_step, state, gen, want, what: str):
+    """``PPO_TRAIN_STEPS`` train steps, each step's launches (actor, embed
+    fwd, embed bwd) held to ``want`` and its losses to finite values.  The
+    last step runs as its two phases, to keep its trajectory and the
+    parameters it was collected with: after the updates before it, every
+    bias is nonzero.  Returns (state, launches of one step, (model,
+    states0, snapshot, final, traj, metrics)) for that last step."""
     per_step = []
     for i in range(PPO_TRAIN_STEPS):
-        before = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
+        before = launch_counts()
         if i < PPO_TRAIN_STEPS - 1:
             state, metrics = train_step(state)
         else:
-            # The last step as its two phases, to keep its trajectory and
-            # the parameters it was collected with: after the updates before
-            # it, every bias is nonzero.
             model = copy.deepcopy(state.params)
             states0, snapshot = state.env_states, gen.get_state()
             final, traj = train_step.rollout(state.params, state.env_states, state.generator)
             _, opt_state, metrics = train_step.update(state.params, state.opt_state, final, traj)
             state = state._replace(opt_state=opt_state, env_states=final)
-        after = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
-        per_step.append(tuple(a - b for a, b in zip(after, before)))
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
         losses = [float(metrics[k]) for k in ("pg_loss", "value_loss", "entropy")]
-        check(all(np.isfinite(losses)), f"train step {i}: losses {losses}")
+        check(all(np.isfinite(losses)), f"{what} train step {i}: losses {losses}")
     torch.cuda.synchronize()
-    launches_k2 = ar.KERNEL_LAUNCHES
-    launches_k3 = dict(ed.KERNEL_LAUNCHES)
-    want = (1, config.num_minibatches + 1, config.num_minibatches)
-    check(all(p == want for p in per_step), f"launches per step {per_step}, expected {want}")
+    check(all(p == want for p in per_step), f"{what}: launches per step {per_step}, expected {want}")
+    return state, per_step[0], (model, states0, snapshot, final, traj, metrics)
 
-    check(traj.obs.shape == (PPO_STEPS, PPO_ENVS, env.agent_view_size**2), "trajectory obs shape")
-    gen_replay = torch.Generator(device=device)
-    gen_replay.set_state(snapshot)
-    cache = env.batch_reset_cache(PPO_ENVS, resets_for(env, PPO_STEPS), gen_replay, device)
-    noise = ar.draw_bits(gen_replay, (PPO_STEPS, env.num_actions, PPO_ENVS), device)
+
+def replay_actor_draws(env, snapshot, n: int, steps: int, device):
+    """The reset cache, or a counter-reset family's seeds, and then the
+    sampling bits that ``fused_actor_rollout`` drew from a generator in
+    state ``snapshot``."""
+    gen = torch.Generator(device=device)
+    gen.set_state(snapshot)
+    cache = seeds = None
+    if ar.counter_reset(env):
+        seeds = draw_seeds(gen, n, device)
+    else:
+        cache = env.batch_reset_cache(n, resets_for(env, steps), gen, device)
+    return cache, seeds, ar.draw_bits(gen, (steps, env.num_actions, n), device)
+
+
+def check_last_trajectory(env, last, device, what: str):
+    """Hold the last train step's trajectory to the actor kernel's three
+    contracts against the plain versions; returns (weights, states0, cache,
+    seeds, noise, max abs err, near-ties)."""
+    model, states0, snapshot, final, traj, _ = last
+    check(traj.obs.shape == (PPO_STEPS, PPO_ENVS, env.agent_view_size**2), f"{what}: trajectory obs shape")
+    cache, seeds, noise = replay_actor_draws(env, snapshot, PPO_ENVS, PPO_STEPS, device)
     weights = ar.repack_actor_params(model)
     for name in ("b1", "b2", "bh"):
         check(bool((getattr(weights, name) != 0).any()), f"bias {name} is still 0: the check would not see it")
     err, ties = ar.check_trajectory(
-        env, weights, states0, cache, noise, final, traj._asdict(), ar.PLAIN_ATOL, TIE_MARGIN
+        env, weights, states0, cache, noise, final, traj._asdict(), ar.PLAIN_ATOL, TIE_MARGIN, seeds
     )
-    phase(
-        7,
-        f"PPO {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
-        f"launches per step (actor, embed fwd, embed bwd) {per_step[0]}, last metrics "
-        f"{ {k: float(v) for k, v in metrics.items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
-        f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS})",
-    )
+    return weights, states0, cache, seeds, noise, err, ties
 
-    # Times: the actor kernel alone against its plain version on the same
-    # inputs, then train steps, rollout and update apart, through the
-    # kernels and through the plain versions.
-    k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
-    p2 = partial(ar.actor_rollout_reference, env, weights, states0, cache, noise)
-    tp1, tk1, tk2, tp2 = time_ms(p2, 1), time_ms(k2, 5), time_ms(k2, 5), time_ms(p2, 1)
-    k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
-    print(f"actor_rollout ({card}) {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms", flush=True)
 
+def time_train_steps(make, env, env_id: str, config, state, card: str, metric: str, plan) -> None:
+    """Print ``metric``, the env-steps/s of a train step, with its rollout /
+    update split, for each (label, through the kernels, warm steps) of
+    ``plan``: through the kernels or through the plain versions."""
     steps = PPO_ENVS * PPO_STEPS
-    for label, kernels, reps in (("plain", False, 2), ("kernels", True, 3), ("kernels", True, 3), ("plain", False, 2)):
-        _, step_fn = make_ppo(env, config, hidden=PPO_HIDDEN, _plain=not kernels)
+    for label, kernels, reps in plan:
+        _, step_fn = make(env, config, hidden=PPO_HIDDEN, _plain=not kernels)
         holder = {}
 
         def roll():
@@ -592,21 +632,30 @@ def ppo_slice(device, card: str) -> tuple[dict, dict]:
             u_ms.append(event_ms(upd))
         r, u = statistics.median(r_ms), statistics.median(u_ms)
         print(
-            f"ppo_env_steps_per_sec ({card}) {ENV_ID} {PPO_ENVS}x{PPO_STEPS} {label}: "
+            f"{metric} ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS} {label}: "
             f"{steps / (r + u) * 1e3:.6g} (train step {r + u:.4f} ms = rollout {r:.4f} ms + update {u:.4f} ms; "
             f"median of {reps} warm steps)",
             flush=True,
         )
 
-    # The actor kernel's bound: the noise, state and cache read, the state
-    # and the trajectory written, the weights read once; layer 1 adds the
-    # 148 selected rows in f32 on the CUDA cores, layer 2 and the heads are
-    # bf16 products at the tensor cores' rate.
-    n_pos = PPO_STEPS * PPO_ENVS
+
+def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[float, str]:
+    """The actor kernel's bound: the noise, the state (extra scalars
+    included) and the reset cache or seeds read, the state and the
+    trajectory written, the weights read once; layer 1 adds the 148
+    selected rows in f32 on the CUDA cores, layer 2 and the heads are bf16
+    products at the tensor cores' rate, and a counter-reset family's
+    threefry evaluations (this run's resets and walk) are integer work on
+    the CUDA cores."""
+    t, _, n = noise.shape
+    n_pos = t * n
     v2 = env.agent_view_size**2
+    counter = ar.counter_reset(env)
+    scalars = env.fused_ext.n_scalars if counter else 0
+    resets = 0 if counter else cache.step_count.shape[1]
     moved = (
         noise.numel() * 4
-        + rollout_bytes(states0, 0, cache.step_count.shape[1])
+        + rollout_bytes(states0, 0, resets, scalars, seeds=counter)
         + sum(w.numel() * w.element_size() for w in weights)
         + n_pos * (v2 * 4 + 5 * 4 + 1)
     )
@@ -614,11 +663,179 @@ def ppo_slice(device, card: str) -> tuple[dict, dict]:
         (3 * v2 + 1) * PPO_HIDDEN / CUDA_CORE_OPS_PER_S
         + 2 * PPO_HIDDEN * (PPO_HIDDEN + env.num_actions + 1) / BF16_TENSOR_OPS_PER_S
     )
+    if counter:
+        op_seconds += THREEFRY_OPS * threefry_evaluations(env, n_pos, episodes) / CUDA_CORE_OPS_PER_S
+    return bound(moved, op_seconds)
+
+
+def ppo_slice(device, card: str) -> tuple[dict, dict]:
+    """Phase 7: PPO on Empty-8x8 through the actor and embed + dense-1 kernels."""
+    env = mgt.make(ENV_ID)
+    config = PPOConfig(rollout_steps=PPO_STEPS)
+    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), "the slice must take the actor kernel")
+
+    zero_launch_counts()
+    want = (1, config.num_minibatches + 1, config.num_minibatches)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {ENV_ID}")
+    launches_k2 = ar.KERNEL_LAUNCHES
+    launches_k3 = dict(ed.KERNEL_LAUNCHES)
+    weights, states0, cache, _, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {ENV_ID}")
+    phase(
+        7,
+        f"PPO {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
+        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
+        f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS})",
+    )
+
+    # Times: the actor kernel alone against its plain version on the same
+    # inputs, then train steps, rollout and update apart, through the
+    # kernels and through the plain versions.
+    k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
+    p2 = partial(ar.actor_rollout_reference, env, weights, states0, cache, noise)
+    tp1, tk1, tk2, tp2 = time_ms(p2, 1), time_ms(k2, 5), time_ms(k2, 5), time_ms(p2, 1)
+    k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
+    print(f"actor_rollout ({card}) {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms", flush=True)
+    plan = (("plain", False, 2), ("kernels", True, 3), ("kernels", True, 3), ("plain", False, 2))
+    time_train_steps(make_ppo, env, ENV_ID, config, state, card, "ppo_env_steps_per_sec", plan)
+
     actor_entry = kernel_entry(
-        "actor_rollout", "minigrid_tpu_torch/ops/csrc/actor_rollout.cu", "minigrid_tpu/ops/actor_rollout.py:164",
-        launches_k2, err, k2_ms, p2_ms, bound(moved, op_seconds),
+        "actor_rollout", ACTOR_SOURCE, ACTOR_REPLACES, launches_k2, err, k2_ms, p2_ms,
+        actor_bound(env, states0, cache, weights, noise, 0),
     )
     return actor_entry, launches_k3
+
+
+def actor_counter_check(env_id: str, device, card: str) -> str:
+    """Phase 9, another counter-reset family: the actor kernel at
+    ``SMALL_ENVS`` x ``SMALL_STEPS``, hidden 256 with nonzero biases, held
+    to the three contracts against the plain version (env replay, final
+    state and extra exact); then the kernel and its plain version timed at
+    the PPO size, outside the main path."""
+    env = mgt.make(env_id)
+    gen = torch.Generator(device=device).manual_seed(1)
+    model = ActorCritic(PPO_HIDDEN, env.num_actions, generator=gen)
+    with torch.no_grad():
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    weights = ar.repack_actor_params(model)
+
+    def case(n: int, steps: int):
+        _, states = env.reset(n, gen)
+        seeds = draw_seeds(gen, n, device)
+        return states, seeds, ar.draw_bits(gen, (steps, env.num_actions, n), device)
+
+    states, seeds, noise = case(SMALL_ENVS, SMALL_STEPS)
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, None, noise, seeds)
+    torch.cuda.synchronize()
+    episodes = int(traj["done"].sum())
+    check(episodes > 0, f"{env_id}: no episode ended")
+    err, ties = ar.check_trajectory(env, weights, states, None, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN, seeds)
+
+    states, seeds, noise = case(PPO_ENVS, PPO_STEPS)
+    k = partial(ar.fused_actor_rollout_core, env, weights, states, None, noise, seeds)
+    p = partial(ar.actor_rollout_reference, env, weights, states, None, noise, seeds)
+    k_ms, p_ms = time_ms(k, 5), event_ms(p)
+    full = int(k()[1]["done"].sum())
+    b_ms, b_by = actor_bound(env, states, None, weights, noise, full)
+    print(
+        f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {full} episodes",
+        flush=True,
+    )
+    return f"{env_id} {SMALL_ENVS}x{SMALL_STEPS}: == plain version ({episodes} episodes, max abs err {err}, {ties} near-ties)"
+
+
+def ppo_counter_slice(device, card: str) -> dict:
+    """Phase 9: PPO on Dynamic-Obstacles-8x8 through the actor kernel's ext
+    instantiation and the embed + dense-1 kernels; the actor kernel on the
+    other two counter-reset families at a small size."""
+    env = mgt.make(DYNOBS_ID)
+    config = PPOConfig(rollout_steps=PPO_STEPS)
+    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), f"{DYNOBS_ID} must take the actor kernel")
+
+    zero_launch_counts()
+    want = (1, config.num_minibatches + 1, config.num_minibatches)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {DYNOBS_ID}")
+    launches = ar.KERNEL_LAUNCHES
+    weights, states0, _, seeds, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {DYNOBS_ID}")
+    traj = last[4]
+    episodes = int(traj.done.sum())
+    check(bool((traj.action >= 3).any()) and float(traj.reward.min()) == -1.0, "no remapped action or no collision")
+    phase(
+        9,
+        f"PPO {DYNOBS_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
+        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
+        f"versions, final state and extra exact ({episodes} episodes, logp/value max abs err {err}, "
+        f"{ties} near-ties of {PPO_STEPS * PPO_ENVS})",
+    )
+
+    # The actor kernel against its plain version, the plain version timed
+    # once; then train steps through the kernels and through the plain
+    # versions.
+    k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, None, noise, seeds)
+    p2 = partial(ar.actor_rollout_reference, env, weights, states0, None, noise, seeds)
+    k2_ms, p2_ms = time_ms(k2, 5), event_ms(p2)
+    print(
+        f"actor_rollout ({card}) {DYNOBS_ID} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms",
+        flush=True,
+    )
+    plan = (("kernels", True, 2), ("plain", False, 1))
+    time_train_steps(make_ppo, env, DYNOBS_ID, config, state, card, "ppo_env_steps_per_sec", plan)
+    for env_id in SMALL_COUNTER_IDS:
+        phase(9, actor_counter_check(env_id, device, card))
+    return kernel_entry(
+        f"actor_rollout[{DYNOBS_ID}]", ACTOR_SOURCE, ACTOR_REPLACES, launches, err, k2_ms, p2_ms,
+        actor_bound(env, states0, None, weights, noise, episodes),
+    )
+
+
+def impala_slice(device, card: str) -> None:
+    """Phase 10: IMPALA on Empty-8x8 (bench.py's configuration) and one
+    IMPALA train step on Dynamic-Obstacles-8x8, through the kernels."""
+    config = IMPALAConfig(rollout_steps=PPO_STEPS)
+    # Per minibatch: two embed + dense-1 forwards (the slice and its
+    # bootstrap) and one backward.
+    want = (1, 2 * config.num_minibatches, config.num_minibatches)
+    env = mgt.make(ENV_ID)
+    init_fn, train_step = make_impala(env, config, hidden=PPO_HIDDEN)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    zero_launch_counts()
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"IMPALA {ENV_ID}")
+    _, _, _, _, _, err, ties = check_last_trajectory(env, last, device, f"IMPALA {ENV_ID}")
+    phase(
+        10,
+        f"IMPALA {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
+        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
+        f"versions (logp/value max abs err {err}, {ties} near-ties)",
+    )
+    plan = (("kernels", True, 3), ("plain", False, 1))
+    time_train_steps(make_impala, env, ENV_ID, config, state, card, "impala_env_steps_per_sec", plan)
+
+    env = mgt.make(DYNOBS_ID)
+    init_fn, train_step = make_impala(env, config, hidden=PPO_HIDDEN)
+    state = init_fn(torch.Generator(device=device).manual_seed(1), PPO_ENVS)
+    zero_launch_counts()
+    state, metrics = train_step(state)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(metrics[k]) for k in ("pg_loss", "value_loss", "entropy")]
+    check(counts == want and all(np.isfinite(losses)), f"IMPALA {DYNOBS_ID}: launches {counts}, losses {losses}")
+    phase(
+        10,
+        f"IMPALA {DYNOBS_ID} {PPO_ENVS} envs x {PPO_STEPS} steps: 1 train step, launches {counts}, "
+        f"metrics { {k: float(v) for k, v in metrics.items()} }",
+    )
 
 
 def main() -> None:
@@ -649,8 +866,9 @@ def main() -> None:
             f"{spilled} bytes spilled)"
         )
     phase(2, f"kernels loaded after {time.perf_counter() - t0:.1f} s; " + "; ".join(built))
-    if "fused_rollout" in _build.BUILD_INFO:
-        print(ext_report(_build.BUILD_INFO["fused_rollout"][1]), flush=True)
+    for name in ("fused_rollout", "actor_rollout"):
+        if name in _build.BUILD_INFO:
+            print(ptxas_report(name, _build.BUILD_INFO[name][1]), flush=True)
 
     n_files = replay_goldens(device)
     phase(3, f"{n_files} step fixtures and process_vis bit-exact on {device}")
@@ -727,7 +945,9 @@ def main() -> None:
     embed_entries[0]["launches"] = launches_k3["fwd"]
     embed_entries[1]["launches"] = launches_k3["bwd"]
     counter_entries = [counter_slice(env_id, device, card) for env_id in COUNTER_IDS]
-    summary = {"kernels": [rollout_entry, *counter_entries, actor_entry, *embed_entries]}
+    actor_ext_entry = ppo_counter_slice(device, card)
+    impala_slice(device, card)
+    summary = {"kernels": [rollout_entry, *counter_entries, actor_entry, actor_ext_entry, *embed_entries]}
     print(json.dumps(summary), flush=True)
     device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

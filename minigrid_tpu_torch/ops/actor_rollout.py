@@ -1,12 +1,15 @@
 """Whole-collection actor kernel: the policy inside the environment loop.
 
-Port of ``minigrid_tpu/ops/actor_rollout.py`` for families without a fused
-ext.  The kernel (``csrc/actor_rollout.cu``, CUDA C++ for Hopper) replaces
-the Pallas kernel ``_actor_kernel``: for T steps every env observes (the
-packed view), runs the actor MLP on its one-hot features, samples its
-action by Gumbel-argmax from injected random bits, steps and auto-resets
-from an R-slot reset cache (``core/env.step_cached`` semantics).  Only the
-trajectory leaves the kernel.
+Port of ``minigrid_tpu/ops/actor_rollout.py``.  The kernel
+(``csrc/actor_rollout.cu``, CUDA C++ for Hopper) replaces the Pallas kernel
+``_actor_kernel``: for T steps every env observes (the packed view), runs
+the actor MLP on its one-hot features, samples its action by Gumbel-argmax
+from injected random bits, steps through the family's hooks and
+auto-resets, from an R-slot reset cache (``core/env.step_cached``
+semantics) or, for a counter-reset family (random-start Empty, Crossing,
+Dynamic-Obstacles), by regenerating a fresh level in the kernel from
+per-env seeds (``FusedExt.reset_block``).  Only the trajectory leaves the
+kernel.
 
 The actor's arithmetic is the TPU kernel's, which differs from
 ``rl/model.ActorCritic`` in where it rounds: layer 1 adds an f32 bias to the
@@ -26,10 +29,18 @@ from typing import NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.core.env import cache_slot
 from minigrid_tpu_torch.core.state import FIELDS, EnvState, select
 from minigrid_tpu_torch.ops._build import load_library
-from minigrid_tpu_torch.ops.fused_rollout import check_env_and_state, from_env_minor, to_env_minor
+from minigrid_tpu_torch.ops.fused_rollout import (
+    check_env_and_state,
+    counter_reset,
+    ext_buffers,
+    fresh_episodes,
+    from_env_minor,
+    to_env_minor,
+    with_extra,
+)
+from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.parallel.vector import MAX_FUSED_CELLS, fused_eligible
 
 # Hidden sizes the CUDA source instantiates: PPO's 256 and the tests' 64.
@@ -46,7 +57,7 @@ KERNEL_LAUNCHES = 0
 # that holds the port's actor to the JAX package's.
 PLAIN_ATOL = 1e-4
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 
 
 class ActorWeights(NamedTuple):
@@ -107,12 +118,11 @@ def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
 
 def supports_fused_actor(env, device, num_envs: int, hidden: int) -> bool:
     """Whether the kernel runs this configuration: what ``parallel/vector.
-    fused_eligible`` asks of the random-policy kernel, plus no fused ext
-    (the actor kernel has none of their hooks yet), a compiled hidden size,
+    fused_eligible`` asks of the random-policy kernel (a default-hook family
+    or one with a compiled counter-reset ext), plus a compiled hidden size,
     at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
     return (
         fused_eligible(env, device)
-        and env.fused_ext is None
         and hidden in COMPILED_HIDDEN
         and 1 <= env.num_actions <= MAX_ACTIONS
         and num_envs % ENVS_PER_BLOCK == 0
@@ -123,29 +133,41 @@ def fused_actor_rollout(env, model, states: EnvState, generator, num_steps: int,
     """Collect ``num_steps`` on-policy steps of ``model`` (an
     ``rl/model.ActorCritic``) with the actor in the kernel.
 
-    Draws the R-slot reset cache and then the sampling bits [T, A, N] from
-    ``generator``.  Returns ``(final_states, traj)`` with time-major [T, N]
-    leaves: obs (int32 [T, N, v*v] packed), direction, action, logp, value,
-    reward, done (bool), as ``rl/rollout.collect_trajectory``.
+    Draws from ``generator`` the per-env reset seeds int32 [N, 2] (a
+    counter-reset family, which ignores ``resets_per_chunk``) or the R-slot
+    reset cache, and then the sampling bits [T, A, N], in the JAX package's
+    order.  Returns ``(final_states, traj)`` with time-major [T, N] leaves:
+    obs (int32 [T, N, v*v] packed), direction, action, logp, value, reward,
+    done (bool), as ``rl/rollout.collect_trajectory``.
     """
     n, device = states.step_count.shape[0], states.device
-    cache = env.batch_reset_cache(n, resets_per_chunk, generator, device)
+    cache = seeds = None
+    if counter_reset(env):
+        seeds = draw_seeds(generator, n, device)
+    else:
+        cache = env.batch_reset_cache(n, resets_per_chunk, generator, device)
     noise = draw_bits(generator, (num_steps, env.num_actions, n), device)
-    return fused_actor_rollout_core(env, repack_actor_params(model), states, cache, noise)
+    return fused_actor_rollout_core(env, repack_actor_params(model), states, cache, noise, seeds)
 
 
-def fused_actor_rollout_core(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
-    """The collection over explicit ``cache`` (leaves [N, R, ...]) and
-    sampling bits ``noise`` int32 [T, A, N]: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def fused_actor_rollout_core(
+    env, weights: ActorWeights, states: EnvState, cache: EnvState | None, noise: torch.Tensor, reset_seeds=None
+):
+    """The collection over explicit sampling bits ``noise`` int32 [T, A, N]
+    and reset ``cache`` (leaves [N, R, ...]) or, for a counter-reset family,
+    ``cache=None`` and ``reset_seeds`` int32 [N, 2]: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if states.device.type == "cpu":
-        return actor_rollout_reference(env, weights, states, cache, noise)
-    return _launch(env, weights, states, cache, noise)
+        return actor_rollout_reference(env, weights, states, cache, noise, reset_seeds)
+    return _launch(env, weights, states, cache, noise, reset_seeds)
 
 
-def actor_rollout_reference(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
+def actor_rollout_reference(
+    env, weights: ActorWeights, states: EnvState, cache: EnvState | None, noise: torch.Tensor, reset_seeds=None
+):
     """Plain PyTorch version of the kernel, on any device: a loop over T of
-    observe, the plain actor, sample and ``step_cached``."""
+    observe, the plain actor, sample, ``step_env`` (the family's hooks
+    included) and the auto-reset (``fused_rollout.fresh_episodes``)."""
     used = torch.zeros(states.step_count.shape[0], dtype=torch.int32, device=states.device)
     out = {k: [] for k in ("obs", "direction", "action", "logp", "value", "reward", "done")}
     st = states
@@ -157,20 +179,24 @@ def actor_rollout_reference(env, weights: ActorWeights, states: EnvState, cache:
         done = stepped.terminated | stepped.truncated
         for k, x in zip(out, (obs, st.agent_dir, action, logp, value, reward, done)):
             out[k].append(x)
-        st = select(done, cache_slot(cache, used), stepped)
+        st = select(done, fresh_episodes(env, cache, reset_seeds, used), stepped)
         used = used + done.int()
     return st, {k: torch.stack(v) for k, v in out.items()}
 
 
 @torch.no_grad()
-def check_trajectory(env, weights: ActorWeights, states, cache, noise, final, traj, atol=2e-2, margin=1e-2):
-    """Hold a trajectory collected from ``states`` with reset ``cache`` and
-    sampling bits ``noise`` [T, A, N] to the actor kernel's three contracts;
-    raises AssertionError where one fails.
+def check_trajectory(
+    env, weights: ActorWeights, states, cache, noise, final, traj, atol=2e-2, margin=1e-2, reset_seeds=None
+):
+    """Hold a trajectory collected from ``states`` with reset ``cache`` (or,
+    for a counter-reset family, ``reset_seeds``) and sampling bits ``noise``
+    [T, A, N] to the actor kernel's three contracts; raises AssertionError
+    where one fails.
 
-    1. Env replay: ``step_cached`` on the trajectory's actions with the same
-       cache gives its obs, direction, reward (rtol 1e-6: XLA may contract
-       the reward into an FMA) and done at every step, and ``final``.
+    1. Env replay: ``step_env`` on the trajectory's actions with the same
+       auto-reset gives its obs, direction, reward (rtol 1e-6: XLA may
+       contract the reward into an FMA) and done at every step, and
+       ``final``, every field and ``extra`` leaf.
     2. Policy: ``actor_policy_reference`` on its obs gives its logp and value
        to ``atol`` (bf16 rounding).
     3. Sampling: ``sample_actions`` on its bits and the plain actor's logits
@@ -205,10 +231,13 @@ def check_trajectory(env, weights: ActorWeights, states, cache, noise, final, tr
         done = stepped.terminated | stepped.truncated
         ensure(torch.allclose(reward, traj["reward"][t], rtol=1e-6, atol=0), f"reward differs at t={t}")
         ensure(torch.equal(done, traj["done"][t]), f"done differs at t={t}")
-        st = select(done, cache_slot(cache, used), stepped)
+        st = select(done, fresh_episodes(env, cache, reset_seeds, used), stepped)
         used = used + done.int()
     for f in FIELDS:
         ensure(torch.equal(getattr(st, f), getattr(final, f)), f"final state field {f} differs")
+    ensure((st.extra is None) == (final.extra is None), "final extra on one side only")
+    for k, v in (st.extra or {}).items():
+        ensure(v.shape == final.extra[k].shape and torch.equal(v, final.extra[k]), f"final extra {k} differs")
     ensure(err <= atol, f"logp/value differ from the plain actor by {err}")
     ensure(ties <= 0.01 * noise.shape[0] * n, f"{ties} near-ties: fewer than 99% of positions compared")
     return err, ties
@@ -219,7 +248,7 @@ def _require(cond: bool, message: str) -> None:
         raise ValueError(f"actor_rollout kernel: {message}")
 
 
-def _launch(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise: torch.Tensor):
+def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Tensor, reset_seeds=None):
     global KERNEL_LAUNCHES
     r = check_env_and_state(env, states, cache, "actor_rollout")
     device = states.device
@@ -245,6 +274,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise
     ):
         _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}")
         _require(x.dtype == dtype and x.device == device, f"{name} must be {dtype} on {device}")
+    scal, seeds, ext_id, params = ext_buffers(env, states, reset_seeds, "actor_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     w = [x.contiguous() for x in weights]
@@ -263,18 +293,21 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache: EnvState, noise
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, *w, *traj.values()]
+    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds, *w, *traj.values()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(x.data_ptr() for x in pointers),
-            env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n, na, hidden,
-            int(bool(getattr(env, "fused_no_objects", False))),
-            int(bool(getattr(env, "fused_static_mission", False))),
+            *(None if x is None else x.data_ptr() for x in pointers),
+            env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
+            0 if scal is None else scal.shape[0], na, hidden,
+            int(bool(env.fused_no_objects)),
+            int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
+            ext_id,
+            *params,
             stream,
         )
     if err != 0:
         raise RuntimeError(f"actor_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
-    return from_env_minor(states, grid, cont, sc, mis), traj
+    return with_extra(env, from_env_minor(states, grid, cont, sc, mis), scal), traj

@@ -1,13 +1,17 @@
 // Whole-collection actor kernel for Hopper (sm_90a): the policy inside the
 // environment loop.
 //
-// Replaces the Pallas TPU kernel minigrid_tpu/ops/actor_rollout.py::_actor_kernel
-// for families without a fused ext.  For T steps, every env observes its
-// state (the packed view with occlusion, unseen cells 0), embeds it as
-// one-hots, runs the actor MLP (bf16 weights, f32 accumulation), samples
-// the action by Gumbel-argmax from injected random bits, steps and
-// auto-resets from the R-slot reset cache (core/env.step_cached semantics),
-// and streams obs, direction, action, logp, value, reward and done.
+// Replaces the Pallas TPU kernel minigrid_tpu/ops/actor_rollout.py::_actor_kernel.
+// For T steps, every env observes its state (the packed view with
+// occlusion, unseen cells 0), embeds it as one-hots, runs the actor MLP
+// (bf16 weights, f32 accumulation), samples the action by Gumbel-argmax
+// from injected random bits, then runs the family's pre-step hook, the
+// core step on the mapped action and the post-step hook on the unmapped
+// one, and auto-resets: from the R-slot reset cache (NoExt families,
+// core/env.step_cached semantics) or, for a COUNTER_RESET ext, by
+// generating a fresh level in place from the env's seed and episode ordinal
+// (both at the pre-increment `used`).  It streams obs, direction, the
+// unmapped action, logp, value, reward and done.
 //
 // Design.  A block owns B = 32 envs and has HID threads (one per hidden
 // unit).  Per step:
@@ -25,22 +29,35 @@
 //      reduction per head row (NA logits, then the value), + f32 bias;
 //   5. warp 0 samples (u = (bits[31:8] + 0.5) / 2^24, z = lg - log(-log u),
 //      first maximum wins; logp = lg[a] - logsumexp(lg), with accurate
-//      logf/expf), then steps and resets its env.
+//      logf/expf), then steps and resets its env through the family's Ext
+//      struct (fused_ext.cuh and ext/*.cuh, the same structs as the
+//      random-policy kernel; ext_id picks the instantiation).
 // Activations live in shared memory env-major ([32][HID] f32 holding bf16
 // values), so the layer-1 and layer-2 stores and the head reads are free
-// of bank conflicts.
+// of bank conflicts.  The family's extra state (Ext::Extra, up to 19 ints
+// for Dynamic-Obstacles) also lives in shared memory, one slot per env:
+// only warp 0 touches it, and in registers it would be allocated to all
+// HID threads, against __launch_bounds__(HID, 2)'s cap of 128 registers at
+// HID = 256 that layer 2's 32 accumulators already press on.  The seeds are
+// read from device memory at each reset, so no register holds them.
 //
 // What bounds it on this card.  Layer 2 is 32 x HID x HID FMAs per block
 // step on the CUDA cores (67 Mi FMA per step of 8192 envs at HID = 256);
 // layer 1 is 148 two-byte L1/L2 loads per env per thread.  Both are far
 // from the tensor cores' rate: mma.sync or wgmma on [32, HID] x [HID, HID]
 // tiles, and a wider load per thread in layer 1, are the next steps.  The
-// env phase runs on one warp of the block while the others wait.
+// env phase runs on one warp of the block while the others wait; a
+// counter reset (Dynamic-Obstacles scans the grid twice per ball) holds
+// the whole block at the next barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ext/crossing.cuh"
+#include "ext/dynamic_obstacles.cuh"
+#include "ext/empty_random.cuh"
+#include "fused_ext.cuh"
 #include "minigrid_env.cuh"
 
 namespace {
@@ -60,6 +77,8 @@ struct Args {
   const int* ccont;          // [R, W*H, N]
   const int* csc;            // [R, NUM_SC, N]
   const int* cmis;           // [R, M, N]
+  int* scal;                 // [K, N] the ext's extra scalars, in and out
+  const int* seeds;          // [2, N] counter-reset seeds (COUNTER_RESET exts)
   const __nv_bfloat16* w1;   // [V*V*20 + 4, HID]
   const float* b1;           // [HID]
   const __nv_bfloat16* w2;   // [HID, HID]
@@ -79,14 +98,17 @@ struct Args {
 __device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float round_bf16(float x) { return bf(__float2bfloat16_rn(x)); }
 
-template <int V, int HID, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH>
-__global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a) {
+template <int V, int HID, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH>
+__global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtParams p) {
+  static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
+                "a counter reset writes neither contents nor mission");
   constexpr int V2 = V * V;
   constexpr int NWARPS = HID / 32;
   __shared__ int obs_s[B * V2];
   __shared__ int dir_s[B];
   __shared__ __align__(16) float h_s[B * HID];  // [env][hidden]
   __shared__ float head_s[B * MAX_HEADS];
+  __shared__ typename Ext::Extra x_s[B];        // warp 0's envs' extra state
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -104,7 +126,10 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a) {
 
   Scalars s{};
   int used = 0;
-  if (env_thread) s = load_scalars(a.sc + n, N);
+  if (env_thread) {
+    s = load_scalars(a.sc + n, N);
+    x_s[lane] = Ext::load(a.scal, n, N, p);
+  }
   const int h = tid;
   const float b1h = a.b1[h];
   const float b2h = a.b2[h];
@@ -227,30 +252,64 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a) {
       a.logp[tn + n] = chosen - (m + logf(se));
       a.value[tn + n] = value;
 
-      const float reward = core_step<NO_OBJECTS>(grid, cont, N, a.W, a.H, s, action);
+      typename Ext::Extra& x = x_s[lane];
+      if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, a.W, a.H, s, x);
+      float reward = core_step<NO_OBJECTS>(grid, cont, N, a.W, a.H, s, Ext::map_action(action));
+      if (Ext::post_step(p, action, reward, x)) s.term = 1;
       const bool done = s.term || s.trunc;
       a.rew[tn + n] = reward;
       a.done[tn + n] = done;
       if (done) {
-        cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+        if constexpr (Ext::COUNTER_RESET) {
+          const Words e = episode_seed((uint32_t)a.seeds[n], (uint32_t)a.seeds[N + n], used);
+          Ext::reset(p, e, grid, N, a.W, a.H, s, x);
+        } else {
+          cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+        }
         used += 1;
       }
     }
   }
-  if (env_thread) store_scalars(a.sc + n, N, s);
+  if (env_thread) {
+    store_scalars(a.sc + n, N, s);
+    Ext::store(a.scal, n, N, p, x_s[lane]);
+  }
 }
 
-// Picks the instantiation for the runtime switches, one flag at a time.
-template <int V, int HID, bool... Fixed>
-void dispatch(const Args& a, const int* flags, cudaStream_t stream) {
+// Picks the instantiation for the runtime switches, one flag at a time;
+// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH.
+template <int V, int HID, class Ext, bool... Fixed>
+void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
   if constexpr (sizeof...(Fixed) == 3) {
-    actor_kernel<V, HID, Fixed...><<<a.N / B, HID, 0, stream>>>(a);
+    actor_kernel<V, HID, Ext, Fixed...><<<a.N / B, HID, 0, stream>>>(a, p);
   } else {
     if (flags[sizeof...(Fixed)]) {
-      dispatch<V, HID, Fixed..., true>(a, flags, stream);
+      dispatch<V, HID, Ext, Fixed..., true>(a, p, flags, stream);
     } else {
-      dispatch<V, HID, Fixed..., false>(a, flags, stream);
+      dispatch<V, HID, Ext, Fixed..., false>(a, p, flags, stream);
     }
+  }
+}
+
+// Picks the ext's instantiation; the exts are compiled without objects and
+// with a constant mission, as in the random-policy kernel.
+template <int V, int HID>
+bool dispatch_ext(int ext_id, const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
+  switch (ext_id) {
+    case EXT_NONE:
+      dispatch<V, HID, NoExt>(a, p, flags, stream);
+      return true;
+    case EXT_EMPTY_RANDOM:
+      dispatch<V, HID, EmptyRandomExt, true, true>(a, p, flags, stream);
+      return true;
+    case EXT_CROSSING:
+      dispatch<V, HID, CrossingExt, true, true>(a, p, flags, stream);
+      return true;
+    case EXT_DYNAMIC_OBSTACLES:
+      dispatch<V, HID, DynamicObstaclesExt, true, true>(a, p, flags, stream);
+      return true;
+    default:
+      return false;
   }
 }
 
@@ -261,21 +320,29 @@ void dispatch(const Args& a, const int* flags, cudaStream_t stream) {
 extern "C" int actor_rollout_supports_hidden(int hidden) { return hidden == 256 || hidden == 64; }
 
 // Launches the collection on `stream`; returns a cudaError_t (0 on success).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal and seeds unused);
+// a counter-reset ext takes seeds and K extra scalars (R = 0, no cache).
 extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, const void* w1, const float* b1,
-                                    const void* w2, const float* b2, const void* wh,
-                                    const float* bh, int* obs, int* dir, int* act, float* logp,
-                                    float* value, float* rew, void* done, int W, int H, int V,
-                                    int R, int M, int T, int N, int NA, int hidden,
-                                    int no_objects, int static_mission, int see_through,
-                                    void* stream) {
-  if (V != 7 || W < 1 || H < 1 || R < 1 || M < 0 || T < 0 || N < 0 || N % B != 0 || NA < 1 ||
+                                    const int* cmis, int* scal, const int* seeds, const void* w1,
+                                    const float* b1, const void* w2, const float* b2,
+                                    const void* wh, const float* bh, int* obs, int* dir, int* act,
+                                    float* logp, float* value, float* rew, void* done, int W,
+                                    int H, int V, int R, int M, int T, int N, int K, int NA,
+                                    int hidden, int no_objects, int static_mission,
+                                    int see_through, int ext_id, int max_steps, int n_obstacles,
+                                    int num_crossings, int obstacle_cell, int start_x, int start_y,
+                                    int start_dir, void* stream) {
+  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % B != 0 || K < 0 || NA < 1 ||
       NA > MAX_HEADS - 1 || !actor_rollout_supports_hidden(hidden)) {
     return (int)cudaErrorInvalidValue;
   }
+  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
+  if (!ext_launch_ok(ext_id, p, W, H, R, K, no_objects, static_mission, scal, seeds)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (N == 0) return (int)cudaSuccess;
-  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis,
+  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds,
                static_cast<const __nv_bfloat16*>(w1), b1,
                static_cast<const __nv_bfloat16*>(w2), b2,
                static_cast<const __nv_bfloat16*>(wh), bh,
@@ -283,10 +350,8 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
                W, H, R, M, T, N, NA};
   const int flags[3] = {no_objects, static_mission, see_through};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hidden == 256) {
-    dispatch<7, 256>(a, flags, s);
-  } else {
-    dispatch<7, 64>(a, flags, s);
-  }
+  const bool known = hidden == 256 ? dispatch_ext<7, 256>(ext_id, a, p, flags, s)
+                                   : dispatch_ext<7, 64>(ext_id, a, p, flags, s);
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -12,10 +12,6 @@
 
 namespace minigrid {
 
-// Most rivers, and most candidate rows plus columns, the kernel takes.
-constexpr int MAX_CROSSINGS = 8;
-constexpr int MAX_CROSSING_CANDIDATES = 32;
-
 struct CrossingExt : NoExt {
   static constexpr bool COUNTER_RESET = true;
 

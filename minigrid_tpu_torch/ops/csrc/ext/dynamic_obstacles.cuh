@@ -17,7 +17,6 @@
 
 namespace minigrid {
 
-constexpr int MAX_OBSTACLES = 8;
 // "obst", "walk": the walk seed of an episode is threefry(e, WALK_TAG).
 constexpr uint32_t WALK_TAG0 = 0x6F627374u;
 constexpr uint32_t WALK_TAG1 = 0x77616C6Bu;

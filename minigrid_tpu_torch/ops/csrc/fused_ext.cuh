@@ -1,5 +1,6 @@
-// The family-extension interface of the whole-rollout kernel
-// (fused_rollout.cu) and the helpers of the counter-reset stream.
+// The family-extension interface of the whole-rollout kernels
+// (fused_rollout.cu, actor_rollout.cu) and the helpers of the counter-reset
+// stream.
 //
 // Device side of minigrid_tpu_torch/ops/fused_ext.py (the JAX package's
 // minigrid_tpu/ops/fused_ext.py).  An ext is a struct with
@@ -49,6 +50,43 @@ struct ExtParams {
   int start_x, start_y;  // start_x < 0: a random start
   int start_dir;
 };
+
+// The compiled slots the runtime sizes must fit: Dynamic-Obstacles' balls,
+// and Crossing's rivers and candidate rows plus columns.
+constexpr int MAX_OBSTACLES = 8;
+constexpr int MAX_CROSSINGS = 8;
+constexpr int MAX_CROSSING_CANDIDATES = 32;
+
+// Whether ext `ext_id`'s runtime parameters, grid and K extra scalars fit
+// the compiled slots; both kernels refuse a launch where they do not.
+inline bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
+  switch (ext_id) {
+    case EXT_EMPTY_RANDOM:
+      return K == 0 && W >= 3 && H >= 3;
+    case EXT_CROSSING: {
+      const int n_cand = (H > 3 ? (H - 3) / 2 : 0) + (W > 3 ? (W - 3) / 2 : 0);
+      return K == 0 && p.num_crossings >= 0 && p.num_crossings <= MAX_CROSSINGS &&
+             p.num_crossings <= n_cand && n_cand <= MAX_CROSSING_CANDIDATES;
+    }
+    case EXT_DYNAMIC_OBSTACLES:
+      return p.n_obstacles >= 0 && p.n_obstacles <= MAX_OBSTACLES && K == 2 * p.n_obstacles + 3 &&
+             p.start_x < W && p.start_y < H;
+    default:
+      return false;
+  }
+}
+
+// Whether a whole-rollout kernel takes ext `ext_id` with these sizes and
+// buffers: NoExt reads an R >= 1 reset cache and no extra scalars; a
+// counter-reset ext reads per-env seeds and its K scalars, and no cache, on
+// a family without objects and with a constant mission (its reset writes
+// neither contents nor mission).
+inline bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, int no_objects,
+                          int static_mission, const int* scal, const int* seeds) {
+  if (ext_id == EXT_NONE) return R >= 1 && K == 0;
+  return R == 0 && no_objects && static_mission && seeds != nullptr && (K == 0 || scal != nullptr) &&
+         ext_params_ok(ext_id, p, W, H, K);
+}
 
 // The sub-seed of an env's episode with ordinal `ep` (its resets so far).
 __device__ __forceinline__ Words episode_seed(uint32_t s0, uint32_t s1, int ep) {

@@ -163,24 +163,6 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
   }
 }
 
-// Whether the ext's runtime parameters fit the compiled slots.
-bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
-  switch (ext_id) {
-    case EXT_EMPTY_RANDOM:
-      return K == 0 && W >= 3 && H >= 3;
-    case EXT_CROSSING: {
-      const int n_cand = (H > 3 ? (H - 3) / 2 : 0) + (W > 3 ? (W - 3) / 2 : 0);
-      return K == 0 && p.num_crossings >= 0 && p.num_crossings <= MAX_CROSSINGS &&
-             p.num_crossings <= n_cand && n_cand <= MAX_CROSSING_CANDIDATES;
-    }
-    case EXT_DYNAMIC_OBSTACLES:
-      return p.n_obstacles >= 0 && p.n_obstacles <= MAX_OBSTACLES && K == 2 * p.n_obstacles + 3 &&
-             p.start_x < W && p.start_y < H;
-    default:
-      return false;
-  }
-}
-
 }  // namespace
 
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
@@ -199,10 +181,7 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
-  if (ext_id == EXT_NONE) {
-    if (R < 1 || K != 0) return (int)cudaErrorInvalidValue;
-  } else if (R != 0 || !no_objects || !static_mission || seeds == nullptr ||
-             (K > 0 && scal == nullptr) || !ext_params_ok(ext_id, p, W, H, K)) {
+  if (!ext_launch_ok(ext_id, p, W, H, R, K, no_objects, static_mission, scal, seeds)) {
     return (int)cudaErrorInvalidValue;
   }
   if (N == 0) return (int)cudaSuccess;

@@ -142,8 +142,6 @@ def fused_rollout_reference(
     or the ext's ``reset_block`` at episode ordinal ``used``, both taken
     with the pre-increment ``used``."""
     counter = counter_reset(env)
-    if counter and reset_seeds is None:
-        raise ValueError(f"{type(env).__name__} regenerates levels from reset_seeds; pass them")
     n = states.step_count.shape[0]
     device = states.device
     used = torch.zeros(n, dtype=torch.int32, device=device)
@@ -156,8 +154,7 @@ def fused_rollout_reference(
         done = stepped.terminated | stepped.truncated
         rew_sum = rew_sum + reward
         done_count = done_count + done.int()
-        fresh = env.fused_ext.reset_block(env, reset_seeds, used) if counter else cache_slot(cache, used)
-        st = select(done, fresh, stepped)
+        st = select(done, fresh_episodes(env, cache, reset_seeds, used), stepped)
         used = used + done.int()
         if compute_obs:
             cells, vis = view_and_vis(st, env.agent_view_size, env.see_through_walls)
@@ -171,24 +168,34 @@ def fused_rollout_reference(
     )
 
 
+def fresh_episodes(env, cache: EnvState | None, reset_seeds: torch.Tensor | None, used: torch.Tensor) -> EnvState:
+    """The episodes an auto-reset at per-env ordinals ``used`` (the
+    pre-increment reset counts) draws: the ext's ``reset_block`` on
+    ``reset_seeds`` for a counter-reset family, else reset-cache slot
+    min(used, R-1)."""
+    if not counter_reset(env):
+        return cache_slot(cache, used)
+    if reset_seeds is None:
+        raise ValueError(f"{type(env).__name__} regenerates levels from reset_seeds; pass them")
+    return env.fused_ext.reset_block(env, reset_seeds, used)
+
+
 def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
     if not cond:
         raise ValueError(f"{what} kernel: {message}")
 
 
-def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str, ext_ok: bool = False) -> int:
+def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str) -> int:
     """Raise unless a whole-rollout kernel takes this env, state and reset
-    cache (CUDA, hooks it runs, a compiled view size, int32 leaves of the
-    right shapes on one device); returns R, which is 0 for a counter-reset
-    family (``cache`` None).  ``ext_ok``: the kernel runs the compiled fused
-    exts (``compiled_ext``); otherwise every ext is refused."""
+    cache (CUDA, hooks it runs, a compiled fused ext where the family has
+    one, a compiled view size, int32 leaves of the right shapes on one
+    device); returns R, which is 0 for a counter-reset family (``cache``
+    None)."""
     device = states.device
     name = type(env).__name__
     _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)", what)
     _require(supports_fused(env), f"{name} has step hooks the kernel does not run", what)
-    if env.fused_ext is not None:
-        _require(ext_ok, f"{name}'s fused ext is not ported to this kernel yet", what)
-        _require(compiled_ext(env), f"{name}'s fused ext has no compiled CUDA twin", what)
+    _require(compiled_ext(env), f"{name}'s fused ext has no compiled CUDA twin", what)
     v = env.agent_view_size
     _require(v in COMPILED_VIEW_SIZES, f"view size {v} has no compiled instantiation", what)
     n = states.step_count.shape[0]
@@ -273,30 +280,44 @@ def _pointer(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+def ext_buffers(env, states: EnvState, reset_seeds: torch.Tensor | None, what: str):
+    """The ext arguments of a whole-rollout kernel: the extra scalars as an
+    env-minor int32 [K, N] copy the kernel updates in place (None without
+    any), the seeds as [2, N] (None without an ext), the ext's kernel id
+    and its ``ExtParams`` (``FusedExt.kernel_params``)."""
+    ext = env.fused_ext
+    if ext is None:
+        return None, None, 0, (0,) * 7
+    n, device = states.step_count.shape[0], states.device
+    scal = None
+    if ext.n_scalars:
+        scal = ext.pack_extra(env, states.extra)
+        _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]", what)
+        scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
+    _require(
+        reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
+        and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
+        f"reset_seeds must be int32 [{n}, 2] on the state's device",
+        what,
+    )
+    return scal, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env)
+
+
+def with_extra(env, final: EnvState, scal: torch.Tensor | None) -> EnvState:
+    """``final`` with the kernel's final extra scalars [K, N] unpacked into
+    its ``extra``."""
+    return final if scal is None else final.replace(extra=env.fused_ext.unpack_extra(env, scal.t().contiguous()))
+
+
 def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bool, reset_seeds):
     global KERNEL_LAUNCHES
-    r = check_env_and_state(env, states, cache, "fused_rollout", ext_ok=True)
+    r = check_env_and_state(env, states, cache, "fused_rollout")
     device = states.device
     n = states.step_count.shape[0]
     t = actions.shape[0]
     _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
     _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
-
-    ext = env.fused_ext
-    scal = seeds = None
-    params = (0,) * 7
-    if ext is not None:
-        params = ext.kernel_params(env)
-        if ext.n_scalars:
-            scal = ext.pack_extra(env, states.extra)
-            _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]")
-            scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
-        _require(
-            reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
-            and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
-            f"reset_seeds must be int32 [{n}, 2] on the state's device",
-        )
-        seeds = reset_seeds.t().contiguous()
+    scal, seeds, ext_id, params = ext_buffers(env, states, reset_seeds, "fused_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     acts = actions.contiguous()
@@ -320,7 +341,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
             int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
             int(bool(compute_obs)),
-            0 if ext is None else ext.kernel_id,
+            ext_id,
             *params,
             stream,
         )
@@ -328,11 +349,8 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
         raise RuntimeError(f"fused_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
 
-    final = from_env_minor(states, grid, cont, sc, mis)
-    if scal is not None:
-        final = final.replace(extra=ext.unpack_extra(env, scal.t().contiguous()))
     return (
-        final,
+        with_extra(env, from_env_minor(states, grid, cont, sc, mis), scal),
         rew.sum(),
         wrap_int32(done.sum(dtype=torch.int64)),
         wrap_int32(obs.sum(dtype=torch.int64)),

@@ -90,6 +90,31 @@ def apply_gradients(model: ActorCritic, grads: dict[str, torch.Tensor], state: A
     return AdamState(count, mu, nu)
 
 
+def init_train_state(env, hidden: int, generator: torch.Generator, num_envs: int) -> TrainState:
+    """``num_envs`` fresh envs, a fresh network and its Adam state, on the
+    generator's device."""
+    device = generator.device
+    _, env_states = env.reset(num_envs, generator, device)
+    model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, device)
+    return TrainState(model, adam_init(model), env_states, generator)
+
+
+def update_apply(model: ActorCritic, plain: bool):
+    """The forward a learner's update uses: through the embed + dense-1
+    kernels (on a CPU tensor that op is the plain version), or with
+    ``plain`` the model's own forward."""
+    if plain:
+        return lambda obs, direction: model(obs, direction, packed=True)
+    return lambda obs, direction: apply_packed_fused(model, obs, direction)
+
+
+def mesh_not_ported(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "training over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
+        )
+
+
 def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None, *, _plain: bool = False):
     """Build ``(init_fn, train_step)`` for the given env family.
 
@@ -102,10 +127,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
     learner option: it runs the plain versions on a CUDA device too, which
     ``chip_smoke.py`` times the kernels against.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
-        )
+    mesh_not_ported(mesh)
     resets_per_chunk = (
         config.resets_per_chunk
         if config.resets_per_chunk is not None
@@ -123,17 +145,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
         return config.learning_rate * (1.0 - frac)
 
     def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:
-        device = generator.device
-        _, env_states = env.reset(num_envs, generator, device)
-        model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, device)
-        return TrainState(model, adam_init(model), env_states, generator)
-
-    def apply_fn(model: ActorCritic):
-        """The forward the update uses: through the embed + dense-1 kernels
-        (on a CPU tensor that op is the plain version)."""
-        if _plain:
-            return lambda obs, direction: model(obs, direction, packed=True)
-        return lambda obs, direction: apply_packed_fused(model, obs, direction)
+        return init_train_state(env, hidden, generator, num_envs)
 
     def rollout(model: ActorCritic, env_states, generator):
         return collect_trajectory(
@@ -173,7 +185,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
         """GAE and the minibatched clipped-surrogate update on a collected
         trajectory; returns (model, opt_state, metrics)."""
         obs, direction, action, logp, value, reward, done = traj
-        apply = apply_fn(model)
+        apply = update_apply(model, _plain)
         with torch.no_grad():
             _, last_value = apply(env.observation_packed(env_states), env_states.agent_dir)
             adv = gae(value, reward, done, last_value)
@@ -208,7 +220,8 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
             # Reset-budget certification (parallel/reset_budget): the most
             # episodes any env finished this chunk; above resets_per_chunk
             # the reset cache replayed its last level (exempt for
-            # deterministic_generation families).
+            # deterministic_generation families).  A counter-reset family
+            # has no cache to exhaust: every reset is a fresh level.
             "max_episodes_per_chunk": done.int().sum(dim=0).max(),
         }
         return model, opt_state, metrics

@@ -45,10 +45,11 @@ def collect_trajectory(
     in every env; returns (env_states, Trajectory).
 
     ``fused_actor=True`` on CUDA tensors takes the whole-collection CUDA
-    kernel (ops/actor_rollout.py): the env state, reset cache and actor
-    weights stay on the card for all steps and only the trajectory is
-    written.  A configuration the kernel does not take raises there
-    (``supports_fused_actor`` says which it takes).  On CPU tensors, or with
+    kernel (ops/actor_rollout.py): the env state, the reset cache (or, for
+    a counter-reset family such as Dynamic-Obstacles, the per-env reset
+    seeds) and the actor weights stay on the card for all steps and only
+    the trajectory is written.  A configuration the kernel does not take
+    raises there (``supports_fused_actor`` says which it takes).  On CPU tensors, or with
     ``fused_actor=False``, every step is the plain loop: the packed
     observation, ``model``'s forward, Gumbel-argmax sampling from bits
     drawn from ``generator``, and the batched step with auto-reset.  Both

@@ -19,6 +19,7 @@ from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
+from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
@@ -126,14 +127,25 @@ def test_ext_wrappers_reject_what_their_kernels_do_not_take(device):
     _, big_states = big.reset(64, gen)
     with pytest.raises(ValueError, match="no compiled CUDA twin"):
         fr.fused_rollout_core(big, big_states, None, actions, True, seeds)
-    # The actor kernel has no ext hooks yet: its wrapper and the learner raise.
+    # The actor kernel runs Dynamic-Obstacles-8x8, through its wrapper and
+    # the learner, and refuses what the rollout kernel refuses.
     model = ActorCritic(64, env.num_actions, generator=gen)
     weights = ar.repack_actor_params(model)
     noise = ar.draw_bits(gen, (4, env.num_actions, 64), device)
-    with pytest.raises(ValueError, match="not ported to this kernel"):
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, None, noise, seeds)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1 and traj["obs"].shape == (4, 64, 49)
+    assert set(final.extra) == set(states.extra)
+    with pytest.raises(ValueError, match="reset_seeds"):
         ar.fused_actor_rollout_core(env, weights, states, None, noise)
     init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=4, num_minibatches=1), hidden=64)
-    with pytest.raises(ValueError, match="not ported to this kernel"):
+    _, metrics = train_step(init_fn(gen, 64))
+    assert ar.KERNEL_LAUNCHES == before + 2 and bool(torch.isfinite(metrics["pg_loss"]))
+    with pytest.raises(ValueError, match="no compiled CUDA twin"):
+        ar.fused_actor_rollout_core(big, weights, big_states, None, noise, seeds)
+    init_fn, train_step = make_ppo(big, PPOConfig(rollout_steps=4, num_minibatches=1), hidden=64)
+    with pytest.raises(ValueError, match="no compiled CUDA twin"):
         train_step(init_fn(gen, 64))
 
 
@@ -201,17 +213,54 @@ def test_actor_kernel_meets_the_contracts(device, kind):
     ar.check_trajectory(env, weights, states, cache, noise, final, traj, atol=ar.PLAIN_ATOL)
 
 
-def test_train_step_goes_through_the_kernels(device):
-    env = mgt.make("MiniGrid-Empty-8x8-v0")
-    config = PPOConfig(rollout_steps=16, num_minibatches=2)
-    init_fn, train_step = make_ppo(env, config, hidden=64)
+@pytest.mark.parametrize("env_id", ["MiniGrid-Empty-8x8-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"])
+@pytest.mark.parametrize("learner", ["ppo", "impala"])
+def test_train_step_goes_through_the_kernels(device, learner, env_id):
+    env = mgt.make(env_id)
+    if learner == "ppo":
+        # The actor kernel, then per minibatch one embed + dense-1 forward
+        # and backward, and one forward for GAE's bootstrap value.
+        init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=16, num_minibatches=2), hidden=64)
+        want = (1, 3, 2)
+    else:
+        # Per minibatch two forwards (its slice and its bootstrap) and one
+        # backward.
+        init_fn, train_step = make_impala(env, IMPALAConfig(rollout_steps=16, num_minibatches=2), hidden=64)
+        want = (1, 4, 2)
     state = init_fn(torch.Generator(device=device).manual_seed(0), 1024)
     before = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
     state, metrics = train_step(state)
     torch.cuda.synchronize()
     after = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 3, 2)
+    assert tuple(a - b for a, b in zip(after, before)) == want
     assert all(bool(torch.isfinite(metrics[k])) for k in ("pg_loss", "value_loss", "entropy"))
+    assert state.env_states.grid.device.type == "cuda"
+
+
+@pytest.mark.parametrize("env_id", COUNTER_IDS)
+def test_actor_kernel_runs_the_counter_reset_families(device, env_id):
+    # The ext hooks, the extra scalars and the in-kernel counter reset, with
+    # the policy inside; a short max_steps adds truncations.
+    env = mgt.make(env_id, max_steps=24)
+    n, t = 4096, 64
+    gen = torch.Generator(device=device).manual_seed(3)
+    _, states = env.reset(n, gen)
+    model = ActorCritic(64, env.num_actions, generator=gen)
+    with torch.no_grad():  # nonzero biases: init leaves them 0
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    weights = ar.repack_actor_params(model)
+    seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, device=device, dtype=torch.int32)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, None, noise, seeds)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) > n
+    ar.check_trajectory(env, weights, states, None, noise, final, traj, ar.PLAIN_ATOL, reset_seeds=seeds)
+    if "Dynamic" in env_id:  # the remap and the collision penalty ran
+        assert int((traj["action"] >= 3).sum()) > 0 and float(traj["reward"].min()) == -1.0
 
 
 def test_new_wrappers_reject_what_their_kernels_do_not_take(device):

@@ -201,7 +201,7 @@ def test_counter_families_take_the_kernel_on_cuda_and_the_plain_loop_on_cpu(env_
     env = mgt.make(env_id)
     assert fr.supports_fused(env) and fr.compiled_ext(env) and fr.counter_reset(env)
     assert fused_eligible(env, "cuda") and not fused_eligible(env, "cpu")
-    assert not supports_fused_actor(env, "cuda", 1024, 64)  # K2 has no ext hooks yet
+    assert supports_fused_actor(env, "cuda", 1024, 64)  # K2 runs the ext hooks too
     assert rollout_capacity(env, 256, "cpu") == 0
     gen = torch.Generator().manual_seed(1)
     _, states = VectorEnv(env, 64, "cpu").reset(gen)

@@ -22,7 +22,7 @@ from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.model import apply_packed_fused
 from minigrid_tpu_torch.rl.rollout import Trajectory, collect_trajectory
 from minigrid_tpu_torch.utils.bridge import params_from_flax, params_to_flax
-from torch_port_util import port_model, to_port, with_bias_noise
+from torch_port_util import one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
 
 HIDDEN = 64
 
@@ -133,6 +133,7 @@ def test_optimizer_matches_optax(jax_batch, grad_scale):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-8)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_ppo_improves_on_empty():
     config = tppo.PPOConfig(
         rollout_steps=64, num_minibatches=4, update_epochs=2, learning_rate=1e-3, entropy_coef=0.005

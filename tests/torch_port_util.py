@@ -7,6 +7,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import minigrid_tpu as mg
 from minigrid_tpu.core.env import MiniGridEnv as JEnv
@@ -96,3 +98,17 @@ def port_model(params, hidden=HIDDEN):
     model = tmodel.ActorCritic(hidden=hidden, num_actions=7, device="cpu")
     model.load_state_dict(params_from_flax(params))
     return model
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch's CPU ops on one thread for the test, restored after it: a
+    learner's small ops gain nothing from more, and the suite's workers
+    share the machine's cores, where each worker's own pool of threads
+    would contend with the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
