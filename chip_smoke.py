@@ -9,8 +9,10 @@ Phases, one output line each; any failure raises and exits non-zero:
 2. build every kernel from ``minigrid_tpu_torch/ops/csrc`` (one ``nvcc`` per
    source, side by side);
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
-   ``process_vis.npz``) through the port's core step, observation and
-   occlusion on the card: integers bit-exact, rewards to rtol 1e-6;
+   ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
+   GoToDoor and GoToObject with their targets) through the port's core
+   step, family hooks, observation and occlusion on the card: integers
+   bit-exact, rewards to rtol 1e-6;
 4. hold the kernel against its plain PyTorch version on random object-rich
    states (doors, keys, balls, boxes, carried objects, occlusion, R=2 cache,
    short episodes): every state field, the cache slots used, the
@@ -61,14 +63,32 @@ Phases, one output line each; any failure raises and exits non-zero:
    ``impala_env_steps_per_sec`` with its rollout/update split through the
    kernels and the plain versions; then one IMPALA train step on
    ``MiniGrid-Dynamic-Obstacles-8x8-v0`` with the same launch counts and
-   finite losses.
+   finite losses;
+11. the reset-cache slice: for each of ``MiniGrid-DoorKey-8x8-v0``,
+   ``MiniGrid-FourRooms-v0``, ``MiniGrid-GoToObject-8x8-N2-v0``,
+   ``MiniGrid-GoToDoor-8x8-v0`` and ``MiniGrid-Fetch-8x8-N3-v0`` at 65536
+   envs x 256 steps with R from ``reset_budget.resets_for``, ``make``,
+   ``env.reset`` on the card, ``rollout_random`` and the
+   observation-consuming ``fused_rollout`` through the kernel (2 launches,
+   counted), each held against the plain version on the replayed actions
+   and cache (every state field and ``extra`` leaf, done count, checksum
+   and slots used exact, reward total to rtol 1e-5); where R does not
+   cover the slots used, the rollout is certified again at the R that
+   reset_budget's rule gives for them; ``assert_chain_covered``; the kernel,
+   the plain version and the cache's generation timed apart;
+12. the actor kernel's cached-ext instantiations on
+   ``MiniGrid-GoToDoor-8x8-v0`` and ``MiniGrid-Fetch-8x8-N3-v0`` at 4096 x
+   32, held to the three contracts with the cache (final ``extra`` exact)
+   and timed at 8192 x 128; then PPO on ``MiniGrid-DoorKey-8x8-v0`` as in
+   phase 7 (three train steps, launches 1/9/8, the last trajectory held to
+   the contracts with its cache, timed with its rollout/update split).
 
 Every kernel entry of the JSON line carries its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
 the card's peak for their type) and, where one PyTorch call computes the
 same function, that call's time (``library_ms``; the port never calls it).
-The second-to-last line is that JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The second-to-last line is that JSON summary of the kernels;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -88,21 +108,21 @@ import numpy as np
 import torch
 
 import minigrid_tpu_torch as mgt
-from minigrid_tpu_torch.core.constants import pack_carry, see_behind, unpack_grid
+from minigrid_tpu_torch.core.constants import see_behind
 from minigrid_tpu_torch.core.env import MiniGridEnv
-from minigrid_tpu_torch.core.obs import gen_obs_image, process_vis
-from minigrid_tpu_torch.core.state import FIELDS, new_state
-from minigrid_tpu_torch.core.step import core_step
+from minigrid_tpu_torch.core.obs import process_vis
+from minigrid_tpu_torch.core.state import FIELDS
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops.prng import draw_seeds
-from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, resets_for
+from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, covering_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
+from minigrid_tpu_torch.utils import golden
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 
@@ -112,7 +132,6 @@ ENV_ID = "MiniGrid-Empty-8x8-v0"
 NUM_ENVS = 65536
 NUM_STEPS = 256
 REWARD_RTOL = 1e-5  # totals are summed in another order by the two versions
-GOLDEN_REWARD_RTOL = 1e-6
 # The learner slice: bench.py's PPO configuration.
 PPO_ENVS = 8192
 PPO_STEPS = 128
@@ -137,6 +156,20 @@ DYNOBS_ID = COUNTER_IDS[2]
 SMALL_COUNTER_IDS = COUNTER_IDS[:2]
 SMALL_ENVS = 4096
 SMALL_STEPS = 32
+# The reset-cache slice: DoorKey-8x8 and FourRooms (two of bench.py's
+# TRACKED ids) and the families whose ext the cache blends (GoToObject,
+# GoToDoor, Fetch), at bench.py's size; the actor kernel's cached-ext
+# instantiations on GoToDoor and Fetch at a small size; PPO on DoorKey-8x8.
+CACHE_IDS = (
+    "MiniGrid-DoorKey-8x8-v0",
+    "MiniGrid-FourRooms-v0",
+    "MiniGrid-GoToObject-8x8-N2-v0",
+    "MiniGrid-GoToDoor-8x8-v0",
+    "MiniGrid-Fetch-8x8-N3-v0",
+)
+DOORKEY_ID = CACHE_IDS[0]
+CACHED_EXT_ACTOR_IDS = CACHE_IDS[3:]
+OVERLAY_IDS = ("MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-GoToObject-8x8-N2-v0")
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -192,52 +225,23 @@ def ptxas_report(name: str, log: str) -> str:
     )
 
 
-def replay_goldens(device) -> int:
+def replay_goldens(device) -> tuple[int, int]:
     """Phase 3: every recorded transition through core_step and
-    gen_obs_image, and every recorded view through process_vis."""
+    gen_obs_image, every recorded view through process_vis, and the
+    recorded step overlays of the reset-cache families with targets
+    (``utils/golden.replay``)."""
     files = sorted(GOLDEN.glob("steps_*.npz"))
     check(len(files) == 10, f"expected 10 step fixtures, found {len(files)}")
     for path in files:
-        with np.load(path) as z:
-            d = {k: z[k] for k in z.files}
-        t = {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
-        state = new_state(
-            t["grid_pre"], t["pos_pre"], t["dir_pre"], int(d["max_steps"]), contains=t["contains_pre"]
-        )
-        c = t["carry_pre"].int()
-        state = state.replace(
-            carrying=pack_carry(c[:, 0], c[:, 1], c[:, 2], c[:, 3]),
-            step_count=t["step_count_pre"].int(),
-        )
-        state, reward = core_step(state, t["action"])
-        obs = gen_obs_image(state, int(d["agent_view_size"]), bool(d["see_through_walls"]))
-        got = {
-            "grid_post": unpack_grid(state.grid),
-            "contains_post": torch.stack([state.contains & 0xFF, (state.contains >> 8) & 0xFF], -1),
-            "pos_post": state.agent_pos,
-            "dir_post": state.agent_dir,
-            "carry_post": torch.stack([(state.carrying >> s) & 0xFF for s in (0, 8, 16, 24)], -1),
-            "reward": reward,
-            "terminated": state.terminated,
-            "truncated": state.truncated,
-            "obs_image": obs,
-        }
-        for key, value in got.items():
-            want = d[key]
-            have = value.cpu().numpy().astype(want.dtype)
-            if key == "reward":
-                # The reference computed it in float64; the port, like the
-                # JAX package, in float32 (its golden test's rtol).
-                ok = np.allclose(have, want, rtol=GOLDEN_REWARD_RTOL, atol=0)
-            else:
-                ok = np.array_equal(have, want)
-            check(ok, f"{path.name}: {key} differs from the fixture")
+        golden.replay(path, device)
     with np.load(GOLDEN / "process_vis.npz") as z:
         grids = torch.from_numpy(z["grids"]).to(device).int()
         masks = z["masks"]
     vis = process_vis(see_behind(grids[..., 0], grids[..., 2]))
     check(np.array_equal(vis.cpu().numpy(), masks), "process_vis differs from the fixture")
-    return len(files)
+    for env_id in OVERLAY_IDS:
+        golden.replay(GOLDEN / f"overlay_{env_id}.npz", device, mgt.make(env_id))
+    return len(files), len(OVERLAY_IDS)
 
 
 def bound(nbytes: float, op_seconds: float) -> tuple[float, str]:
@@ -248,13 +252,25 @@ def bound(nbytes: float, op_seconds: float) -> tuple[float, str]:
     return max(t_bytes, op_seconds) * 1e3, "bytes" if t_bytes >= op_seconds else "operations"
 
 
-def rollout_bytes(states, steps: int, resets: int = 0, ext_scalars: int = 0, seeds: bool = False) -> int:
+def rollout_bytes(env, states, steps: int, resets: float = 0, seeds: bool = False) -> int:
     """Bytes a whole-rollout call must move: the actions, the state read and
-    written (grid, contents, 8 scalar rows, mission, extra scalars), the
-    reset cache or the seeds read, and the four per-env outputs written."""
+    written, the ``resets`` reset-cache levels per env it reads or the
+    seeds, and the four per-env outputs written.  A state or level is what
+    the family's instantiation touches: the grid, the 8 scalar rows and the
+    ext's extra scalars, the contents plane unless ``fused_no_objects``, the
+    mission unless ``fused_static_mission``."""
     n, w, h = states.grid.shape
-    state = n * (2 * w * h + 8 + states.mission.shape[-1]) * 4
-    return 4 * steps * n + 2 * (state + 4 * n * ext_scalars) + resets * state + 8 * n * seeds + 16 * n
+    planes = 1 + (not env.fused_no_objects)
+    mission = 0 if env.fused_static_mission else states.mission.shape[-1]
+    scalars = env.fused_ext.n_scalars if env.fused_ext is not None else 0
+    state = n * (planes * w * h + 8 + mission + scalars) * 4
+    return int(4 * steps * n + 2 * state + resets * state + 8 * n * seeds + 16 * n)
+
+
+def levels_read(episodes: int, n: int, r: int) -> float:
+    """Reset-cache levels per env a rollout reads: one per ended episode,
+    at most R per env (past R the last slot is read again)."""
+    return min(episodes, n * r) / n
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms, library_ms=None) -> dict:
@@ -408,11 +424,10 @@ def counter_slice(env_id: str, device, card: str) -> dict:
     # Observations off: the state with its extra scalars, the actions and
     # the seeds move; the threefry evaluations this run's resets need are
     # integer work at the CUDA cores' rate.
-    scalars = env.fused_ext.n_scalars
     ops = THREEFRY_OPS * threefry_evaluations(env, NUM_ENVS * NUM_STEPS, int(total_done))
     return kernel_entry(
         f"fused_rollout[{env_id}]", SOURCE, REPLACES, launches, err, *times[False],
-        bound(rollout_bytes(states, NUM_STEPS, 0, scalars, seeds=True), ops / CUDA_CORE_OPS_PER_S),
+        bound(rollout_bytes(env, states, NUM_STEPS, 0, seeds=True), ops / CUDA_CORE_OPS_PER_S),
     )
 
 
@@ -641,7 +656,7 @@ def time_train_steps(make, env, env_id: str, config, state, card: str, metric: s
 
 def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[float, str]:
     """The actor kernel's bound: the noise, the state (extra scalars
-    included) and the reset cache or seeds read, the state and the
+    included) and the cache levels its ``episodes`` read or the seeds, the state and the
     trajectory written, the weights read once; layer 1 adds the 148
     selected rows in f32 on the CUDA cores, layer 2 and the heads are bf16
     products at the tensor cores' rate, and a counter-reset family's
@@ -651,11 +666,10 @@ def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[flo
     n_pos = t * n
     v2 = env.agent_view_size**2
     counter = ar.counter_reset(env)
-    scalars = env.fused_ext.n_scalars if counter else 0
-    resets = 0 if counter else cache.step_count.shape[1]
+    resets = 0 if counter else levels_read(episodes, n, cache.step_count.shape[1])
     moved = (
         noise.numel() * 4
-        + rollout_bytes(states0, 0, resets, scalars, seeds=counter)
+        + rollout_bytes(env, states0, 0, resets, seeds=counter)
         + sum(w.numel() * w.element_size() for w in weights)
         + n_pos * (v2 * 4 + 5 * 4 + 1)
     )
@@ -668,9 +682,10 @@ def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[flo
     return bound(moved, op_seconds)
 
 
-def ppo_slice(device, card: str) -> tuple[dict, dict]:
-    """Phase 7: PPO on Empty-8x8 through the actor and embed + dense-1 kernels."""
-    env = mgt.make(ENV_ID)
+def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple[dict, dict]:
+    """Phase 7 (and 12): PPO on Empty-8x8 (DoorKey-8x8) through the actor and
+    embed + dense-1 kernels."""
+    env = mgt.make(env_id)
     config = PPOConfig(rollout_steps=PPO_STEPS)
     init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -679,16 +694,18 @@ def ppo_slice(device, card: str) -> tuple[dict, dict]:
 
     zero_launch_counts()
     want = (1, config.num_minibatches + 1, config.num_minibatches)
-    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {ENV_ID}")
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {env_id}")
     launches_k2 = ar.KERNEL_LAUNCHES
     launches_k3 = dict(ed.KERNEL_LAUNCHES)
-    weights, states0, cache, _, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {ENV_ID}")
+    weights, states0, cache, _, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {env_id}")
+    episodes = int(last[4].done.sum())
     phase(
-        7,
-        f"PPO {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
+        number,
+        f"PPO {env_id} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
         f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
         f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
-        f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS})",
+        f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS}, "
+        f"{episodes} episodes, R={cache.step_count.shape[1]})",
     )
 
     # Times: the actor kernel alone against its plain version on the same
@@ -698,13 +715,16 @@ def ppo_slice(device, card: str) -> tuple[dict, dict]:
     p2 = partial(ar.actor_rollout_reference, env, weights, states0, cache, noise)
     tp1, tk1, tk2, tp2 = time_ms(p2, 1), time_ms(k2, 5), time_ms(k2, 5), time_ms(p2, 1)
     k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
-    print(f"actor_rollout ({card}) {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms", flush=True)
+    print(
+        f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms",
+        flush=True,
+    )
     plan = (("plain", False, 2), ("kernels", True, 3), ("kernels", True, 3), ("plain", False, 2))
-    time_train_steps(make_ppo, env, ENV_ID, config, state, card, "ppo_env_steps_per_sec", plan)
+    time_train_steps(make_ppo, env, env_id, config, state, card, "ppo_env_steps_per_sec", plan)
 
     actor_entry = kernel_entry(
-        "actor_rollout", ACTOR_SOURCE, ACTOR_REPLACES, launches_k2, err, k2_ms, p2_ms,
-        actor_bound(env, states0, cache, weights, noise, 0),
+        "actor_rollout" if env_id == ENV_ID else f"actor_rollout[{env_id}]", ACTOR_SOURCE, ACTOR_REPLACES,
+        launches_k2, err, k2_ms, p2_ms, actor_bound(env, states0, cache, weights, noise, episodes),
     )
     return actor_entry, launches_k3
 
@@ -717,12 +737,7 @@ def actor_counter_check(env_id: str, device, card: str) -> str:
     the PPO size, outside the main path."""
     env = mgt.make(env_id)
     gen = torch.Generator(device=device).manual_seed(1)
-    model = ActorCritic(PPO_HIDDEN, env.num_actions, generator=gen)
-    with torch.no_grad():
-        for i in range(4):
-            bias = getattr(model, f"Dense_{i}").bias
-            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
-    weights = ar.repack_actor_params(model)
+    weights = biased_weights(env, gen, device)
 
     def case(n: int, steps: int):
         _, states = env.reset(n, gen)
@@ -838,6 +853,173 @@ def impala_slice(device, card: str) -> None:
     )
 
 
+def cache_slice(env_id: str, device, card: str) -> dict:
+    """Phase 11, one family: the reset-cache path at bench.py's size, with R
+    from ``reset_budget.resets_for``.  Where that R (a fallback, for ids the
+    table has no row for) does not cover the slots the family used, in the
+    main path's two runs or in 8 chunks chained from them, the most used is
+    reported and the rollout is certified again at the R that
+    reset_budget's rule gives for it."""
+    env = mgt.make(env_id)
+    check(fused_eligible(env, device), f"{env_id} must take the kernel on {device}")
+    resets = resets_for(env, NUM_STEPS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    _, states = env.reset(NUM_ENVS, gen)
+    check(states.grid.device == device, f"{env_id}: reset on {states.grid.device}")
+    # The chained steady state that reset_budget's rates were measured in:
+    # episode ages spread over [0, max_steps), so that truncations, not only
+    # DoorKey's rare random successes, end episodes within 256 steps.
+    ages = torch.randint(0, env.max_steps, (NUM_ENVS,), generator=gen, device=device, dtype=torch.int32)
+    states = states.replace(step_count=ages)
+    snap_random = gen.get_state()
+    fr.KERNEL_LAUNCHES = 0
+    out_random = rollout_random(env, states, gen, NUM_STEPS)
+    snap_obs = gen.get_state()
+    out_obs = fr.fused_rollout(env, states, gen, NUM_STEPS, resets, compute_obs=True)
+    torch.cuda.synchronize()
+    launches = fr.KERNEL_LAUNCHES
+    check(launches == 2, f"{env_id}: the slice launched the kernel {launches} times, expected 2")
+
+    final, total_r, total_done, max_used = out_random
+    check(final.grid.shape == (NUM_ENVS, env.width, env.height), f"{env_id}: final grid shape")
+    check(np.isfinite(float(total_r)) and int(total_done) > 0, f"{env_id}: no episode ended")
+    check(int(final.step_count.max()) < env.max_steps, f"{env_id}: a step count past max_steps")
+    check((final.extra is None) == (env.fused_ext is None), f"{env_id}: extra")
+    _, _, plain_random = replay_rollout(env, states, snap_random, False, resets)
+    err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
+    actions, cache, plain_obs = replay_rollout(env, states, snap_obs, True, resets)
+    err = max(err, compare(out_obs, plain_obs, f"{env_id} fused_rollout compute_obs"))
+    # The most slots an env used at R, in these two runs and in a chain of
+    # 8 chunks from them.
+    observed = max(int(max_used), int(out_obs[4]))
+    chained = final
+    for _ in range(8):
+        chained, _, _, used = rollout_random(env, chained, gen, NUM_STEPS, resets)
+        observed = max(observed, int(used))
+    certified = resets
+    if observed > resets:
+        certified = covering_resets(observed, NUM_STEPS)
+        snap = gen.get_state()
+        out = fr.fused_rollout(env, states, gen, NUM_STEPS, certified, compute_obs=True)
+        actions, cache, plain = replay_rollout(env, states, snap, True, certified)
+        err = max(err, compare(out, plain, f"{env_id} fused_rollout compute_obs R={certified}"))
+        check(int(out[4]) <= certified, f"{env_id}: {int(out[4])} slots used at R={certified}")
+        print(
+            f"{env_id}: R={resets} from reset_budget does not cover it (max used {observed}, main path and "
+            "8 chained chunks); "
+            f"certified at R={certified} (max used {int(out[4])})",
+            flush=True,
+        )
+
+    def chunk(carry):
+        st, g = carry
+        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS, certified)
+        return (st, g), (r, d, mu)
+
+    chain = assert_chain_covered(chunk, (states, gen), certified, env)
+    phase(
+        11,
+        f"{env_id} {NUM_ENVS} envs x {NUM_STEPS} steps: {launches} kernel launches, outputs and extra == plain "
+        f"version, {int(total_done)} episodes, reward {float(total_r)}, max used {observed} at R={resets}, "
+        f"certified R={certified} (chain {chain})",
+    )
+
+    # Times: the kernel on the certified cache, obs off and on, against the
+    # plain version; the cache's generation apart, with its peak memory.
+    times = {}
+    for compute_obs in (False, True):
+        k = partial(fr.fused_rollout_core, env, states, cache, actions, compute_obs)
+        p = partial(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
+        times[compute_obs] = (min(time_ms(k, 5), time_ms(k, 5)), event_ms(p))
+    # The wrapper's share of a kernel call: the state and the cache into the
+    # kernel's env-minor layout.
+    layout_ms = time_ms(partial(fr.to_env_minor, states, cache), 5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen_ms = event_ms(lambda: env.batch_reset_cache(NUM_ENVS, certified, gen, device))
+    gen_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    steps = NUM_ENVS * NUM_STEPS
+    for compute_obs, (k_ms, p_ms) in times.items():
+        print(
+            f"steps/s ({card}) {env_id} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: kernel "
+            f"{steps / k_ms * 1e3:.6g} ({k_ms:.4f} ms), plain {steps / p_ms * 1e3:.6g} ({p_ms:.4f} ms), "
+            f"kernel/plain speed {p_ms / k_ms:.3g}x",
+            flush=True,
+        )
+    print(
+        f"wrapper ({card}) {env_id}: env-minor copies of the state and the R={certified} cache "
+        f"{layout_ms:.4f} ms of the {times[False][0]:.4f} ms obs-off call",
+        flush=True,
+    )
+    print(
+        f"reset cache ({card}) {env_id} {NUM_ENVS} x R={certified}: generated in {gen_ms:.4f} ms, peak "
+        f"{gen_gb:.4f} GB beyond what was allocated; kernel share of kernel + generation "
+        f"{times[False][0] / (times[False][0] + gen_ms):.4g}",
+        flush=True,
+    )
+    # Observations off: the actions, the state with its extra scalars, and
+    # the cache levels the certified run's episodes read.
+    episodes = int(fr.fused_rollout_core(env, states, cache, actions, False)[2])
+    return kernel_entry(
+        f"fused_rollout[{env_id}]", SOURCE, REPLACES, launches, err, *times[False],
+        bound(rollout_bytes(env, states, NUM_STEPS, levels_read(episodes, NUM_ENVS, certified)), 0.0),
+    )
+
+
+def biased_weights(env, gen, device) -> ar.ActorWeights:
+    """The actor kernel's weights at hidden ``PPO_HIDDEN`` with nonzero
+    biases (initialisation leaves them 0)."""
+    model = ActorCritic(PPO_HIDDEN, env.num_actions, generator=gen)
+    with torch.no_grad():
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    return ar.repack_actor_params(model)
+
+
+def actor_cache_check(env_id: str, device, card: str) -> dict:
+    """Phase 12, a cached-ext family: the actor kernel at ``SMALL_ENVS`` x
+    ``SMALL_STEPS``, hidden 256 with nonzero biases, on a reset cache with
+    the family's extra scalars, held to the three contracts (env replay,
+    final state and extra exact); then timed against its plain version at
+    the PPO size."""
+    env = mgt.make(env_id)
+    gen = torch.Generator(device=device).manual_seed(1)
+    weights = biased_weights(env, gen, device)
+
+    def case(n: int, steps: int):
+        _, states = env.reset(n, gen)
+        cache = env.batch_reset_cache(n, resets_for(env, steps), gen, device)
+        return states, cache, ar.draw_bits(gen, (steps, env.num_actions, n), device)
+
+    states, cache, noise = case(SMALL_ENVS, SMALL_STEPS)
+    zero_launch_counts()
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    launches = ar.KERNEL_LAUNCHES
+    episodes = int(traj["done"].sum())
+    check(launches == 1 and episodes > 0, f"{env_id}: {launches} launches, {episodes} episodes")
+    err, ties = ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
+    phase(
+        12,
+        f"actor kernel {env_id} {SMALL_ENVS}x{SMALL_STEPS}, hidden {PPO_HIDDEN}: == plain version, final extra "
+        f"exact ({episodes} episodes, R={cache.step_count.shape[1]}, max abs err {err}, {ties} near-ties)",
+    )
+    states, cache, noise = case(PPO_ENVS, PPO_STEPS)
+    k = partial(ar.fused_actor_rollout_core, env, weights, states, cache, noise)
+    p = partial(ar.actor_rollout_reference, env, weights, states, cache, noise)
+    k_ms, p_ms = time_ms(k, 5), event_ms(p)
+    full = int(k()[1]["done"].sum())
+    b = actor_bound(env, states, cache, weights, noise, full)
+    print(
+        f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]}), {full} episodes",
+        flush=True,
+    )
+    return kernel_entry(f"actor_rollout[{env_id}]", ACTOR_SOURCE, ACTOR_REPLACES, launches, err, k_ms, p_ms, b)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -870,8 +1052,8 @@ def main() -> None:
         if name in _build.BUILD_INFO:
             print(ptxas_report(name, _build.BUILD_INFO[name][1]), flush=True)
 
-    n_files = replay_goldens(device)
-    phase(3, f"{n_files} step fixtures and process_vis bit-exact on {device}")
+    n_files, n_overlays = replay_goldens(device)
+    phase(3, f"{n_files} step fixtures, process_vis and {n_overlays} step-overlay fixtures bit-exact on {device}")
 
     max_err = synthetic_check(device)
     phase(4, f"kernel == plain version on object-rich states (max abs err {max_err})")
@@ -937,7 +1119,7 @@ def main() -> None:
     # per-step integer work is a few dozen operations per env.
     rollout_entry = kernel_entry(
         "fused_rollout", SOURCE, REPLACES, launches, max_err, *times[False],
-        bound(rollout_bytes(states, NUM_STEPS, resets), 0.0),
+        bound(rollout_bytes(env, states, NUM_STEPS, resets), 0.0),
     )
 
     embed_entries = embed_dense_check(device, card)
@@ -947,7 +1129,15 @@ def main() -> None:
     counter_entries = [counter_slice(env_id, device, card) for env_id in COUNTER_IDS]
     actor_ext_entry = ppo_counter_slice(device, card)
     impala_slice(device, card)
-    summary = {"kernels": [rollout_entry, *counter_entries, actor_entry, actor_ext_entry, *embed_entries]}
+    cache_entries = [cache_slice(env_id, device, card) for env_id in CACHE_IDS]
+    actor_cache_entries = [actor_cache_check(env_id, device, card) for env_id in CACHED_EXT_ACTOR_IDS]
+    doorkey_entry, _ = ppo_slice(device, card, DOORKEY_ID, 12)
+    summary = {
+        "kernels": [
+            rollout_entry, *counter_entries, *cache_entries, actor_entry, actor_ext_entry, doorkey_entry,
+            *actor_cache_entries, *embed_entries,
+        ]
+    }
     print(json.dumps(summary), flush=True)
     device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

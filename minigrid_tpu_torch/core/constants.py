@@ -51,6 +51,10 @@ NUM_COLORS = 6
 
 COLOR_TO_IDX = {"red": 0, "green": 1, "blue": 2, "purple": 3, "yellow": 4, "grey": 5}
 IDX_TO_COLOR = {v: k for k, v in COLOR_TO_IDX.items()}
+# The reference draws colors from the sorted name list
+# (minigrid/core/constants.py:17): SORTED_COLOR_IDX[i] is the index of the
+# i-th sorted name (blue, green, grey, purple, red, yellow).
+SORTED_COLOR_IDX = tuple(COLOR_TO_IDX[c] for c in sorted(COLOR_TO_IDX))
 
 # -- Door states (reference: minigrid/core/constants.py:42-46) --
 STATE_OPEN = 0

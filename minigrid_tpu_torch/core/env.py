@@ -22,6 +22,7 @@ from minigrid_tpu_torch.core.mission import mission_to_text
 from minigrid_tpu_torch.core.state import EnvState, resolve_device, select
 from minigrid_tpu_torch.core.step import core_step
 from minigrid_tpu_torch.ops.prng import draw_seeds
+from minigrid_tpu_torch.utils.chunked import chunked, lane_cap
 
 
 class MiniGridEnv:
@@ -34,6 +35,11 @@ class MiniGridEnv:
     # reference's fresh-level-per-reset contract exactly
     # (parallel/reset_budget.py).
     deterministic_generation: bool = False
+    # Level generation costs many steps (placements over the whole grid):
+    # the learner's plain collector then draws resets from a per-env reset
+    # cache (parallel/vector.make_cached_stepper), as the JAX package does,
+    # instead of regenerating every env's level at every step.
+    expensive_reset: bool = False
     # Kernel specialisations (ops/fused_rollout.py).  ``fused_no_objects``:
     # no cell the core step can change (no keys, balls, boxes or doors), so
     # pickup, drop and toggle never fire.  ``fused_static_mission``: the
@@ -131,8 +137,14 @@ class MiniGridEnv:
     def batch_reset_cache(
         self, num_envs: int, num_resets: int, generator: torch.Generator | None = None, device=None
     ) -> EnvState:
-        """Reset cache with leaves [num_envs, num_resets, ...]."""
-        flat = self._generate(num_envs * num_resets, generator, resolve_device(generator, device))
+        """Reset cache with leaves [num_envs, num_resets, ...], generated in
+        chunks of bounded memory (``utils/chunked.py``)."""
+        device = resolve_device(generator, device)
+        flat = chunked(
+            lambda count: self._generate(count, generator, device),
+            num_envs * num_resets,
+            lane_cap(self.width * self.height),
+        )
         return flat.map(lambda a: a.reshape((num_envs, num_resets) + a.shape[1:]))
 
     def step_cached(self, state: EnvState, action: torch.Tensor, cache: EnvState, used: torch.Tensor):
@@ -148,10 +160,8 @@ class MiniGridEnv:
         Returns (obs, state, reward, terminated, truncated, used).
         """
         stepped, reward = self.step_env(state, action)
-        done = stepped.terminated | stepped.truncated
-        state = select(done, cache_slot(cache, used), stepped)
-        obs = self.observation(state)
-        return obs, state, reward, stepped.terminated, stepped.truncated, used + done.int()
+        state, used = cached_autoreset(stepped, cache, used)
+        return self.observation(state), state, reward, stepped.terminated, stepped.truncated, used
 
     def mission_text(self, mission) -> str:
         """The reference's mission string of one mission vector."""
@@ -164,3 +174,10 @@ def cache_slot(cache: EnvState, used: torch.Tensor) -> EnvState:
     rows = torch.arange(n, device=used.device)
     slot = used.clamp(max=r - 1).long()
     return cache.map(lambda a: a[rows, slot])
+
+
+def cached_autoreset(stepped: EnvState, cache: EnvState, used: torch.Tensor):
+    """Every ended episode of ``stepped`` replaced by slot min(used, R-1) of
+    its env's reset ``cache``; returns (state, used + ended)."""
+    done = stepped.terminated | stepped.truncated
+    return select(done, cache_slot(cache, used), stepped), used + done.int()

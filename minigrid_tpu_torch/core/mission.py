@@ -64,6 +64,20 @@ def mission_vec(tid: int, *params: int) -> torch.Tensor:
     return torch.tensor(slots + [0] * (MISSION_DIM - len(slots)), dtype=torch.int32)
 
 
+def mission_rows(tid, *params) -> torch.Tensor:
+    """int32 [N, MISSION_DIM] per-env mission vectors: template id ``tid``
+    (an int or int32[N]) and per-env parameters (int32[N] tensors), the
+    unused slots zero."""
+    n, device = params[0].shape[0], params[0].device
+    if len(params) + 1 > MISSION_DIM:
+        raise ValueError(f"a mission holds at most {MISSION_DIM - 1} parameters")
+    out = torch.zeros((n, MISSION_DIM), dtype=torch.int32, device=device)
+    out[:, 0] = torch.as_tensor(tid, device=device)
+    for i, p in enumerate(params):
+        out[:, 1 + i] = p
+    return out
+
+
 def _format_param(kind: str, value: int) -> str:
     if kind == PARAM_COLOR:
         return IDX_TO_COLOR[value]

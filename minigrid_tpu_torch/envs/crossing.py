@@ -35,6 +35,9 @@ MAX_CANDIDATES = 32
 class CrossingEnv(MiniGridEnv):
     """Reference: minigrid/envs/crossing.py:122-184."""
 
+    # As in the JAX package; the kernels regenerate its levels themselves,
+    # so its plain collector regenerates too instead of reading a cache.
+    expensive_reset = True
     # Grids hold only wall, lava and goal cells, and the mission depends
     # only on the obstacle type.
     fused_no_objects = True
@@ -72,6 +75,8 @@ class _CrossingResetExt(fx.FusedExt):
 
     covers_reset = True
     kernel_id = 2
+    # Its reset writes neither contents nor mission.
+    kernel_switches = (True, True, None)
 
     def kernel_params(self, env) -> tuple[int, ...] | None:
         candidates = len(range(2, env.height - 2, 2)) + len(range(2, env.width - 2, 2))

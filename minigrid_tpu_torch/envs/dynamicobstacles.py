@@ -76,6 +76,9 @@ class DynamicObstaclesEnv(MiniGridEnv):
     """Reference: minigrid/envs/dynamicobstacles.py:136-167.  Obstacle
     positions live in ``state.extra["obstacles"]`` (int32 [N, n, 2])."""
 
+    # As in the JAX package; the kernels regenerate its levels themselves,
+    # so its plain collector regenerates too instead of reading a cache.
+    expensive_reset = True
     # Actions >= 3 become 'left', so pickup, drop and toggle never reach the
     # core step (the walk rewrites the grid in the pre-step hook, which the
     # flag allows); the mission is a family constant.
@@ -141,6 +144,8 @@ class _DynamicObstaclesFusedExt(fx.FusedExt):
     covers_pre_step = True
     covers_reset = True
     kernel_id = 3
+    # Its reset writes neither contents nor mission.
+    kernel_switches = (True, True, None)
 
     def __init__(self, n_obstacles: int):
         self.n = int(n_obstacles)

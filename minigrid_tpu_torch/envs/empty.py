@@ -70,6 +70,8 @@ class _EmptyRandomResetExt(fx.FusedExt):
 
     covers_reset = True
     kernel_id = 1
+    # Its reset writes neither contents nor mission.
+    kernel_switches = (True, True, None)
 
     def reset_block(self, env, seeds, ep_idx) -> EnvState:
         n, w, h = seeds.shape[0], env.width, env.height

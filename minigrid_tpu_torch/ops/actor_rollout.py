@@ -6,9 +6,10 @@ Port of ``minigrid_tpu/ops/actor_rollout.py``.  The kernel
 the actor MLP on its one-hot features, samples its action by Gumbel-argmax
 from injected random bits, steps through the family's hooks and
 auto-resets, from an R-slot reset cache (``core/env.step_cached``
-semantics) or, for a counter-reset family (random-start Empty, Crossing,
-Dynamic-Obstacles), by regenerating a fresh level in the kernel from
-per-env seeds (``FusedExt.reset_block``).  Only the trajectory leaves the
+semantics; a cached ext's extra scalars come from the same slot) or, for a
+counter-reset family (random-start Empty, Crossing, Dynamic-Obstacles), by
+regenerating a fresh level in the kernel from per-env seeds
+(``FusedExt.reset_block``).  Only the trajectory leaves the
 kernel.
 
 The actor's arithmetic is the TPU kernel's, which differs from
@@ -33,6 +34,7 @@ from minigrid_tpu_torch.core.state import FIELDS, EnvState, select
 from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.ops.fused_rollout import (
     check_env_and_state,
+    check_ext,
     counter_reset,
     ext_buffers,
     fresh_episodes,
@@ -57,7 +59,7 @@ KERNEL_LAUNCHES = 0
 # that holds the port's actor to the JAX package's.
 PLAIN_ATOL = 1e-4
 
-_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 
 
 class ActorWeights(NamedTuple):
@@ -119,7 +121,7 @@ def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
 def supports_fused_actor(env, device, num_envs: int, hidden: int) -> bool:
     """Whether the kernel runs this configuration: what ``parallel/vector.
     fused_eligible`` asks of the random-policy kernel (a default-hook family
-    or one with a compiled counter-reset ext), plus a compiled hidden size,
+    or one with a compiled counter-reset or cached ext), plus a compiled hidden size,
     at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
     return (
         fused_eligible(env, device)
@@ -168,6 +170,7 @@ def actor_rollout_reference(
     """Plain PyTorch version of the kernel, on any device: a loop over T of
     observe, the plain actor, sample, ``step_env`` (the family's hooks
     included) and the auto-reset (``fused_rollout.fresh_episodes``)."""
+    check_ext(env, states, cache, "actor_rollout")
     used = torch.zeros(states.step_count.shape[0], dtype=torch.int32, device=states.device)
     out = {k: [] for k in ("obs", "direction", "action", "logp", "value", "reward", "done")}
     st = states
@@ -274,7 +277,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     ):
         _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}")
         _require(x.dtype == dtype and x.device == device, f"{name} must be {dtype} on {device}")
-    scal, seeds, ext_id, params = ext_buffers(env, states, reset_seeds, "actor_rollout")
+    scal, cscal, seeds, ext_id, params = ext_buffers(env, states, cache, reset_seeds, "actor_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     w = [x.contiguous() for x in weights]
@@ -293,7 +296,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds, *w, *traj.values()]
+    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds, *w, *traj.values()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(

@@ -7,10 +7,11 @@
 // (bf16 weights, f32 accumulation), samples the action by Gumbel-argmax
 // from injected random bits, then runs the family's pre-step hook, the
 // core step on the mapped action and the post-step hook on the unmapped
-// one, and auto-resets: from the R-slot reset cache (NoExt families,
-// core/env.step_cached semantics) or, for a COUNTER_RESET ext, by
-// generating a fresh level in place from the env's seed and episode ordinal
-// (both at the pre-increment `used`).  It streams obs, direction, the
+// one (on a StepCtx of the transition), and auto-resets: from the R-slot
+// reset cache (NoExt families and the cached exts, whose extra scalars come
+// from the same slot; core/env.step_cached semantics) or, for a
+// COUNTER_RESET ext, by generating a fresh level in place from the env's
+// seed and episode ordinal (both at the pre-increment `used`).  It streams obs, direction, the
 // unmapped action, logp, value, reward and done.
 //
 // Design.  A block owns B = 32 envs and has HID threads (one per hidden
@@ -38,8 +39,10 @@
 // for Dynamic-Obstacles) also lives in shared memory, one slot per env:
 // only warp 0 touches it, and in registers it would be allocated to all
 // HID threads, against __launch_bounds__(HID, 2)'s cap of 128 registers at
-// HID = 256 that layer 2's 32 accumulators already press on.  The seeds are
-// read from device memory at each reset, so no register holds them.
+// HID = 256 that layer 2's 32 accumulators already press on.  The seeds,
+// and a cached ext's scalars of the cache slot, are read from device memory
+// at each reset straight into that slot, so no register holds them across
+// the loop.
 //
 // What bounds it on this card.  Layer 2 is 32 x HID x HID FMAs per block
 // step on the CUDA cores (67 Mi FMA per step of 8192 envs at HID = 256);
@@ -54,10 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ext/crossing.cuh"
-#include "ext/dynamic_obstacles.cuh"
-#include "ext/empty_random.cuh"
-#include "fused_ext.cuh"
+#include "exts.cuh"
 #include "minigrid_env.cuh"
 
 namespace {
@@ -77,6 +77,7 @@ struct Args {
   const int* ccont;          // [R, W*H, N]
   const int* csc;            // [R, NUM_SC, N]
   const int* cmis;           // [R, M, N]
+  const int* cscal;          // [R, K, N] (cached exts)
   int* scal;                 // [K, N] the ext's extra scalars, in and out
   const int* seeds;          // [2, N] counter-reset seeds (COUNTER_RESET exts)
   const __nv_bfloat16* w1;   // [V*V*20 + 4, HID]
@@ -92,7 +93,7 @@ struct Args {
   float* value;              // [T, N]
   float* rew;                // [T, N]
   uint8_t* done;             // [T, N]
-  int W, H, R, M, T, N, NA;
+  int W, H, R, M, T, N, K, NA;
 };
 
 __device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
   const int n = n0 + lane;
   const int WH = a.W * a.H;
   const int na = a.NA;
-  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.R};
+  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.R, a.K};
   int* grid = a.grid + n;
   int* cont = a.cont + n;
   int* mis = a.mis + n;
@@ -254,8 +255,11 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
 
       typename Ext::Extra& x = x_s[lane];
       if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, a.W, a.H, s, x);
+      const Scalars prev = s;
       float reward = core_step<NO_OBJECTS>(grid, cont, N, a.W, a.H, s, Ext::map_action(action));
-      if (Ext::post_step(p, action, reward, x)) s.term = 1;
+      const Cell f = front_cell(prev, a.W, a.H);
+      const StepCtx ctx{grid, cont, N, a.W, a.H, prev, s, action, f.x * a.H + f.y};
+      if (Ext::post_step(p, ctx, reward, x)) s.term = 1;
       const bool done = s.term || s.trunc;
       a.rew[tn + n] = reward;
       a.done[tn + n] = done;
@@ -264,7 +268,7 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
           const Words e = episode_seed((uint32_t)a.seeds[n], (uint32_t)a.seeds[N + n], used);
           Ext::reset(p, e, grid, N, a.W, a.H, s, x);
         } else {
-          cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+          cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, N, WH, a.M, s, x);
         }
         used += 1;
       }
@@ -277,39 +281,22 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
 }
 
 // Picks the instantiation for the runtime switches, one flag at a time;
-// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH.
+// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH.  A switch the ext
+// fixes (ext_switch) takes its value, not the flag's, as in the
+// random-policy kernel.
 template <int V, int HID, class Ext, bool... Fixed>
 void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
-  if constexpr (sizeof...(Fixed) == 3) {
+  constexpr int i = sizeof...(Fixed);
+  if constexpr (i == 3) {
     actor_kernel<V, HID, Ext, Fixed...><<<a.N / B, HID, 0, stream>>>(a, p);
+  } else if constexpr (ext_switch<Ext>(i) != SWITCH_ANY) {
+    dispatch<V, HID, Ext, Fixed..., ext_switch<Ext>(i) == 1>(a, p, flags, stream);
   } else {
-    if (flags[sizeof...(Fixed)]) {
+    if (flags[i]) {
       dispatch<V, HID, Ext, Fixed..., true>(a, p, flags, stream);
     } else {
       dispatch<V, HID, Ext, Fixed..., false>(a, p, flags, stream);
     }
-  }
-}
-
-// Picks the ext's instantiation; the exts are compiled without objects and
-// with a constant mission, as in the random-policy kernel.
-template <int V, int HID>
-bool dispatch_ext(int ext_id, const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
-  switch (ext_id) {
-    case EXT_NONE:
-      dispatch<V, HID, NoExt>(a, p, flags, stream);
-      return true;
-    case EXT_EMPTY_RANDOM:
-      dispatch<V, HID, EmptyRandomExt, true, true>(a, p, flags, stream);
-      return true;
-    case EXT_CROSSING:
-      dispatch<V, HID, CrossingExt, true, true>(a, p, flags, stream);
-      return true;
-    case EXT_DYNAMIC_OBSTACLES:
-      dispatch<V, HID, DynamicObstaclesExt, true, true>(a, p, flags, stream);
-      return true;
-    default:
-      return false;
   }
 }
 
@@ -320,11 +307,14 @@ bool dispatch_ext(int ext_id, const Args& a, const ExtParams& p, const int* flag
 extern "C" int actor_rollout_supports_hidden(int hidden) { return hidden == 256 || hidden == 64; }
 
 // Launches the collection on `stream`; returns a cudaError_t (0 on success).
-// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal and seeds unused);
-// a counter-reset ext takes seeds and K extra scalars (R = 0, no cache).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal and seeds
+// unused); a cached ext takes the cache with its K extra scalars (cscal)
+// and its live ones (scal); a counter-reset ext takes seeds and K extra
+// scalars (R = 0, no cache).
 extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, int* scal, const int* seeds, const void* w1,
+                                    const int* cmis, const int* cscal, int* scal, const int* seeds,
+                                    const void* w1,
                                     const float* b1, const void* w2, const float* b2,
                                     const void* wh, const float* bh, int* obs, int* dir, int* act,
                                     float* logp, float* value, float* rew, void* done, int W,
@@ -338,20 +328,25 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
-  if (!ext_launch_ok(ext_id, p, W, H, R, K, no_objects, static_mission, scal, seeds)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (N == 0) return (int)cudaSuccess;
-  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds,
+  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds,
                static_cast<const __nv_bfloat16*>(w1), b1,
                static_cast<const __nv_bfloat16*>(w2), b2,
                static_cast<const __nv_bfloat16*>(wh), bh,
                obs, dir, act, logp, value, rew, static_cast<uint8_t*>(done),
-               W, H, R, M, T, N, NA};
+               W, H, R, M, T, N, K, NA};
   const int flags[3] = {no_objects, static_mission, see_through};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool known = hidden == 256 ? dispatch_ext<7, 256>(ext_id, a, p, flags, s)
-                                   : dispatch_ext<7, 64>(ext_id, a, p, flags, s);
-  if (!known) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  bool ok = false;
+  with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, flags, scal, cscal, seeds);
+    if (!ok || N == 0) return;
+    if (hidden == 256) {
+      dispatch<7, 256, Ext>(a, p, flags, s);
+    } else {
+      dispatch<7, 64, Ext>(a, p, flags, s);
+    }
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return N == 0 ? (int)cudaSuccess : (int)cudaGetLastError();
 }

@@ -24,6 +24,8 @@ constexpr uint32_t WALK_TAG1 = 0x77616C6Bu;
 struct DynamicObstaclesExt : NoExt {
   static constexpr bool PRE_STEP = true;
   static constexpr bool COUNTER_RESET = true;
+  // Its reset writes neither contents nor mission.
+  static constexpr int SWITCHES[3] = {1, 1, SWITCH_ANY};
   static constexpr int MAX_K = 2 * MAX_OBSTACLES + 3;
 
   struct Extra {
@@ -121,9 +123,9 @@ struct DynamicObstaclesExt : NoExt {
   }
 
   // Walking into a blocked cell other than the goal (read before the walk)
-  // costs -1 and ends the episode; `action` is the unmapped action.
-  __device__ static bool post_step(const ExtParams&, int action, float& reward, const Extra& x) {
-    const bool collided = action == ACT_FORWARD && x.front_not_clear;
+  // costs -1 and ends the episode; ctx.action is the unmapped action.
+  __device__ static bool post_step(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
+    const bool collided = ctx.action == ACT_FORWARD && x.front_not_clear;
     if (collided) reward = -1.0f;
     return collided;
   }

@@ -12,6 +12,8 @@ namespace minigrid {
 
 struct EmptyRandomExt : NoExt {
   static constexpr bool COUNTER_RESET = true;
+  // Its reset writes neither contents nor mission.
+  static constexpr int SWITCHES[3] = {1, 1, SWITCH_ANY};
 
   __device__ static void reset(const ExtParams& p, const Words& e, int* grid, size_t N, int W, int H,
                                Scalars& s, Extra&) {

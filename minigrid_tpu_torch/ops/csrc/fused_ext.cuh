@@ -5,20 +5,33 @@
 // Device side of minigrid_tpu_torch/ops/fused_ext.py (the JAX package's
 // minigrid_tpu/ops/fused_ext.py).  An ext is a struct with
 //   PRE_STEP, COUNTER_RESET  compile-time switches of the kernel's loop;
+//   SWITCHES                 the kernel switches NO_OBJECTS, STATIC_MISSION,
+//                            SEE_THROUGH (in that order) it is instantiated
+//                            at: 1 or 0, or SWITCH_ANY for both;
 //   MAX_K                    the most extra int32 scalars it carries;
-//   Extra                    its extra state, held in registers;
-//   load / store             Extra from / to the env's column of the
-//                            env-minor [K, N] scalar array;
+//   Extra                    its extra state (registers in the
+//                            random-policy kernel, shared memory in the
+//                            actor kernel);
+//   load / store             Extra from / to the env's column of an
+//                            env-minor [K, N] scalar array: the live state,
+//                            or a reset-cache slot's plane, which
+//                            cache_reset (minigrid_env.cuh) loads at every
+//                            reset of a cached ext (MAX_K > 0, no
+//                            COUNTER_RESET);
 //   map_action               the action the core step sees;
 //   pre_step                 dynamics before the agent acts, on the
 //                            pre-step scalars (step count not yet counted);
-//   post_step                sees the unmapped action, may reshape the
-//                            reward, returns extra termination;
+//   post_step                sees the transition (StepCtx: the grid after
+//                            the step, the scalars before and after it, the
+//                            unmapped action, the front cell), may reshape
+//                            the reward and the extra state, returns extra
+//                            termination;
 //   reset                    a fresh level from an episode seed (used with
 //                            COUNTER_RESET in place of the reset cache).
 // NoExt is the default-hook family; a family derives from it and hides
-// what it changes, so each family is one header under ext/.  Runtime family
-// parameters come in ExtParams, by value.
+// what it changes, so each family is one header under ext/ (exts.cuh maps
+// kernel ids to them).  Runtime family parameters come in ExtParams, by
+// value.
 
 #pragma once
 
@@ -40,7 +53,17 @@ constexpr uint32_t RESET_TAG = 0x72657365u;  // "rese"
 constexpr uint32_t PLACE_TAG = 0x706C6163u;  // "plac"
 
 // The kernel's ext ids (FusedExt.kernel_id).
-enum { EXT_NONE = 0, EXT_EMPTY_RANDOM = 1, EXT_CROSSING = 2, EXT_DYNAMIC_OBSTACLES = 3 };
+enum {
+  EXT_NONE = 0,
+  EXT_EMPTY_RANDOM = 1,
+  EXT_CROSSING = 2,
+  EXT_DYNAMIC_OBSTACLES = 3,
+  EXT_GOTO_TARGET = 4,
+  EXT_FETCH = 5,
+};
+
+// A kernel switch (SWITCHES) that an ext leaves to the runtime flag.
+constexpr int SWITCH_ANY = -1;
 
 struct ExtParams {
   int max_steps;
@@ -57,8 +80,9 @@ constexpr int MAX_OBSTACLES = 8;
 constexpr int MAX_CROSSINGS = 8;
 constexpr int MAX_CROSSING_CANDIDATES = 32;
 
-// Whether ext `ext_id`'s runtime parameters, grid and K extra scalars fit
-// the compiled slots; both kernels refuse a launch where they do not.
+// Whether counter-reset ext `ext_id`'s runtime parameters, grid and K
+// extra scalars fit the compiled slots; both kernels refuse a launch where
+// they do not.
 inline bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
   switch (ext_id) {
     case EXT_EMPTY_RANDOM:
@@ -76,16 +100,32 @@ inline bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
   }
 }
 
-// Whether a whole-rollout kernel takes ext `ext_id` with these sizes and
-// buffers: NoExt reads an R >= 1 reset cache and no extra scalars; a
-// counter-reset ext reads per-env seeds and its K scalars, and no cache, on
-// a family without objects and with a constant mission (its reset writes
-// neither contents nor mission).
-inline bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, int no_objects,
-                          int static_mission, const int* scal, const int* seeds) {
-  if (ext_id == EXT_NONE) return R >= 1 && K == 0;
-  return R == 0 && no_objects && static_mission && seeds != nullptr && (K == 0 || scal != nullptr) &&
-         ext_params_ok(ext_id, p, W, H, K);
+// Switch i of ext Ext: its SWITCHES entry, SWITCH_ANY past them (the
+// random-policy kernel's COMPUTE_OBS).
+template <class Ext>
+constexpr int ext_switch(int i) {
+  return i < 3 ? Ext::SWITCHES[i] : SWITCH_ANY;
+}
+
+// Whether a whole-rollout kernel takes ext Ext (id `ext_id`) with these
+// sizes, runtime flags (NO_OBJECTS, STATIC_MISSION, SEE_THROUGH first) and
+// buffers.  The flags must meet the ext's SWITCHES.  NoExt reads an R >= 1
+// reset cache and no extra scalars.  A cached ext (extra scalars, no
+// COUNTER_RESET) reads an R >= 1 reset cache with its K = MAX_K scalars
+// ([R, K, N] `cscal`) beside its live ones, and no seeds.  A counter-reset
+// ext reads per-env seeds and its K scalars, and no cache.
+template <class Ext>
+bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, const int* flags,
+                   const int* scal, const int* cscal, const int* seeds) {
+  for (int i = 0; i < 3; ++i) {
+    const int sw = ext_switch<Ext>(i);
+    if (sw != SWITCH_ANY && sw != (flags[i] != 0)) return false;
+  }
+  if (Ext::COUNTER_RESET) {
+    return R == 0 && seeds != nullptr && (K == 0 || scal != nullptr) && ext_params_ok(ext_id, p, W, H, K);
+  }
+  if (Ext::MAX_K == 0) return R >= 1 && K == 0;
+  return R >= 1 && seeds == nullptr && scal != nullptr && cscal != nullptr && K == Ext::MAX_K;
 }
 
 // The sub-seed of an env's episode with ordinal `ep` (its resets so far).
@@ -140,9 +180,28 @@ __device__ __forceinline__ Scalars fresh_scalars(int ax, int ay, int d, int max_
   return Scalars{ax, ay, d, 0, 0, max_steps, 0, 0};
 }
 
+// One transition as a post-step hook sees it (FusedCtx,
+// minigrid_tpu/ops/fused_ext.py:33-94): the env's grid and contents
+// columns after the core step, the scalars before it (after the pre-step
+// hook) and after it, the unmapped action and the linear index of the front
+// cell of the pre-step pose, the one cell the step could write.  The kernels
+// build it by reference to values they hold anyway, so a hook that ignores
+// a member costs nothing.
+struct StepCtx {
+  const int* grid;
+  const int* cont;
+  size_t N;
+  int W, H;
+  const Scalars& prev;
+  const Scalars& post;
+  int action;
+  int front;
+};
+
 struct NoExt {
   static constexpr bool PRE_STEP = false;
   static constexpr bool COUNTER_RESET = false;
+  static constexpr int SWITCHES[3] = {SWITCH_ANY, SWITCH_ANY, SWITCH_ANY};
   static constexpr int MAX_K = 0;
   struct Extra {};
 
@@ -150,7 +209,7 @@ struct NoExt {
   __device__ static void store(int*, int, size_t, const ExtParams&, const Extra&) {}
   __device__ static int map_action(int action) { return action; }
   __device__ static void pre_step(const ExtParams&, int*, size_t, int, int, const Scalars&, Extra&) {}
-  __device__ static bool post_step(const ExtParams&, int, float&, const Extra&) { return false; }
+  __device__ static bool post_step(const ExtParams&, const StepCtx&, float&, Extra&) { return false; }
   __device__ static void reset(const ExtParams&, const Words&, int*, size_t, int, int, Scalars&, Extra&) {}
 };
 

@@ -3,14 +3,15 @@
 // Replaces the Pallas TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel:
 // T environment steps per env with the state kept on the card, each step
 // being the family's pre-step hook, the core transition (_step_block) on the
-// mapped action, the post-step hook, the auto-reset and, when COMPUTE_OBS,
-// the packed-observation checksum of the post-reset state
-// (_view_bits_block and _obs_checksum_block: view cells, the carried object
-// at the agent cell, the bit-parallel occlusion flood).  The auto-reset
-// either takes reset-cache slot min(used, R-1) (NoExt families) or, for a
-// COUNTER_RESET ext, generates a fresh level in place from the env's seed
-// and episode ordinal `used` (ext.reset_block); both use the pre-increment
-// `used`.
+// mapped action, the post-step hook (on a StepCtx of the transition), the
+// auto-reset and, when COMPUTE_OBS, the packed-observation checksum of the
+// post-reset state (_view_bits_block and _obs_checksum_block: view cells,
+// the carried object at the agent cell, the bit-parallel occlusion flood).
+// The auto-reset either takes reset-cache slot min(used, R-1), with a
+// cached ext's extra scalars from the same slot (NoExt, GoToTarget and
+// Fetch), or, for a COUNTER_RESET ext, generates a fresh level in place
+// from the env's seed and episode ordinal `used` (ext.reset_block); both
+// use the pre-increment `used`.
 //
 // Design.  One thread runs one env through all T steps; the transition,
 // the cache reset and the view are the device functions of minigrid_env.cuh,
@@ -19,13 +20,15 @@
 // picked at launch by ext_id.  Every array is env-minor ([..., N]): grid and
 // contents [W*H, N], the 8 scalar rows [8, N], mission [M, N], the ext's
 // extra scalars [K, N], seeds [2, N], cache [R, W*H, N] / [R, 8, N] /
-// [R, M, N], actions [T, N].  The state lives in the output buffers, which
+// [R, M, N] / [R, K, N], actions [T, N].  The state lives in the output buffers, which
 // the wrapper initialises from the input state; the kernel updates them in
 // place and allocates nothing.  NO_OBJECTS, STATIC_MISSION, SEE_THROUGH and
 // COMPUTE_OBS are compile-time switches, as in the TPU kernel; the view
-// size V is a template parameter (7 is instantiated).  Ext families are
-// instantiated with NO_OBJECTS and STATIC_MISSION (their reset writes
-// neither contents nor mission; the wrapper requires both flags).
+// size V is a template parameter (7 is instantiated).  An ext is
+// instantiated only at the switches its SWITCHES fixes (counter-reset exts
+// without objects and with a constant mission, since their reset writes
+// neither; GoToTarget and Fetch with objects, a per-episode mission and
+// see-through walls); ext_launch_ok refuses other flags.
 //
 // What bounds it.  The per-step work is a handful of integer operations
 // around data-dependent loads: the front cell (and its contents), and with
@@ -39,12 +42,18 @@
 // ball, one threefry per two balls), and per episode end the counter reset:
 // W*H coalesced stores of the scaffold (all threads of a warp that reset
 // write the same cell index), 2-5 threefry evaluations of 20 rounds, and
-// for Dynamic-Obstacles two W*H scans per placed ball.  The resets branch
-// within a warp, so a warp runs as long as its slowest env.  What a later
+// for Dynamic-Obstacles two W*H scans per placed ball.  A cache reset
+// copies a whole level from the env's own slot: the slots differ across a
+// warp, so those loads are not coalesced, and the warp runs the copy
+// whenever any of its lanes resets.  With FourRooms' 361-cell levels (a
+// grid plane beyond the L2) and GoTo's reset every 3.5 steps, that copy,
+// not the step, sets the kernel's time.  The resets branch within a warp,
+// so a warp runs as long as its slowest env.  What a later
 // change could do: stage each block's grids in shared memory (an env-minor
 // [W*H][blockDim] tile is free of bank conflicts whatever cell each thread
 // reads), spread one env over several threads of a warp for the view, and
-// count free cells from the scaffold's closed form instead of scanning.
+// count free cells from the scaffold's closed form instead of scanning, and
+// copy a resetting lane's level with the whole warp.
 //
 // Bit-exactness with the JAX package: the per-env checksum is accumulated in
 // uint32 so that it wraps as int32 does in JAX.
@@ -52,10 +61,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ext/crossing.cuh"
-#include "ext/dynamic_obstacles.cuh"
-#include "ext/empty_random.cuh"
-#include "fused_ext.cuh"
+#include "exts.cuh"
 #include "minigrid_env.cuh"
 
 namespace {
@@ -74,13 +80,14 @@ struct Args {
   const int* ccont;    // [R, W*H, N]
   const int* csc;      // [R, NUM_SC, N]
   const int* cmis;     // [R, M, N]
+  const int* cscal;    // [R, K, N] (cached exts)
   int* scal;           // [K, N] the ext's extra scalars, in and out
   const int* seeds;    // [2, N] counter-reset seeds (COUNTER_RESET exts)
   int* used;           // [N] resets so far (cache slots consumed)
   int* obs;            // [N] observation checksum (int32 wraparound)
   float* rew;          // [N] reward sum
   int* done;           // [N] episodes ended
-  int W, H, R, M, T, N;
+  int W, H, R, M, T, N, K;
 };
 
 template <int V, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
@@ -91,7 +98,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
   if (n >= a.N) return;
   const size_t N = (size_t)a.N;
   const int W = a.W, H = a.H, WH = a.W * a.H;
-  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.R};
+  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.R, a.K};
 
   // This env's column of every env-minor array: element k at [k * N].
   int* grid = a.grid + n;
@@ -114,8 +121,11 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
   for (int t = 0; t < a.T; ++t) {
     const int action = act[(size_t)t * N];
     if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, W, H, s, x);
+    const Scalars prev = s;
     float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, Ext::map_action(action));
-    if (Ext::post_step(p, action, reward, x)) s.term = 1;
+    const Cell f = front_cell(prev, W, H);
+    const StepCtx ctx{grid, cont, N, W, H, prev, s, action, f.x * H + f.y};
+    if (Ext::post_step(p, ctx, reward, x)) s.term = 1;
     const bool done = s.term || s.trunc;
     rew_sum += reward;
     done_count += done;
@@ -123,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
       if constexpr (Ext::COUNTER_RESET) {
         Ext::reset(p, episode_seed(seed0, seed1, used), grid, N, W, H, s, x);
       } else {
-        cache_reset<NO_OBJECTS, STATIC_MISSION>(cache, n, used, grid, cont, mis, N, WH, a.M, s);
+        cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, N, WH, a.M, s, x);
       }
       used += 1;
     }
@@ -148,14 +158,18 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
 }
 
 // Picks the instantiation for the runtime switches, one flag at a time;
-// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH, COMPUTE_OBS.
+// `flags` are NO_OBJECTS, STATIC_MISSION, SEE_THROUGH, COMPUTE_OBS.  A
+// switch the ext fixes (ext_switch) takes its value, not the flag's.
 template <int V, class Ext, bool... Fixed>
 void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
-  if constexpr (sizeof...(Fixed) == 4) {
+  constexpr int i = sizeof...(Fixed);
+  if constexpr (i == 4) {
     const int blocks = (a.N + THREADS - 1) / THREADS;
     rollout_kernel<V, Ext, Fixed...><<<blocks, THREADS, 0, stream>>>(a, p);
+  } else if constexpr (ext_switch<Ext>(i) != SWITCH_ANY) {
+    dispatch<V, Ext, Fixed..., ext_switch<Ext>(i) == 1>(a, p, flags, stream);
   } else {
-    if (flags[sizeof...(Fixed)]) {
+    if (flags[i]) {
       dispatch<V, Ext, Fixed..., true>(a, p, flags, stream);
     } else {
       dispatch<V, Ext, Fixed..., false>(a, p, flags, stream);
@@ -166,11 +180,13 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 }  // namespace
 
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
-// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal and seeds unused);
-// a counter-reset ext takes seeds and K extra scalars (R = 0, no cache).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal and seeds
+// unused); a cached ext takes the cache with its K extra scalars (cscal)
+// and its live ones (scal); a counter-reset ext takes seeds and K extra
+// scalars (R = 0, no cache).
 extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, int* scal, const int* seeds, int* used,
+                                    const int* cmis, const int* cscal, int* scal, const int* seeds, int* used,
                                     int* obs, float* rew, int* done, int W, int H, int V, int R,
                                     int M, int T, int N, int K, int no_objects,
                                     int static_mission, int see_through, int compute_obs,
@@ -181,29 +197,16 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
-  if (!ext_launch_ok(ext_id, p, W, H, R, K, no_objects, static_mission, scal, seeds)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (N == 0) return (int)cudaSuccess;
-  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds,
-               used, obs, rew, done, W, H, R, M, T, N};
+  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds,
+               used, obs, rew, done, W, H, R, M, T, N, K};
   const int flags[4] = {no_objects, static_mission, see_through, compute_obs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ext_id) {
-    case EXT_NONE:
-      dispatch<7, NoExt>(a, p, flags, st);
-      break;
-    case EXT_EMPTY_RANDOM:
-      dispatch<7, EmptyRandomExt, true, true>(a, p, flags, st);
-      break;
-    case EXT_CROSSING:
-      dispatch<7, CrossingExt, true, true>(a, p, flags, st);
-      break;
-    case EXT_DYNAMIC_OBSTACLES:
-      dispatch<7, DynamicObstaclesExt, true, true>(a, p, flags, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  bool ok = false;
+  with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, flags, scal, cscal, seeds);
+    if (ok && N > 0) dispatch<7, Ext>(a, p, flags, st);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return N == 0 ? (int)cudaSuccess : (int)cudaGetLastError();
 }

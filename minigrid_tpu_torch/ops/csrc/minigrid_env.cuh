@@ -40,6 +40,7 @@ constexpr int ACT_FORWARD = 2;
 constexpr int ACT_PICKUP = 3;
 constexpr int ACT_DROP = 4;
 constexpr int ACT_TOGGLE = 5;
+constexpr int ACT_DONE = 6;
 
 // Scalar-row order, as in the TPU kernel (minigrid_tpu/ops/fused_rollout.py:62).
 enum { ROW_AX, ROW_AY, ROW_DIR, ROW_CARRY, ROW_STEP, ROW_MAX, ROW_TERM, ROW_TRUNC, NUM_SC };
@@ -85,14 +86,31 @@ __device__ __forceinline__ bool see_behind(int cell) {
 // of the env whose grid and contents columns are `grid`, `cont`: turn,
 // forward, pickup, drop, toggle, then reward, termination and truncation
 // (overwritten every step, not accumulated).  Returns the reward.
+// The cell in front of the agent, clamped into the grid: the only cell a
+// core step can write.
+struct Cell {
+  int x, y;
+};
+
+__device__ __forceinline__ Cell front_cell(const Scalars& s, int W, int H) {
+  const int dx = (s.d == 0) - (s.d == 2);
+  const int dy = (s.d == 1) - (s.d == 3);
+  return Cell{min(max(s.ax + dx, 0), W - 1), min(max(s.ay + dy, 0), H - 1)};
+}
+
+// The reference's success reward 1 - 0.9 * step / max_steps on post-step
+// scalars, each operation rounded to nearest as core/step.success_reward
+// rounds it (never contracted into an FMA).
+__device__ __forceinline__ float success_reward(const Scalars& s) {
+  return __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn((float)s.step, (float)s.max_steps)));
+}
+
 template <bool NO_OBJECTS>
 __device__ __forceinline__ float core_step(int* grid, int* cont, size_t N, int W, int H,
                                            Scalars& s, int action) {
+  const Cell f = front_cell(s, W, H);
+  const int fx = f.x, fy = f.y;
   s.step += 1;
-  const int dx = (s.d == 0) - (s.d == 2);
-  const int dy = (s.d == 1) - (s.d == 3);
-  const int fx = min(max(s.ax + dx, 0), W - 1);
-  const int fy = min(max(s.ay + dy, 0), H - 1);
   const size_t fidx = (size_t)(fx * H + fy) * N;
   const int fcell = grid[fidx];
   const int ftype = fcell & 0xFF;
@@ -109,9 +127,7 @@ __device__ __forceinline__ float core_step(int* grid, int* cont, size_t N, int W
   const bool hit_goal = is_fwd && ftype == OBJ_GOAL;
   const bool terminated = hit_goal || (is_fwd && ftype == OBJ_LAVA);
   float reward = 0.0f;
-  if (hit_goal) {
-    reward = __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn((float)s.step, (float)s.max_steps)));
-  }
+  if (hit_goal) reward = success_reward(s);
 
   if (!NO_OBJECTS) {
     const int fcont = cont[fidx];
@@ -145,21 +161,26 @@ __device__ __forceinline__ float core_step(int* grid, int* cont, size_t N, int W
 }
 
 // The R-slot reset cache of the env in column n: [R, W*H, N] grid and
-// contents planes, [R, NUM_SC, N] scalar rows, [R, M, N] mission.
+// contents planes, [R, NUM_SC, N] scalar rows, [R, M, N] mission, and the
+// family ext's K extra scalars [R, K, N] (none where K is 0).
 struct Cache {
   const int* grid;
   const int* cont;
   const int* sc;
   const int* mis;
-  int R;
+  const int* scal;
+  int R, K;
 };
 
 // Auto-reset (minigrid_tpu/ops/fused_rollout.py:445-479): the ended episode
 // is replaced by cache slot min(used, R-1), taken with the pre-increment
-// `used`.  One branch per ended episode; the cost does not depend on R.
-template <bool NO_OBJECTS, bool STATIC_MISSION>
-__device__ __forceinline__ void cache_reset(const Cache& c, int n, int used, int* grid, int* cont,
-                                            int* mis, size_t N, int WH, int M, Scalars& s) {
+// `used`, the ext's extra scalars included (its Ext::load reads them from
+// the slot's [K, N] plane into `x`).  One branch per ended episode; the
+// cost does not depend on R.
+template <class Ext, bool NO_OBJECTS, bool STATIC_MISSION, class Params>
+__device__ __forceinline__ void cache_reset(const Cache& c, const Params& p, int n, int used, int* grid,
+                                            int* cont, int* mis, size_t N, int WH, int M, Scalars& s,
+                                            typename Ext::Extra& x) {
   const int slot = min(used, c.R - 1);
   const int* cg = c.grid + (size_t)slot * WH * N + n;
   for (int k = 0; k < WH; ++k) grid[(size_t)k * N] = cg[(size_t)k * N];
@@ -172,6 +193,7 @@ __device__ __forceinline__ void cache_reset(const Cache& c, int n, int used, int
     const int* cm = c.mis + (size_t)slot * M * N + n;
     for (int k = 0; k < M; ++k) mis[(size_t)k * N] = cm[(size_t)k * N];
   }
+  if constexpr (Ext::MAX_K > 0) x = Ext::load(c.scal + (size_t)slot * c.K * N, n, N, p);
 }
 
 // The packed cells of the agent's V x V view (_view_bits_block), the

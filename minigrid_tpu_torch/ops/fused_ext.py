@@ -7,7 +7,12 @@ family whose dynamics differ (``_pre_step``, ``_map_action``,
 (``covers_reset``) publishes a ``FusedExt``: a twin of its hooks compiled
 into the kernel (``csrc/ext/*.cuh``, picked by ``kernel_id``), the packing
 of its ``EnvState.extra`` into int32 per-env scalars, and the plain
-PyTorch version of its in-kernel level generator, ``reset_block``.
+PyTorch version of its in-kernel level generator, ``reset_block``.  A
+family that keeps its reset cache (``covers_reset`` False) and carries
+extra scalars has them blended from the cache at every reset, with the
+rest of the level (``CachedExt``); its post-step hook has a plain twin,
+``post_step``, that the family's ``_post_step`` runs, so the plain step
+and the kernel's hook are one definition each side.
 
 The counter-reset stream: every episode of an env draws from
 ``episode_seed(seed, ordinal)``, where ``seed`` is two int32 words fixed per
@@ -48,6 +53,10 @@ class FusedExt:
     # counter stream (``reset_block``), with no reset cache.
     covers_reset: bool = False
     kernel_id: int | None = None
+    # The kernel switches (no objects, static mission, see-through walls)
+    # the compiled twin is instantiated at, None where it takes both: its
+    # twin's ``SWITCHES`` (``csrc/fused_ext.cuh``).
+    kernel_switches: tuple[bool | None, bool | None, bool | None] = (None, None, None)
 
     def pack_extra(self, env, extra) -> torch.Tensor | None:
         """``extra`` (leaves [..., inner]) -> int32 [..., n_scalars]."""
@@ -64,11 +73,32 @@ class FusedExt:
         None where the family's sizes exceed the compiled slots."""
         return (env.max_steps, 0, 0, 0, -1, -1, 0)
 
+    def post_step(self, env, prev: EnvState, state: EnvState, action, reward, scal):
+        """Plain twin of the kernel's post-step hook (``Ext::post_step`` on a
+        ``StepCtx``, ``csrc/fused_ext.cuh``): ``prev`` and ``state`` are the
+        states before and after the core step, ``action`` the unmapped
+        action, ``reward`` the core step's and ``scal`` the packed extra
+        scalars int32 [N, K].  Returns (extra termination bool [N], reward,
+        scal)."""
+        return torch.zeros_like(state.terminated), reward, scal
+
+    def apply_post_step(self, env, prev: EnvState, state: EnvState, action, reward):
+        """``post_step`` on whole states: the family's ``_post_step``."""
+        scal = self.pack_extra(env, state.extra)
+        term, reward, scal = self.post_step(env, prev, state, action, reward, scal)
+        extra = state.extra if scal is None else self.unpack_extra(env, scal)
+        return state.replace(terminated=state.terminated | term, extra=extra), reward
+
     def reset_block(self, env, seeds: torch.Tensor, ep_idx: torch.Tensor) -> EnvState:
         """Fresh episodes from the counter stream (``covers_reset`` only):
         ``seeds`` int32 [N, 2], ``ep_idx`` the episode ordinals [N].  The
         plain version of the kernel's reset, bit for bit."""
         raise NotImplementedError
+
+
+class CachedExt(FusedExt):
+    """An ext whose levels come from the reset cache, its extra scalars
+    blended from the cache slot with the rest of the level."""
 
 
 def episode_seed(seeds: torch.Tensor, ep_idx) -> tuple[torch.Tensor, torch.Tensor]:

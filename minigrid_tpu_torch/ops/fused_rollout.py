@@ -6,10 +6,13 @@ Port of ``minigrid_tpu/ops/fused_rollout.py``.  The kernel
 transition, the auto-reset and, with ``compute_obs``, a checksum of every
 packed observation (the sum of the visible view cells, wrapping at int32),
 so that observations are consumed without being written out.  Families
-without a fused ext reset from an R-slot reset cache; a ``covers_reset``
-ext with a compiled twin (``FusedExt.kernel_id``: random-start Empty,
-Crossing, Dynamic-Obstacles) regenerates a fresh level in the kernel from
-per-env seeds, with no cache.
+without a fused ext (fixed-start Empty, DoorKey, FourRooms) reset from an
+R-slot reset cache, and so do the cached exts (``fused_ext.CachedExt``:
+GoToObject, GoToDoor, Fetch), whose extra scalars the kernel blends from
+the same cache slot; a ``covers_reset`` ext with a compiled twin
+(``FusedExt.kernel_id``: random-start Empty, Crossing, Dynamic-Obstacles)
+regenerates a fresh level in the kernel from per-env seeds, with no cache.
+An ext with extra planes (``n_planes``, BabyAI's) has no kernel yet.
 
 ``fused_rollout_core`` dispatches on the device of the state: CUDA tensors
 launch the kernel (or raise), CPU tensors run ``fused_rollout_reference``,
@@ -34,7 +37,7 @@ COMPILED_VIEW_SIZES = (7,)
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 
 
 def supports_fused(env) -> bool:
@@ -63,18 +66,16 @@ def counter_reset(env) -> bool:
 
 def compiled_ext(env) -> bool:
     """Whether the CUDA kernel has the family's ext: none needed, or a
-    compiled counter-reset twin (``kernel_id``) of a family without objects
-    and with a constant mission, whose sizes fit the compiled slots."""
+    compiled twin (``kernel_id``) without extra planes whose sizes fit its
+    slots (``kernel_params``) and whose ``kernel_switches`` the family's
+    flags meet."""
     ext = env.fused_ext
     if ext is None:
         return True
-    return (
-        ext.kernel_id is not None
-        and ext.covers_reset
-        and env.fused_no_objects
-        and env.fused_static_mission
-        and ext.kernel_params(env) is not None
-    )
+    if ext.kernel_id is None or ext.n_planes or ext.kernel_params(env) is None:
+        return False
+    flags = (env.fused_no_objects, env.fused_static_mission, env.see_through_walls)
+    return all(s is None or s == bool(f) for s, f in zip(ext.kernel_switches, flags))
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +142,7 @@ def fused_rollout_reference(
     observation checksum.  The auto-reset blends cache slot min(used, R-1),
     or the ext's ``reset_block`` at episode ordinal ``used``, both taken
     with the pre-increment ``used``."""
+    check_ext(env, states, cache, "fused_rollout")
     counter = counter_reset(env)
     n = states.step_count.shape[0]
     device = states.device
@@ -185,6 +187,29 @@ def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
         raise ValueError(f"{what} kernel: {message}")
 
 
+def check_ext(env, states: EnvState, cache: EnvState | None, what: str) -> None:
+    """Raise for an ext the kernels cannot run, and the plain versions with
+    them: one with extra planes, whose half of the reset-cache blend is not
+    ported, and a cached ext whose state or reset cache lacks its extra
+    scalars."""
+    ext, name = env.fused_ext, type(env).__name__
+    if ext is None:
+        return
+    _require(
+        ext.n_planes == 0,
+        f"{name}'s fused ext carries {ext.n_planes} extra planes per env; the P planes of the "
+        "reset-cache blend are not ported yet",
+        what,
+    )
+    if not ext.covers_reset and ext.n_scalars:
+        _require(
+            cache is not None and cache.extra is not None and states.extra is not None,
+            f"{name}'s fused ext blends {ext.n_scalars} extra scalars from the reset cache; the state and "
+            "the cache must both carry them",
+            what,
+        )
+
+
 def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str) -> int:
     """Raise unless a whole-rollout kernel takes this env, state and reset
     cache (CUDA, hooks it runs, a compiled fused ext where the family has
@@ -194,6 +219,7 @@ def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str
     device = states.device
     name = type(env).__name__
     _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)", what)
+    check_ext(env, states, cache, what)
     _require(supports_fused(env), f"{name} has step hooks the kernel does not run", what)
     _require(compiled_ext(env), f"{name}'s fused ext has no compiled CUDA twin", what)
     v = env.agent_view_size
@@ -280,27 +306,37 @@ def _pointer(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
-def ext_buffers(env, states: EnvState, reset_seeds: torch.Tensor | None, what: str):
+def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torch.Tensor | None, what: str):
     """The ext arguments of a whole-rollout kernel: the extra scalars as an
     env-minor int32 [K, N] copy the kernel updates in place (None without
-    any), the seeds as [2, N] (None without an ext), the ext's kernel id
+    any), a cached ext's cache scalars as [R, K, N] (else None), a
+    counter-reset ext's seeds as [2, N] (else None), the ext's kernel id
     and its ``ExtParams`` (``FusedExt.kernel_params``)."""
     ext = env.fused_ext
     if ext is None:
-        return None, None, 0, (0,) * 7
+        return None, None, None, 0, (0,) * 7
     n, device = states.step_count.shape[0], states.device
     scal = None
     if ext.n_scalars:
         scal = ext.pack_extra(env, states.extra)
         _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]", what)
         scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
+    if not ext.covers_reset:
+        _require(reset_seeds is None, "a cached ext resets from its cache and takes no reset_seeds", what)
+        r = cache.step_count.shape[1]
+        cscal = ext.pack_extra(env, cache.extra)
+        _require(
+            tuple(cscal.shape) == (n, r, ext.n_scalars), f"the cache's extra must pack to [{n}, {r}, {ext.n_scalars}]", what
+        )
+        cscal = cscal.to(device=device, dtype=torch.int32).permute(1, 2, 0).contiguous()
+        return scal, cscal, None, ext.kernel_id, ext.kernel_params(env)
     _require(
         reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
         and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
         f"reset_seeds must be int32 [{n}, 2] on the state's device",
         what,
     )
-    return scal, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env)
+    return scal, None, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env)
 
 
 def with_extra(env, final: EnvState, scal: torch.Tensor | None) -> EnvState:
@@ -317,7 +353,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     t = actions.shape[0]
     _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
     _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
-    scal, seeds, ext_id, params = ext_buffers(env, states, reset_seeds, "fused_rollout")
+    scal, cscal, seeds, ext_id, params = ext_buffers(env, states, cache, reset_seeds, "fused_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     acts = actions.contiguous()
@@ -330,7 +366,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     fn = lib.fused_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    buffers = (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, scal, seeds, used, obs, rew, done)
+    buffers = (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds, used, obs, rew, done)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(

@@ -9,12 +9,34 @@ from __future__ import annotations
 
 import torch
 
+from minigrid_tpu_torch.core.env import cached_autoreset
 from minigrid_tpu_torch.core.state import resolve_device
 from minigrid_tpu_torch.ops.fused_rollout import COMPILED_VIEW_SIZES, compiled_ext, fused_rollout, supports_fused
 from minigrid_tpu_torch.parallel.reset_budget import resets_for
 
 # Largest grid the kernel takes (MultiRoom-scale 25x25), as in the JAX gate.
 MAX_FUSED_CELLS = 625
+
+
+def make_cached_stepper(env, cache, num_envs: int):
+    """Batched ``step_cached`` without the observation (the JAX package's
+    ``make_cached_stepper``, ``minigrid_tpu/parallel/vector.py:17-56``): an
+    ending episode takes slot min(used, R-1) of its env's reset ``cache``
+    (leaves [num_envs, R, ...], ``extra`` included), then ``used`` grows by
+    one.  The JAX package packs the cache into one buffer to work around
+    the TPU's gathers; here the slot is plain indexing.
+
+    Returns ``step(states, actions, used) -> (states, reward, terminated,
+    truncated, used)``."""
+    if cache.step_count.shape[0] != num_envs:
+        raise ValueError(f"the cache holds {cache.step_count.shape[0]} envs, not {num_envs}")
+
+    def step(states, actions, used):
+        stepped, reward = env.step_env(states, actions)
+        states, used = cached_autoreset(stepped, cache, used)
+        return states, reward, stepped.terminated, stepped.truncated, used
+
+    return step
 
 
 class VectorEnv:
@@ -36,7 +58,8 @@ class VectorEnv:
 def fused_eligible(env, device) -> bool:
     """Whether the whole-rollout CUDA kernel (ops/fused_rollout.py) runs this
     configuration: a CUDA device, a default-hook family or one whose fused
-    ext the kernel has compiled (``compiled_ext``), at most
+    ext the kernel has compiled (``compiled_ext``: the counter-reset and
+    the cached exts, none with extra planes), at most
     ``MAX_FUSED_CELLS`` grid cells and a compiled view size.  The kernel
     keeps the reset cache in device memory, so R does not gate it."""
     return (

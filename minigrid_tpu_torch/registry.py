@@ -28,8 +28,9 @@ def make(env_id: str, **overrides: Any):
     """
     if env_id not in _REGISTRY:
         raise NotImplementedError(
-            f"{env_id!r} is not in this package yet: it holds the Empty, Crossing and "
-            "Dynamic-Obstacles ids, and the rest of the zoo follows ROADMAP.md queue 1 (items 6-7)"
+            f"{env_id!r} is not in this package yet: it holds the Empty, DoorKey, FourRooms, Crossing, "
+            "Dynamic-Obstacles, Fetch, GoToDoor and GoToObject ids; BabyAI (with core/roomgrid.py) and "
+            "the rest of the zoo follow ROADMAP.md queue 1 (items 6-7)"
         )
     cls, kwargs = _REGISTRY[env_id]
     env = cls(**{**kwargs, **overrides})

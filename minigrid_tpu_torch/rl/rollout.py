@@ -17,7 +17,9 @@ from minigrid_tpu_torch.ops.actor_rollout import (
     fused_actor_rollout,
     sample_actions,
 )
+from minigrid_tpu_torch.ops.fused_rollout import counter_reset
 from minigrid_tpu_torch.parallel.reset_budget import resets_for
+from minigrid_tpu_torch.parallel.vector import make_cached_stepper
 
 
 class Trajectory(NamedTuple):
@@ -52,9 +54,16 @@ def collect_trajectory(
     raises there (``supports_fused_actor`` says which it takes).  On CPU tensors, or with
     ``fused_actor=False``, every step is the plain loop: the packed
     observation, ``model``'s forward, Gumbel-argmax sampling from bits
-    drawn from ``generator``, and the batched step with auto-reset.  Both
-    sample with ``ops/actor_rollout.sample_actions``; the kernel's actor
-    rounds as the TPU kernel does, the plain loop as ``model`` does.
+    drawn from ``generator``, and the batched step with auto-reset.  The
+    auto-reset of an ``expensive_reset`` family whose kernel reads a reset
+    cache (DoorKey, FourRooms, GoToObject, GoToDoor, Fetch) draws from a
+    per-env covering cache of ``resets_per_chunk`` levels, drawn from
+    ``generator`` before the first step, through
+    ``parallel/vector.make_cached_stepper``, as the JAX package's plain
+    collector does (``minigrid_tpu/rl/rollout.py:140-182``); every other
+    family regenerates ended episodes at every step.  Both routes sample
+    with ``ops/actor_rollout.sample_actions``; the kernel's actor rounds as
+    the TPU kernel does, the plain loop as ``model`` does.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -69,6 +78,11 @@ def collect_trajectory(
         )
         return env_states, Trajectory(**traj)
 
+    cached = env.expensive_reset and not counter_reset(env)
+    if cached:
+        cache = env.batch_reset_cache(num_envs, resets_per_chunk, generator, env_states.device)
+        step_cached = make_cached_stepper(env, cache, num_envs)
+        used = torch.zeros(num_envs, dtype=torch.int32, device=env_states.device)
     steps = []
     for _ in range(rollout_steps):
         obs = env.observation_packed(env_states)
@@ -76,8 +90,12 @@ def collect_trajectory(
         logits, value = model(obs, direction, packed=True)
         bits = draw_bits(generator, (logits.shape[-1], num_envs), env_states.device)
         action, logp = sample_actions(logits, bits)
-        stepped, reward = env.step_env(env_states, action)
-        done = stepped.terminated | stepped.truncated
-        env_states = env.autoreset(stepped, generator)
+        if cached:
+            env_states, reward, terminated, truncated, used = step_cached(env_states, action, used)
+            done = terminated | truncated
+        else:
+            stepped, reward = env.step_env(env_states, action)
+            done = stepped.terminated | stepped.truncated
+            env_states = env.autoreset(stepped, generator)
         steps.append((obs, direction, action, logp, value, reward, done))
     return env_states, Trajectory(*(torch.stack(x) for x in zip(*steps)))

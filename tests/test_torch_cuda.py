@@ -17,6 +17,7 @@ from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.state import FIELDS
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
+from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
@@ -213,7 +214,9 @@ def test_actor_kernel_meets_the_contracts(device, kind):
     ar.check_trajectory(env, weights, states, cache, noise, final, traj, atol=ar.PLAIN_ATOL)
 
 
-@pytest.mark.parametrize("env_id", ["MiniGrid-Empty-8x8-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0"])
+@pytest.mark.parametrize(
+    "env_id", ["MiniGrid-Empty-8x8-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0", "MiniGrid-DoorKey-8x8-v0"]
+)
 @pytest.mark.parametrize("learner", ["ppo", "impala"])
 def test_train_step_goes_through_the_kernels(device, learner, env_id):
     env = mgt.make(env_id)
@@ -261,6 +264,97 @@ def test_actor_kernel_runs_the_counter_reset_families(device, env_id):
     ar.check_trajectory(env, weights, states, None, noise, final, traj, ar.PLAIN_ATOL, reset_seeds=seeds)
     if "Dynamic" in env_id:  # the remap and the collision penalty ran
         assert int((traj["action"] >= 3).sum()) > 0 and float(traj["reward"].min()) == -1.0
+
+
+CACHE_IDS = [
+    "MiniGrid-DoorKey-8x8-v0",
+    "MiniGrid-FourRooms-v0",
+    "MiniGrid-GoToObject-8x8-N2-v0",
+    "MiniGrid-GoToDoor-8x8-v0",
+    "MiniGrid-Fetch-8x8-N3-v0",
+]
+
+
+def _biased_actor(env, gen, device, hidden=64):
+    """The actor's kernel weights with nonzero biases (init leaves them 0)."""
+    model = ActorCritic(hidden, env.num_actions, generator=gen, device=device)
+    with torch.no_grad():
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    return ar.repack_actor_params(model)
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+@pytest.mark.parametrize("env_id", CACHE_IDS)
+def test_cache_kernel_matches_plain_version(device, env_id, compute_obs):
+    # Levels with objects from the family's generator, and a cached ext's
+    # extra scalars blended from the cache at every reset; a short max_steps
+    # adds truncations, and the GoTo families run past R = 3 (the last slot
+    # replays, in both versions).
+    env = mgt.make(env_id, max_steps=24)
+    n, steps = 4096, 64
+    gen = torch.Generator(device=device).manual_seed(4)
+    _, states = env.reset(n, gen)
+    cache = env.batch_reset_cache(n, 3, gen)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+    _assert_same(got, want)
+    assert (got[0].extra is None) == (env.fused_ext is None)
+    for k, v in (want[0].extra or {}).items():
+        assert torch.equal(got[0].extra[k], v), k
+    assert int(got[2]) >= n and int(got[4]) >= 1
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-Fetch-8x8-N3-v0"])
+def test_actor_kernel_runs_the_cache_families(device, env_id):
+    env = mgt.make(env_id, max_steps=24)
+    n, t = 4096, 64
+    gen = torch.Generator(device=device).manual_seed(5)
+    _, states = env.reset(n, gen)
+    weights = _biased_actor(env, gen, device)
+    cache = env.batch_reset_cache(n, 3, gen)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) >= n
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
+
+
+class _PlanesExt(fx.CachedExt):
+    """An ext with one extra plane per env, as BabyAI's has."""
+
+    n_planes = 1
+    kernel_id = 4
+
+
+def test_cached_ext_wrappers_reject_what_their_kernels_do_not_take(device):
+    env = mgt.make("MiniGrid-GoToDoor-8x8-v0")
+    gen = torch.Generator(device=device).manual_seed(6)
+    _, states = env.reset(64, gen)
+    cache = env.batch_reset_cache(64, 2, gen)
+    actions = torch.zeros((4, 64), dtype=torch.int32, device=device)
+    seeds = torch.zeros((64, 2), dtype=torch.int32, device=device)
+    weights = _biased_actor(env, gen, device)
+    noise = ar.draw_bits(gen, (4, env.num_actions, 64), device)
+    planes = mgt.make("MiniGrid-GoToDoor-8x8-v0")
+    planes.fused_ext = _PlanesExt()
+    for run in (
+        lambda e, c, s=None: fr.fused_rollout_core(e, states, c, actions, True, s),
+        lambda e, c, s=None: ar.fused_actor_rollout_core(e, weights, states, c, noise, s),
+    ):
+        with pytest.raises(ValueError, match="must both carry them"):
+            run(env, cache.replace(extra=None))
+        with pytest.raises(ValueError, match="takes no reset_seeds"):
+            run(env, cache, seeds)
+        with pytest.raises(ValueError, match="P planes"):
+            run(planes, cache)
 
 
 def test_new_wrappers_reject_what_their_kernels_do_not_take(device):

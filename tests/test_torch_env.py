@@ -32,19 +32,23 @@ EMPTY_IDS = [
 ]
 
 
-PORTED_FAMILIES = ("MiniGrid-Empty-", "MiniGrid-LavaCrossing", "MiniGrid-SimpleCrossing", "MiniGrid-Dynamic-Obstacles-")
+PORTED_FAMILIES = (
+    "MiniGrid-Empty-", "MiniGrid-LavaCrossing", "MiniGrid-SimpleCrossing", "MiniGrid-Dynamic-Obstacles-",
+    "MiniGrid-DoorKey-", "MiniGrid-FourRooms-", "MiniGrid-Fetch-", "MiniGrid-GoToDoor-", "MiniGrid-GoToObject-",
+)
 SHARED_ATTRS = (
     "width", "height", "max_steps", "see_through_walls", "agent_view_size", "deterministic_generation",
     "fused_no_objects", "fused_static_mission", "agent_start_pos", "agent_start_dir", "n_obstacles",
-    "num_crossings", "obstacle_type",
+    "num_crossings", "obstacle_type", "expensive_reset", "num_objs", "_agent_default_pos", "_goal_default_pos",
 )
 
 
 def test_registered_ids_are_the_fixed_start_empty_subset():
-    # The Empty, Crossing and Dynamic-Obstacles ids, with the JAX package's
-    # kwargs and kernel flags.
+    # The Empty, Crossing, Dynamic-Obstacles, DoorKey, FourRooms, Fetch,
+    # GoToDoor and GoToObject ids, with the JAX package's kwargs and kernel
+    # flags.
     ported = {i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES)}
-    assert set(mgt.registered_ids()) == ported and len(ported) == 20
+    assert set(mgt.registered_ids()) == ported and len(ported) == 33
     assert set(EMPTY_IDS) < ported
     for env_id in sorted(ported):
         jenv, tenv = mg.make(env_id), mgt.make(env_id)
@@ -53,7 +57,7 @@ def test_registered_ids_are_the_fixed_start_empty_subset():
         assert (tenv.fused_ext is None) == (getattr(jenv, "fused_ext", None) is None), env_id
 
 
-@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-FourRooms-v0"])
+@pytest.mark.parametrize("env_id", ["BabyAI-GoToLocal-v0", "MiniGrid-Unlock-v0"])
 def test_unported_ids_raise(env_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mgt.make(env_id)
