@@ -72,16 +72,33 @@ Phases, one output line each; any failure raises and exits non-zero:
    observation-consuming ``fused_rollout`` through the kernel (2 launches,
    counted), each held against the plain version on the replayed actions
    and cache (every state field and ``extra`` leaf, done count, checksum
-   and slots used exact, reward total to rtol 1e-5); where R does not
-   cover the slots used, the rollout is certified again at the R that
-   reset_budget's rule gives for them; ``assert_chain_covered``; the kernel,
-   the plain version and the cache's generation timed apart;
+   and slots used exact, reward total to rtol 1e-5); R held to cover the
+   slots used there and in 8 chained chunks, then ``assert_chain_covered``;
+   the kernel, the plain version and the cache's generation timed apart;
 12. the actor kernel's cached-ext instantiations on
    ``MiniGrid-GoToDoor-8x8-v0`` and ``MiniGrid-Fetch-8x8-N3-v0`` at 4096 x
-   32, held to the three contracts with the cache (final ``extra`` exact)
-   and timed at 8192 x 128; then PPO on ``MiniGrid-DoorKey-8x8-v0`` as in
+   32 and R from ``reset_budget.learner_resets``, held to the three
+   contracts with the cache (final ``extra`` exact) and timed at 8192 x
+   128; then PPO on ``MiniGrid-DoorKey-8x8-v0`` as in
    phase 7 (three train steps, launches 1/9/8, the last trajectory held to
-   the contracts with its cache, timed with its rollout/update split).
+   the contracts with its cache, timed with its rollout/update split);
+13. BabyAI: ``BabyAI-GoToLocal-v0`` and ``BabyAI-GoTo-v0`` (22x22) at 16384
+   envs x 256 steps (bench.py's size) as in phase 11, through the kernel's
+   BabyAI instantiation (the verifier's 8 scalars and 2 planes blended from
+   the cache): outputs and ``extra`` (the whole ``InstrState``, both planes)
+   exact with the plain version, R covered, the cache's generation timed
+   apart with its peak memory;
+14. PPO on ``BabyAI-GoToLocal-v0`` as in phase 7 (three train steps through
+   the actor kernel's BabyAI instantiation and the embed + dense-1 kernels,
+   launches 1/9/8, the last trajectory held to the contracts with its cache,
+   timed with its rollout/update split).
+
+Every learner run and actor-kernel check on a reset-cache family (DoorKey,
+GoToDoor, Fetch, GoToLocal) is held to its reset budget, the R that the
+learners' defaults take (``reset_budget.learner_resets``): no env may end
+more episodes in a chunk than the cache has levels
+(``max_episodes_per_chunk <= resets_per_chunk``), or levels were replayed,
+and the smoke fails.
 
 Every kernel entry of the JSON line carries its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
@@ -111,13 +128,14 @@ import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch.core.constants import see_behind
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.obs import process_vis
-from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.core.sampling import randint
+from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops.prng import draw_seeds
-from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, covering_resets, resets_for
+from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
@@ -170,6 +188,12 @@ CACHE_IDS = (
 DOORKEY_ID = CACHE_IDS[0]
 CACHED_EXT_ACTOR_IDS = CACHE_IDS[3:]
 OVERLAY_IDS = ("MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-GoToObject-8x8-N2-v0")
+# The BabyAI slice: bench.py's two BabyAI keys run at 16384 envs
+# (babyai_gotolocal_steps_per_sec, babyai_goto_steps_per_sec); PPO on
+# GoToLocal.
+BABYAI_IDS = ("BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0")
+BABYAI_ENVS = 16384
+GOTOLOCAL_ID = BABYAI_IDS[0]
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -257,13 +281,16 @@ def rollout_bytes(env, states, steps: int, resets: float = 0, seeds: bool = Fals
     written, the ``resets`` reset-cache levels per env it reads or the
     seeds, and the four per-env outputs written.  A state or level is what
     the family's instantiation touches: the grid, the 8 scalar rows and the
-    ext's extra scalars, the contents plane unless ``fused_no_objects``, the
-    mission unless ``fused_static_mission``."""
+    ext's extra scalars and byte planes, the contents plane unless
+    ``fused_no_objects``, the mission (BabyAI's 44 wide) unless
+    ``fused_static_mission``."""
     n, w, h = states.grid.shape
     planes = 1 + (not env.fused_no_objects)
     mission = 0 if env.fused_static_mission else states.mission.shape[-1]
     scalars = env.fused_ext.n_scalars if env.fused_ext is not None else 0
-    state = n * (planes * w * h + 8 + mission + scalars) * 4
+    ext_planes = env.fused_ext.n_planes if env.fused_ext is not None else 0
+    # int32 words, and the ext's planes of one byte per cell.
+    state = n * (planes * w * h + 8 + mission + scalars) * 4 + n * ext_planes * w * h
     return int(4 * steps * n + 2 * state + resets * state + 8 * n * seeds + 16 * n)
 
 
@@ -299,8 +326,9 @@ def compare(kernel_out, plain_out, what: str) -> float:
         a, b = getattr(final_k, f), getattr(final_p, f)
         check(a.shape == b.shape and torch.equal(a, b), f"{what}: state field {f} differs")
     check((final_k.extra is None) == (final_p.extra is None), f"{what}: extra on one side only")
-    for k, b in (final_p.extra or {}).items():
-        a = final_k.extra[k]
+    kernel_leaves, plain_leaves = tree_leaves(final_k.extra), tree_leaves(final_p.extra)
+    check([k for k, _ in kernel_leaves] == [k for k, _ in plain_leaves], f"{what}: extra leaves differ")
+    for (k, a), (_, b) in zip(kernel_leaves, plain_leaves):
         check(a.shape == b.shape and torch.equal(a, b), f"{what}: extra leaf {k} differs")
     for name, a, b in (("done count", done_k, done_p), ("checksum", chk_k, chk_p), ("used", used_k, used_p)):
         check(int(a) == int(b), f"{what}: {name} {int(a)} != {int(b)}")
@@ -566,13 +594,24 @@ def zero_launch_counts() -> None:
     ed.KERNEL_LAUNCHES.update(fwd=0, bwd=0)
 
 
-def train_and_keep_last(train_step, state, gen, want, what: str):
+def cached_budget(env, steps: int) -> int | None:
+    """The reset budget a learner's chunk of ``steps`` on ``env`` is held
+    to: its cache's R, or None for a family without a cache to exhaust
+    (counter reset) or whose levels are all alike (deterministic)."""
+    if ar.counter_reset(env) or env.deterministic_generation:
+        return None
+    return learner_resets(env, steps)
+
+
+def train_and_keep_last(train_step, state, gen, want, what: str, budget: int | None = None):
     """``PPO_TRAIN_STEPS`` train steps, each step's launches (actor, embed
-    fwd, embed bwd) held to ``want`` and its losses to finite values.  The
-    last step runs as its two phases, to keep its trajectory and the
-    parameters it was collected with: after the updates before it, every
-    bias is nonzero.  Returns (state, launches of one step, (model,
-    states0, snapshot, final, traj, metrics)) for that last step."""
+    fwd, embed bwd) held to ``want``, its losses to finite values and, on a
+    reset-cache family, its ``max_episodes_per_chunk`` to the cache's R
+    (``budget``).  The last step runs as its two phases, to keep its
+    trajectory and the parameters it was collected with: after the updates
+    before it, every bias is nonzero.  Returns (state, launches of one
+    step, (model, states0, snapshot, final, traj, metrics)) for that last
+    step."""
     per_step = []
     for i in range(PPO_TRAIN_STEPS):
         before = launch_counts()
@@ -587,22 +626,27 @@ def train_and_keep_last(train_step, state, gen, want, what: str):
         per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
         losses = [float(metrics[k]) for k in ("pg_loss", "value_loss", "entropy")]
         check(all(np.isfinite(losses)), f"{what} train step {i}: losses {losses}")
+        episodes = int(metrics["max_episodes_per_chunk"])
+        check(
+            budget is None or episodes <= budget,
+            f"{what} train step {i}: an env ended {episodes} episodes, past the cache's R={budget}: levels replayed",
+        )
     torch.cuda.synchronize()
     check(all(p == want for p in per_step), f"{what}: launches per step {per_step}, expected {want}")
     return state, per_step[0], (model, states0, snapshot, final, traj, metrics)
 
 
 def replay_actor_draws(env, snapshot, n: int, steps: int, device):
-    """The reset cache, or a counter-reset family's seeds, and then the
-    sampling bits that ``fused_actor_rollout`` drew from a generator in
-    state ``snapshot``."""
+    """The reset cache (of the learners' R), or a counter-reset family's
+    seeds, and then the sampling bits that ``fused_actor_rollout`` drew
+    from a generator in state ``snapshot``."""
     gen = torch.Generator(device=device)
     gen.set_state(snapshot)
     cache = seeds = None
     if ar.counter_reset(env):
         seeds = draw_seeds(gen, n, device)
     else:
-        cache = env.batch_reset_cache(n, resets_for(env, steps), gen, device)
+        cache = env.batch_reset_cache(n, learner_resets(env, steps), gen, device)
     return cache, seeds, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
 
@@ -683,8 +727,8 @@ def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[flo
 
 
 def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple[dict, dict]:
-    """Phase 7 (and 12): PPO on Empty-8x8 (DoorKey-8x8) through the actor and
-    embed + dense-1 kernels."""
+    """Phase 7 (and 12, 14): PPO on Empty-8x8 (DoorKey-8x8, GoToLocal)
+    through the actor and embed + dense-1 kernels."""
     env = mgt.make(env_id)
     config = PPOConfig(rollout_steps=PPO_STEPS)
     init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
@@ -694,7 +738,8 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
 
     zero_launch_counts()
     want = (1, config.num_minibatches + 1, config.num_minibatches)
-    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {env_id}")
+    budget = cached_budget(env, PPO_STEPS)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {env_id}", budget)
     launches_k2 = ar.KERNEL_LAUNCHES
     launches_k3 = dict(ed.KERNEL_LAUNCHES)
     weights, states0, cache, _, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {env_id}")
@@ -705,7 +750,8 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
         f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
         f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
         f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS}, "
-        f"{episodes} episodes, R={cache.step_count.shape[1]})",
+        f"{episodes} episodes, R={cache.step_count.shape[1]}, most episodes of an env per chunk "
+        f"{int(last[5]['max_episodes_per_chunk'])}{'' if budget is None else f' <= R={budget}'})",
     )
 
     # Times: the actor kernel alone against its plain version on the same
@@ -853,24 +899,22 @@ def impala_slice(device, card: str) -> None:
     )
 
 
-def cache_slice(env_id: str, device, card: str) -> dict:
-    """Phase 11, one family: the reset-cache path at bench.py's size, with R
-    from ``reset_budget.resets_for``.  Where that R (a fallback, for ids the
-    table has no row for) does not cover the slots the family used, in the
-    main path's two runs or in 8 chunks chained from them, the most used is
-    reported and the rollout is certified again at the R that
-    reset_budget's rule gives for it."""
+def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number: int = 11) -> dict:
+    """Phase 11 (and 13), one family: the reset-cache path at bench.py's
+    size, with R from ``reset_budget.resets_for``, held to cover the slots
+    the family used in the main path's two runs and in 8 chunks chained
+    from them."""
     env = mgt.make(env_id)
     check(fused_eligible(env, device), f"{env_id} must take the kernel on {device}")
     resets = resets_for(env, NUM_STEPS)
     gen = torch.Generator(device=device).manual_seed(0)
-    _, states = env.reset(NUM_ENVS, gen)
+    _, states = env.reset(num_envs, gen)
     check(states.grid.device == device, f"{env_id}: reset on {states.grid.device}")
     # The chained steady state that reset_budget's rates were measured in:
-    # episode ages spread over [0, max_steps), so that truncations, not only
-    # DoorKey's rare random successes, end episodes within 256 steps.
-    ages = torch.randint(0, env.max_steps, (NUM_ENVS,), generator=gen, device=device, dtype=torch.int32)
-    states = states.replace(step_count=ages)
+    # episode ages spread over [0, max_steps) (each level's own limit for
+    # BabyAI), so that truncations, not only DoorKey's rare random
+    # successes, end episodes within 256 steps.
+    states = states.replace(step_count=randint(gen, num_envs, 0, states.max_steps))
     snap_random = gen.get_state()
     fr.KERNEL_LAUNCHES = 0
     out_random = rollout_random(env, states, gen, NUM_STEPS)
@@ -881,9 +925,9 @@ def cache_slice(env_id: str, device, card: str) -> dict:
     check(launches == 2, f"{env_id}: the slice launched the kernel {launches} times, expected 2")
 
     final, total_r, total_done, max_used = out_random
-    check(final.grid.shape == (NUM_ENVS, env.width, env.height), f"{env_id}: final grid shape")
+    check(final.grid.shape == (num_envs, env.width, env.height), f"{env_id}: final grid shape")
     check(np.isfinite(float(total_r)) and int(total_done) > 0, f"{env_id}: no episode ended")
-    check(int(final.step_count.max()) < env.max_steps, f"{env_id}: a step count past max_steps")
+    check(bool((final.step_count < final.max_steps).all()), f"{env_id}: a step count past max_steps")
     check((final.extra is None) == (env.fused_ext is None), f"{env_id}: extra")
     _, _, plain_random = replay_rollout(env, states, snap_random, False, resets)
     err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
@@ -896,35 +940,22 @@ def cache_slice(env_id: str, device, card: str) -> dict:
     for _ in range(8):
         chained, _, _, used = rollout_random(env, chained, gen, NUM_STEPS, resets)
         observed = max(observed, int(used))
-    certified = resets
-    if observed > resets:
-        certified = covering_resets(observed, NUM_STEPS)
-        snap = gen.get_state()
-        out = fr.fused_rollout(env, states, gen, NUM_STEPS, certified, compute_obs=True)
-        actions, cache, plain = replay_rollout(env, states, snap, True, certified)
-        err = max(err, compare(out, plain, f"{env_id} fused_rollout compute_obs R={certified}"))
-        check(int(out[4]) <= certified, f"{env_id}: {int(out[4])} slots used at R={certified}")
-        print(
-            f"{env_id}: R={resets} from reset_budget does not cover it (max used {observed}, main path and "
-            "8 chained chunks); "
-            f"certified at R={certified} (max used {int(out[4])})",
-            flush=True,
-        )
+    check(observed <= resets, f"{env_id}: an env used {observed} slots with R={resets}: levels replayed")
 
     def chunk(carry):
         st, g = carry
-        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS, certified)
+        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS, resets)
         return (st, g), (r, d, mu)
 
-    chain = assert_chain_covered(chunk, (states, gen), certified, env)
+    chain = assert_chain_covered(chunk, (states, gen), resets, env)
     phase(
-        11,
-        f"{env_id} {NUM_ENVS} envs x {NUM_STEPS} steps: {launches} kernel launches, outputs and extra == plain "
-        f"version, {int(total_done)} episodes, reward {float(total_r)}, max used {observed} at R={resets}, "
-        f"certified R={certified} (chain {chain})",
+        number,
+        f"{env_id} {num_envs} envs x {NUM_STEPS} steps: {launches} kernel launches, outputs and extra == plain "
+        f"version, {int(total_done)} episodes, reward {float(total_r)}, R={resets} covered (max used "
+        f"{observed}, chain {chain})",
     )
 
-    # Times: the kernel on the certified cache, obs off and on, against the
+    # Times: the kernel on the main path's cache, obs off and on, against the
     # plain version; the cache's generation apart, with its peak memory.
     times = {}
     for compute_obs in (False, True):
@@ -937,33 +968,33 @@ def cache_slice(env_id: str, device, card: str) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    gen_ms = event_ms(lambda: env.batch_reset_cache(NUM_ENVS, certified, gen, device))
+    gen_ms = event_ms(lambda: env.batch_reset_cache(num_envs, resets, gen, device))
     gen_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    steps = NUM_ENVS * NUM_STEPS
+    steps = num_envs * NUM_STEPS
     for compute_obs, (k_ms, p_ms) in times.items():
         print(
-            f"steps/s ({card}) {env_id} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: kernel "
+            f"steps/s ({card}) {env_id} {num_envs}x{NUM_STEPS} compute_obs={compute_obs}: kernel "
             f"{steps / k_ms * 1e3:.6g} ({k_ms:.4f} ms), plain {steps / p_ms * 1e3:.6g} ({p_ms:.4f} ms), "
             f"kernel/plain speed {p_ms / k_ms:.3g}x",
             flush=True,
         )
     print(
-        f"wrapper ({card}) {env_id}: env-minor copies of the state and the R={certified} cache "
+        f"wrapper ({card}) {env_id}: env-minor copies of the state and the R={resets} cache "
         f"{layout_ms:.4f} ms of the {times[False][0]:.4f} ms obs-off call",
         flush=True,
     )
     print(
-        f"reset cache ({card}) {env_id} {NUM_ENVS} x R={certified}: generated in {gen_ms:.4f} ms, peak "
+        f"reset cache ({card}) {env_id} {num_envs} x R={resets}: generated in {gen_ms:.4f} ms, peak "
         f"{gen_gb:.4f} GB beyond what was allocated; kernel share of kernel + generation "
         f"{times[False][0] / (times[False][0] + gen_ms):.4g}",
         flush=True,
     )
     # Observations off: the actions, the state with its extra scalars, and
-    # the cache levels the certified run's episodes read.
+    # the cache levels the main path's episodes read.
     episodes = int(fr.fused_rollout_core(env, states, cache, actions, False)[2])
     return kernel_entry(
         f"fused_rollout[{env_id}]", SOURCE, REPLACES, launches, err, *times[False],
-        bound(rollout_bytes(env, states, NUM_STEPS, levels_read(episodes, NUM_ENVS, certified)), 0.0),
+        bound(rollout_bytes(env, states, NUM_STEPS, levels_read(episodes, num_envs, resets)), 0.0),
     )
 
 
@@ -978,39 +1009,56 @@ def biased_weights(env, gen, device) -> ar.ActorWeights:
     return ar.repack_actor_params(model)
 
 
+def most_episodes(done: torch.Tensor) -> int:
+    """The most episodes an env of a trajectory (``done`` bool [T, N])
+    ended."""
+    return int(done.int().sum(dim=0).max())
+
+
+def check_budget(what: str, done: torch.Tensor, cache) -> None:
+    """No env of a trajectory ended more episodes than its reset ``cache``
+    holds levels: none was replayed."""
+    most, r = most_episodes(done), cache.step_count.shape[1]
+    check(most <= r, f"{what}: an env ended {most} episodes with R={r}: levels replayed")
+
+
 def actor_cache_check(env_id: str, device, card: str) -> dict:
     """Phase 12, a cached-ext family: the actor kernel at ``SMALL_ENVS`` x
     ``SMALL_STEPS``, hidden 256 with nonzero biases, on a reset cache with
     the family's extra scalars, held to the three contracts (env replay,
-    final state and extra exact); then timed against its plain version at
-    the PPO size."""
+    final state and extra exact) and to its reset budget, the learners' R;
+    then timed against its plain version at the PPO size, held to its
+    budget too."""
     env = mgt.make(env_id)
     gen = torch.Generator(device=device).manual_seed(1)
     weights = biased_weights(env, gen, device)
 
-    def case(n: int, steps: int):
+    def case(n: int, steps: int, resets: int):
         _, states = env.reset(n, gen)
-        cache = env.batch_reset_cache(n, resets_for(env, steps), gen, device)
+        cache = env.batch_reset_cache(n, resets, gen, device)
         return states, cache, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
-    states, cache, noise = case(SMALL_ENVS, SMALL_STEPS)
+    states, cache, noise = case(SMALL_ENVS, SMALL_STEPS, learner_resets(env, SMALL_STEPS))
     zero_launch_counts()
     final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
     torch.cuda.synchronize()
     launches = ar.KERNEL_LAUNCHES
     episodes = int(traj["done"].sum())
     check(launches == 1 and episodes > 0, f"{env_id}: {launches} launches, {episodes} episodes")
+    check_budget(env_id, traj["done"], cache)
     err, ties = ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
     phase(
         12,
         f"actor kernel {env_id} {SMALL_ENVS}x{SMALL_STEPS}, hidden {PPO_HIDDEN}: == plain version, final extra "
         f"exact ({episodes} episodes, R={cache.step_count.shape[1]}, max abs err {err}, {ties} near-ties)",
     )
-    states, cache, noise = case(PPO_ENVS, PPO_STEPS)
+    states, cache, noise = case(PPO_ENVS, PPO_STEPS, learner_resets(env, PPO_STEPS))
     k = partial(ar.fused_actor_rollout_core, env, weights, states, cache, noise)
     p = partial(ar.actor_rollout_reference, env, weights, states, cache, noise)
     k_ms, p_ms = time_ms(k, 5), event_ms(p)
-    full = int(k()[1]["done"].sum())
+    done = k()[1]["done"]
+    check_budget(env_id, done, cache)
+    full = int(done.sum())
     b = actor_bound(env, states, cache, weights, noise, full)
     print(
         f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -1132,10 +1180,12 @@ def main() -> None:
     cache_entries = [cache_slice(env_id, device, card) for env_id in CACHE_IDS]
     actor_cache_entries = [actor_cache_check(env_id, device, card) for env_id in CACHED_EXT_ACTOR_IDS]
     doorkey_entry, _ = ppo_slice(device, card, DOORKEY_ID, 12)
+    babyai_entries = [cache_slice(env_id, device, card, BABYAI_ENVS, 13) for env_id in BABYAI_IDS]
+    gotolocal_entry, _ = ppo_slice(device, card, GOTOLOCAL_ID, 14)
     summary = {
         "kernels": [
-            rollout_entry, *counter_entries, *cache_entries, actor_entry, actor_ext_entry, doorkey_entry,
-            *actor_cache_entries, *embed_entries,
+            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, actor_entry, actor_ext_entry,
+            doorkey_entry, *actor_cache_entries, gotolocal_entry, *embed_entries,
         ]
     }
     print(json.dumps(summary), flush=True)

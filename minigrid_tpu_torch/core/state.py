@@ -13,8 +13,9 @@ counter-based stream seeded per episode (``ops/prng.py``, carried in
 
 ``extra`` holds a family's own state (Dynamic-Obstacles' obstacle
 positions, say) as a dict of tensors with the same leading batch axes, or
-None.  ``FIELDS`` lists the 11 fixed fields; ``map`` and ``select`` carry
-``extra`` beside them.
+None; a value may also be a dataclass of such tensors (BabyAI's
+``InstrState``).  ``FIELDS`` lists the 11 fixed fields; ``map`` and
+``select`` carry ``extra`` beside them, leaf by leaf (``tree_map``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,47 @@ import torch
 from minigrid_tpu_torch.core.constants import pack_grid
 
 # Width of the structured mission vector: slot 0 is a template id, the rest
-# are template parameters (minigrid_tpu/core/state.py:46).
+# are template parameters (minigrid_tpu/core/state.py:46).  BabyAI's
+# missions are wider (envs/babyai/core/text.py); a state's mission width is
+# its tensor's last axis.
 MISSION_DIM = 8
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of ``tree`` (a tensor, a tuple, dict or
+    dataclass of trees, or None) and the matching leaves of ``rest``, which
+    have the same structure; the same structure back."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else fn(tree, *rest)
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(
+            tree,
+            **{
+                f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                for f in dataclasses.fields(tree)
+            },
+        )
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def tree_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(dotted path, tensor) of every leaf of ``tree``, dict keys in sorted
+    order, so that two trees of one structure list their leaves alike."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if type(tree) is tuple:
+        items = ((str(i), t) for i, t in enumerate(tree))
+    elif isinstance(tree, dict):
+        items = sorted(tree.items())
+    else:
+        items = ((f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    return [leaf for k, v in items for leaf in tree_leaves(v, f"{prefix}.{k}" if prefix else k)]
 
 
 @dataclass
@@ -51,8 +91,7 @@ class EnvState:
 
     def map(self, fn) -> EnvState:
         """Apply ``fn`` to every field and every ``extra`` leaf."""
-        extra = None if self.extra is None else {k: fn(v) for k, v in self.extra.items()}
-        return EnvState(**{f: fn(getattr(self, f)) for f in FIELDS}, extra=extra)
+        return tree_map(fn, self)
 
     @property
     def agent_pos(self) -> torch.Tensor:
@@ -86,8 +125,16 @@ def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
 
     if (a.extra is None) != (b.extra is None):
         raise ValueError("select: one state has extra and the other has not")
-    extra = None if a.extra is None else {k: pick(v, b.extra[k]) for k, v in a.extra.items()}
-    return EnvState(**{f: pick(getattr(a, f), getattr(b, f)) for f in FIELDS}, extra=extra)
+    return tree_map(pick, a, b)
+
+
+def per_env_mission(mission, n: int, device) -> torch.Tensor:
+    """int32 [N, M] mission rows: ``mission`` as given where it is already
+    [N, M], else broadcast to [N, MISSION_DIM]."""
+    t = torch.as_tensor(mission, dtype=torch.int32, device=device)
+    if t.dim() == 2:
+        return t.contiguous()
+    return t.expand((n, MISSION_DIM)).contiguous()
 
 
 def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None, extra=None):
@@ -96,7 +143,9 @@ def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None
     ``grid`` is packed int32[N, W, H] or the reference's uint8[N, W, H, 3]
     encoding; ``contains`` likewise packed or uint8[N, W, H, 2].  The other
     arguments are per-env tensors or values shared by every env; ``extra``
-    is the family's state, leaves [N, ...].
+    is the family's state, leaves [N, ...].  ``mission`` is a template id
+    (or a ``MISSION_DIM`` vector) shared by every env, or per-env rows
+    [N, M] of any width M.
     """
     if grid.dim() == 4 and grid.shape[-1] == 3:
         grid = pack_grid(grid)
@@ -125,6 +174,6 @@ def new_state(grid, agent_pos, agent_dir, max_steps, contains=None, mission=None
         max_steps=per_env(max_steps),
         terminated=false,
         truncated=false.clone(),
-        mission=per_env(0 if mission is None else mission, MISSION_DIM),
+        mission=per_env_mission(0 if mission is None else mission, n, device),
         extra=extra,
     )

@@ -4,6 +4,7 @@ reference registration table: minigrid/__init__.py:36-261)."""
 
 from __future__ import annotations
 
+from minigrid_tpu_torch.envs import babyai as _babyai  # noqa: F401  (registers the BabyAI ids)
 from minigrid_tpu_torch.envs.crossing import CrossingEnv
 from minigrid_tpu_torch.envs.doorkey import DoorKeyEnv
 from minigrid_tpu_torch.envs.dynamicobstacles import DynamicObstaclesEnv

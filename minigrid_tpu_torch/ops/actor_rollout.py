@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.core.state import FIELDS, EnvState, select
+from minigrid_tpu_torch.core.state import FIELDS, EnvState, select, tree_leaves
 from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.ops.fused_rollout import (
     check_env_and_state,
@@ -59,7 +59,7 @@ KERNEL_LAUNCHES = 0
 # that holds the port's actor to the JAX package's.
 PLAIN_ATOL = 1e-4
 
-_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
 
 
 class ActorWeights(NamedTuple):
@@ -239,8 +239,8 @@ def check_trajectory(
     for f in FIELDS:
         ensure(torch.equal(getattr(st, f), getattr(final, f)), f"final state field {f} differs")
     ensure((st.extra is None) == (final.extra is None), "final extra on one side only")
-    for k, v in (st.extra or {}).items():
-        ensure(v.shape == final.extra[k].shape and torch.equal(v, final.extra[k]), f"final extra {k} differs")
+    for (k, v), (_, got) in zip(tree_leaves(st.extra), tree_leaves(final.extra)):
+        ensure(v.shape == got.shape and torch.equal(v, got), f"final extra {k} differs")
     ensure(err <= atol, f"logp/value differ from the plain actor by {err}")
     ensure(ties <= 0.01 * noise.shape[0] * n, f"{ties} near-ties: fewer than 99% of positions compared")
     return err, ties
@@ -277,7 +277,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     ):
         _require(tuple(x.shape) == shape, f"{name} must be {shape}, got {tuple(x.shape)}")
         _require(x.dtype == dtype and x.device == device, f"{name} must be {dtype} on {device}")
-    scal, cscal, seeds, ext_id, params = ext_buffers(env, states, cache, reset_seeds, "actor_rollout")
+    ext = ext_buffers(env, states, cache, reset_seeds, "actor_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     w = [x.contiguous() for x in weights]
@@ -296,21 +296,24 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    pointers = [bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds, *w, *traj.values()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(None if x is None else x.data_ptr() for x in pointers),
+            *(None if x is None else x.data_ptr() for x in (bits, grid, cont, sc, mis, cgrid, ccont, csc, cmis)),
+            *ext.pointers(),
+            *(x.data_ptr() for x in (*w, *traj.values())),
             env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
-            0 if scal is None else scal.shape[0], na, hidden,
+            0 if ext.scal is None else ext.scal.shape[0],
+            0 if ext.planes is None else ext.planes.shape[0],
+            na, hidden,
             int(bool(env.fused_no_objects)),
             int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
-            ext_id,
-            *params,
+            ext.ext_id,
+            *ext.params,
             stream,
         )
     if err != 0:
         raise RuntimeError(f"actor_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
-    return with_extra(env, from_env_minor(states, grid, cont, sc, mis), scal), traj
+    return with_extra(env, from_env_minor(states, grid, cont, sc, mis), ext), traj

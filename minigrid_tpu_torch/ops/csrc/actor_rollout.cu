@@ -8,8 +8,8 @@
 // from injected random bits, then runs the family's pre-step hook, the
 // core step on the mapped action and the post-step hook on the unmapped
 // one (on a StepCtx of the transition), and auto-resets: from the R-slot
-// reset cache (NoExt families and the cached exts, whose extra scalars come
-// from the same slot; core/env.step_cached semantics) or, for a
+// reset cache (NoExt families and the cached exts, whose extra scalars and
+// planes come from the same slot; core/env.step_cached semantics) or, for a
 // COUNTER_RESET ext, by generating a fresh level in place from the env's
 // seed and episode ordinal (both at the pre-increment `used`).  It streams obs, direction, the
 // unmapped action, logp, value, reward and done.
@@ -42,7 +42,11 @@
 // HID = 256 that layer 2's 32 accumulators already press on.  The seeds,
 // and a cached ext's scalars of the cache slot, are read from device memory
 // at each reset straight into that slot, so no register holds them across
-// the loop.
+// the loop.  An ext's extra planes (BabyAI's verifier: two planes of W*H
+// bytes per env, 968 bytes at 22x22) stay in device memory, env-minor as
+// the grid is ([P, W*H, N]): in shared memory they would take 31 KB per
+// block at 22x22, against the two blocks per SM that __launch_bounds__
+// asks for.
 //
 // What bounds it on this card.  Layer 2 is 32 x HID x HID FMAs per block
 // step on the CUDA cores (67 Mi FMA per step of 8192 envs at HID = 256);
@@ -79,6 +83,8 @@ struct Args {
   const int* cmis;           // [R, M, N]
   const int* cscal;          // [R, K, N] (cached exts)
   int* scal;                 // [K, N] the ext's extra scalars, in and out
+  uint8_t* planes;           // [P, W*H, N] the ext's extra planes, in and out
+  const uint8_t* cplanes;    // [R, P, W*H, N] (cached exts with planes)
   const int* seeds;          // [2, N] counter-reset seeds (COUNTER_RESET exts)
   const __nv_bfloat16* w1;   // [V*V*20 + 4, HID]
   const float* b1;           // [HID]
@@ -93,7 +99,7 @@ struct Args {
   float* value;              // [T, N]
   float* rew;                // [T, N]
   uint8_t* done;             // [T, N]
-  int W, H, R, M, T, N, K, NA;
+  int W, H, R, M, T, N, K, P, NA;
 };
 
 __device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
@@ -120,10 +126,11 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
   const int n = n0 + lane;
   const int WH = a.W * a.H;
   const int na = a.NA;
-  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.R, a.K};
+  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.cplanes, a.R, a.K, a.P};
   int* grid = a.grid + n;
   int* cont = a.cont + n;
   int* mis = a.mis + n;
+  uint8_t* planes = Ext::NUM_PLANES > 0 ? a.planes + n : nullptr;
 
   Scalars s{};
   int used = 0;
@@ -254,11 +261,13 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
       a.value[tn + n] = value;
 
       typename Ext::Extra& x = x_s[lane];
-      if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, a.W, a.H, s, x);
+      if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, planes, N, a.W, a.H, s, x);
       const Scalars prev = s;
-      float reward = core_step<NO_OBJECTS>(grid, cont, N, a.W, a.H, s, Ext::map_action(action));
       const Cell f = front_cell(prev, a.W, a.H);
-      const StepCtx ctx{grid, cont, N, a.W, a.H, prev, s, action, f.x * a.H + f.y};
+      const int front = f.x * a.H + f.y;
+      const int front_before = Ext::FRONT_BEFORE ? grid[(size_t)front * N] : 0;
+      float reward = core_step<NO_OBJECTS>(grid, cont, N, a.W, a.H, s, Ext::map_action(action));
+      const StepCtx ctx{grid, cont, N, a.W, a.H, prev, s, action, front, front_before, planes};
       if (Ext::post_step(p, ctx, reward, x)) s.term = 1;
       const bool done = s.term || s.trunc;
       a.rew[tn + n] = reward;
@@ -268,7 +277,7 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
           const Words e = episode_seed((uint32_t)a.seeds[n], (uint32_t)a.seeds[N + n], used);
           Ext::reset(p, e, grid, N, a.W, a.H, s, x);
         } else {
-          cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, N, WH, a.M, s, x);
+          cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, planes, N, WH, a.M, s, x);
         }
         used += 1;
       }
@@ -307,39 +316,41 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 extern "C" int actor_rollout_supports_hidden(int hidden) { return hidden == 256 || hidden == 64; }
 
 // Launches the collection on `stream`; returns a cudaError_t (0 on success).
-// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal and seeds
-// unused); a cached ext takes the cache with its K extra scalars (cscal)
-// and its live ones (scal); a counter-reset ext takes seeds and K extra
-// scalars (R = 0, no cache).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal, planes,
+// cplanes and seeds unused); a cached ext takes the cache with its K extra
+// scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
+// planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
+// cache).
 extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, const int* cscal, int* scal, const int* seeds,
+                                    const int* cmis, const int* cscal, int* scal, uint8_t* planes,
+                                    const uint8_t* cplanes, const int* seeds,
                                     const void* w1,
                                     const float* b1, const void* w2, const float* b2,
                                     const void* wh, const float* bh, int* obs, int* dir, int* act,
                                     float* logp, float* value, float* rew, void* done, int W,
-                                    int H, int V, int R, int M, int T, int N, int K, int NA,
+                                    int H, int V, int R, int M, int T, int N, int K, int P, int NA,
                                     int hidden, int no_objects, int static_mission,
                                     int see_through, int ext_id, int max_steps, int n_obstacles,
                                     int num_crossings, int obstacle_cell, int start_x, int start_y,
                                     int start_dir, void* stream) {
-  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % B != 0 || K < 0 || NA < 1 ||
+  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % B != 0 || K < 0 || P < 0 || NA < 1 ||
       NA > MAX_HEADS - 1 || !actor_rollout_supports_hidden(hidden)) {
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
-  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds,
+  const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, planes, cplanes, seeds,
                static_cast<const __nv_bfloat16*>(w1), b1,
                static_cast<const __nv_bfloat16*>(w2), b2,
                static_cast<const __nv_bfloat16*>(wh), bh,
                obs, dir, act, logp, value, rew, static_cast<uint8_t*>(done),
-               W, H, R, M, T, N, K, NA};
+               W, H, R, M, T, N, K, P, NA};
   const int flags[3] = {no_objects, static_mission, see_through};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
-    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, flags, scal, cscal, seeds);
+    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, P, flags, scal, cscal, seeds, planes, cplanes);
     if (!ok || N == 0) return;
     if (hidden == 256) {
       dispatch<7, 256, Ext>(a, p, flags, s);

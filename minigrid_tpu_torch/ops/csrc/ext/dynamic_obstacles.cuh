@@ -71,7 +71,7 @@ struct DynamicObstaclesExt : NoExt {
   // neighbourhood in linear order (x outer, y inner), free meaning empty
   // and not the agent's cell on the grid as the balls before it left it.
   // Balls 2j and 2j+1 take the two words of threefry(walk_seed, (step, j)).
-  __device__ static void pre_step(const ExtParams& p, int* grid, size_t N, int W, int H,
+  __device__ static void pre_step(const ExtParams& p, int* grid, uint8_t*, size_t N, int W, int H,
                                   const Scalars& s, Extra& x) {
     const int dx = (s.d == 0) - (s.d == 2);
     const int dy = (s.d == 1) - (s.d == 3);

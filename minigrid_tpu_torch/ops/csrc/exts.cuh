@@ -4,6 +4,7 @@
 
 #pragma once
 
+#include "ext/babyai.cuh"
 #include "ext/crossing.cuh"
 #include "ext/dynamic_obstacles.cuh"
 #include "ext/empty_random.cuh"
@@ -35,6 +36,9 @@ void with_ext(int ext_id, F&& f) {
       break;
     case EXT_FETCH:
       f(FetchExt{});
+      break;
+    case EXT_BABYAI:
+      f(BabyAIExt{});
       break;
   }
 }

@@ -9,7 +9,15 @@
 //                            SEE_THROUGH (in that order) it is instantiated
 //                            at: 1 or 0, or SWITCH_ANY for both;
 //   MAX_K                    the most extra int32 scalars it carries;
-//   Extra                    its extra state (registers in the
+//   NUM_PLANES               its extra planes: P per env of W*H bytes,
+//                            env-minor in device memory ([P, W*H, N], the
+//                            env's column handed to the hooks), which
+//                            cache_reset copies from the reset-cache slot
+//                            ([R, P, W*H, N]) with the level;
+//   FRONT_BEFORE             whether post_step reads the front cell's
+//                            value from before the core step (the kernels
+//                            load it only then);
+//   Extra                    its extra scalars (registers in the
 //                            random-policy kernel, shared memory in the
 //                            actor kernel);
 //   load / store             Extra from / to the env's column of an
@@ -20,12 +28,14 @@
 //                            COUNTER_RESET);
 //   map_action               the action the core step sees;
 //   pre_step                 dynamics before the agent acts, on the
-//                            pre-step scalars (step count not yet counted);
+//                            pre-step scalars (step count not yet counted)
+//                            and the env's planes;
 //   post_step                sees the transition (StepCtx: the grid after
 //                            the step, the scalars before and after it, the
-//                            unmapped action, the front cell), may reshape
-//                            the reward and the extra state, returns extra
-//                            termination;
+//                            unmapped action, the front cell and its value
+//                            before the step, the env's planes), may
+//                            reshape the reward, the extra scalars and the
+//                            planes, returns extra termination;
 //   reset                    a fresh level from an episode seed (used with
 //                            COUNTER_RESET in place of the reset cache).
 // NoExt is the default-hook family; a family derives from it and hides
@@ -60,6 +70,7 @@ enum {
   EXT_DYNAMIC_OBSTACLES = 3,
   EXT_GOTO_TARGET = 4,
   EXT_FETCH = 5,
+  EXT_BABYAI = 6,
 };
 
 // A kernel switch (SWITCHES) that an ext leaves to the runtime flag.
@@ -109,18 +120,21 @@ constexpr int ext_switch(int i) {
 
 // Whether a whole-rollout kernel takes ext Ext (id `ext_id`) with these
 // sizes, runtime flags (NO_OBJECTS, STATIC_MISSION, SEE_THROUGH first) and
-// buffers.  The flags must meet the ext's SWITCHES.  NoExt reads an R >= 1
-// reset cache and no extra scalars.  A cached ext (extra scalars, no
-// COUNTER_RESET) reads an R >= 1 reset cache with its K = MAX_K scalars
-// ([R, K, N] `cscal`) beside its live ones, and no seeds.  A counter-reset
-// ext reads per-env seeds and its K scalars, and no cache.
+// buffers.  The flags must meet the ext's SWITCHES, and P its NUM_PLANES.
+// NoExt reads an R >= 1 reset cache and no extra scalars.  A cached ext
+// (extra scalars, no COUNTER_RESET) reads an R >= 1 reset cache with its
+// K = MAX_K scalars ([R, K, N] `cscal`) and its P planes ([R, P, W*H, N]
+// `cplanes`) beside its live ones, and no seeds.  A counter-reset ext reads
+// per-env seeds and its K scalars, and no cache.
 template <class Ext>
-bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, const int* flags,
-                   const int* scal, const int* cscal, const int* seeds) {
+bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, int P, const int* flags,
+                   const int* scal, const int* cscal, const int* seeds, const uint8_t* planes,
+                   const uint8_t* cplanes) {
   for (int i = 0; i < 3; ++i) {
     const int sw = ext_switch<Ext>(i);
     if (sw != SWITCH_ANY && sw != (flags[i] != 0)) return false;
   }
+  if (P != Ext::NUM_PLANES || (P > 0 && (planes == nullptr || cplanes == nullptr))) return false;
   if (Ext::COUNTER_RESET) {
     return R == 0 && seeds != nullptr && (K == 0 || scal != nullptr) && ext_params_ok(ext_id, p, W, H, K);
   }
@@ -183,8 +197,10 @@ __device__ __forceinline__ Scalars fresh_scalars(int ax, int ay, int d, int max_
 // One transition as a post-step hook sees it (FusedCtx,
 // minigrid_tpu/ops/fused_ext.py:33-94): the env's grid and contents
 // columns after the core step, the scalars before it (after the pre-step
-// hook) and after it, the unmapped action and the linear index of the front
-// cell of the pre-step pose, the one cell the step could write.  The kernels
+// hook) and after it, the unmapped action, the linear index of the front
+// cell of the pre-step pose, the one cell the step could write, with its
+// value before the step (read only for a FRONT_BEFORE ext, else 0), and
+// the env's column of its extra planes (nullptr without).  The kernels
 // build it by reference to values they hold anyway, so a hook that ignores
 // a member costs nothing.
 struct StepCtx {
@@ -196,6 +212,8 @@ struct StepCtx {
   const Scalars& post;
   int action;
   int front;
+  int front_before;
+  uint8_t* planes;
 };
 
 struct NoExt {
@@ -203,12 +221,14 @@ struct NoExt {
   static constexpr bool COUNTER_RESET = false;
   static constexpr int SWITCHES[3] = {SWITCH_ANY, SWITCH_ANY, SWITCH_ANY};
   static constexpr int MAX_K = 0;
+  static constexpr int NUM_PLANES = 0;
+  static constexpr bool FRONT_BEFORE = false;
   struct Extra {};
 
   __device__ static Extra load(const int*, int, size_t, const ExtParams&) { return Extra{}; }
   __device__ static void store(int*, int, size_t, const ExtParams&, const Extra&) {}
   __device__ static int map_action(int action) { return action; }
-  __device__ static void pre_step(const ExtParams&, int*, size_t, int, int, const Scalars&, Extra&) {}
+  __device__ static void pre_step(const ExtParams&, int*, uint8_t*, size_t, int, int, const Scalars&, Extra&) {}
   __device__ static bool post_step(const ExtParams&, const StepCtx&, float&, Extra&) { return false; }
   __device__ static void reset(const ExtParams&, const Words&, int*, size_t, int, int, Scalars&, Extra&) {}
 };

@@ -9,9 +9,10 @@
 // the carried object at the agent cell, the bit-parallel occlusion flood).
 // The auto-reset either takes reset-cache slot min(used, R-1), with a
 // cached ext's extra scalars from the same slot (NoExt, GoToTarget and
-// Fetch), or, for a COUNTER_RESET ext, generates a fresh level in place
-// from the env's seed and episode ordinal `used` (ext.reset_block); both
-// use the pre-increment `used`.
+// Fetch, and BabyAI with its verifier's two planes), or, for a
+// COUNTER_RESET ext, generates a fresh level in place from the env's seed
+// and episode ordinal `used` (ext.reset_block); both use the pre-increment
+// `used`.
 //
 // Design.  One thread runs one env through all T steps; the transition,
 // the cache reset and the view are the device functions of minigrid_env.cuh,
@@ -19,8 +20,9 @@
 // are an Ext struct (fused_ext.cuh, one header per family under ext/)
 // picked at launch by ext_id.  Every array is env-minor ([..., N]): grid and
 // contents [W*H, N], the 8 scalar rows [8, N], mission [M, N], the ext's
-// extra scalars [K, N], seeds [2, N], cache [R, W*H, N] / [R, 8, N] /
-// [R, M, N] / [R, K, N], actions [T, N].  The state lives in the output buffers, which
+// extra scalars [K, N] and byte planes [P, W*H, N], seeds [2, N], cache
+// [R, W*H, N] / [R, 8, N] / [R, M, N] / [R, K, N] / [R, P, W*H, N],
+// actions [T, N].  The state lives in the output buffers, which
 // the wrapper initialises from the input state; the kernel updates them in
 // place and allocates nothing.  NO_OBJECTS, STATIC_MISSION, SEE_THROUGH and
 // COMPUTE_OBS are compile-time switches, as in the TPU kernel; the view
@@ -45,7 +47,11 @@
 // for Dynamic-Obstacles two W*H scans per placed ball.  A cache reset
 // copies a whole level from the env's own slot: the slots differ across a
 // warp, so those loads are not coalesced, and the warp runs the copy
-// whenever any of its lanes resets.  With FourRooms' 361-cell levels (a
+// whenever any of its lanes resets.  BabyAI's verifier adds, per step, 6
+// byte loads of its planes and the status machine's integer work, and per
+// drop action a copy of the gridm plane into poss (W*H bytes, coalesced
+// across the warp); BabyAI's bench size is 16384 envs, 4 warps per SM, so
+// its time is the latency of one env's chain, not the card's throughput.  With FourRooms' 361-cell levels (a
 // grid plane beyond the L2) and GoTo's reset every 3.5 steps, that copy,
 // not the step, sets the kernel's time.  The resets branch within a warp,
 // so a warp runs as long as its slowest env.  What a later
@@ -82,12 +88,14 @@ struct Args {
   const int* cmis;     // [R, M, N]
   const int* cscal;    // [R, K, N] (cached exts)
   int* scal;           // [K, N] the ext's extra scalars, in and out
+  uint8_t* planes;     // [P, W*H, N] the ext's extra planes, in and out
+  const uint8_t* cplanes;  // [R, P, W*H, N] (cached exts with planes)
   const int* seeds;    // [2, N] counter-reset seeds (COUNTER_RESET exts)
   int* used;           // [N] resets so far (cache slots consumed)
   int* obs;            // [N] observation checksum (int32 wraparound)
   float* rew;          // [N] reward sum
   int* done;           // [N] episodes ended
-  int W, H, R, M, T, N, K;
+  int W, H, R, M, T, N, K, P;
 };
 
 template <int V, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
@@ -98,13 +106,14 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
   if (n >= a.N) return;
   const size_t N = (size_t)a.N;
   const int W = a.W, H = a.H, WH = a.W * a.H;
-  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.R, a.K};
+  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.cplanes, a.R, a.K, a.P};
 
   // This env's column of every env-minor array: element k at [k * N].
   int* grid = a.grid + n;
   int* cont = a.cont + n;
   int* sc = a.sc + n;
   int* mis = a.mis + n;
+  uint8_t* planes = Ext::NUM_PLANES > 0 ? a.planes + n : nullptr;
   const int* act = a.actions + n;
 
   Scalars s = load_scalars(sc, N);
@@ -120,11 +129,13 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
 
   for (int t = 0; t < a.T; ++t) {
     const int action = act[(size_t)t * N];
-    if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, N, W, H, s, x);
+    if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, planes, N, W, H, s, x);
     const Scalars prev = s;
-    float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, Ext::map_action(action));
     const Cell f = front_cell(prev, W, H);
-    const StepCtx ctx{grid, cont, N, W, H, prev, s, action, f.x * H + f.y};
+    const int front = f.x * H + f.y;
+    const int front_before = Ext::FRONT_BEFORE ? grid[(size_t)front * N] : 0;
+    float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, Ext::map_action(action));
+    const StepCtx ctx{grid, cont, N, W, H, prev, s, action, front, front_before, planes};
     if (Ext::post_step(p, ctx, reward, x)) s.term = 1;
     const bool done = s.term || s.trunc;
     rew_sum += reward;
@@ -133,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
       if constexpr (Ext::COUNTER_RESET) {
         Ext::reset(p, episode_seed(seed0, seed1, used), grid, N, W, H, s, x);
       } else {
-        cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, N, WH, a.M, s, x);
+        cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, planes, N, WH, a.M, s, x);
       }
       used += 1;
     }
@@ -180,31 +191,33 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 }  // namespace
 
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
-// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal and seeds
-// unused); a cached ext takes the cache with its K extra scalars (cscal)
-// and its live ones (scal); a counter-reset ext takes seeds and K extra
-// scalars (R = 0, no cache).
+// ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal, planes,
+// cplanes and seeds unused); a cached ext takes the cache with its K extra
+// scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
+// planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
+// cache).
 extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
-                                    const int* cmis, const int* cscal, int* scal, const int* seeds, int* used,
+                                    const int* cmis, const int* cscal, int* scal, uint8_t* planes,
+                                    const uint8_t* cplanes, const int* seeds, int* used,
                                     int* obs, float* rew, int* done, int W, int H, int V, int R,
-                                    int M, int T, int N, int K, int no_objects,
+                                    int M, int T, int N, int K, int P, int no_objects,
                                     int static_mission, int see_through, int compute_obs,
                                     int ext_id, int max_steps, int n_obstacles, int num_crossings,
                                     int obstacle_cell, int start_x, int start_y, int start_dir,
                                     void* stream) {
-  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0) {
+  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0 || P < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
-  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds,
-               used, obs, rew, done, W, H, R, M, T, N, K};
+  const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, planes, cplanes, seeds,
+               used, obs, rew, done, W, H, R, M, T, N, K, P};
   const int flags[4] = {no_objects, static_mission, see_through, compute_obs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
-    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, flags, scal, cscal, seeds);
+    ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, P, flags, scal, cscal, seeds, planes, cplanes);
     if (ok && N > 0) dispatch<7, Ext>(a, p, flags, st);
   });
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -161,26 +161,29 @@ __device__ __forceinline__ float core_step(int* grid, int* cont, size_t N, int W
 }
 
 // The R-slot reset cache of the env in column n: [R, W*H, N] grid and
-// contents planes, [R, NUM_SC, N] scalar rows, [R, M, N] mission, and the
-// family ext's K extra scalars [R, K, N] (none where K is 0).
+// contents planes, [R, NUM_SC, N] scalar rows, [R, M, N] mission, the
+// family ext's K extra scalars [R, K, N] (none where K is 0) and its P
+// extra byte planes [R, P, W*H, N] (none where P is 0).
 struct Cache {
   const int* grid;
   const int* cont;
   const int* sc;
   const int* mis;
   const int* scal;
-  int R, K;
+  const uint8_t* planes;
+  int R, K, P;
 };
 
 // Auto-reset (minigrid_tpu/ops/fused_rollout.py:445-479): the ended episode
 // is replaced by cache slot min(used, R-1), taken with the pre-increment
 // `used`, the ext's extra scalars included (its Ext::load reads them from
-// the slot's [K, N] plane into `x`).  One branch per ended episode; the
-// cost does not depend on R.
+// the slot's [K, N] plane into `x`) and its extra planes copied into the
+// env's column `planes` of the live [P, W*H, N] planes.  One branch per
+// ended episode; the cost does not depend on R.
 template <class Ext, bool NO_OBJECTS, bool STATIC_MISSION, class Params>
 __device__ __forceinline__ void cache_reset(const Cache& c, const Params& p, int n, int used, int* grid,
-                                            int* cont, int* mis, size_t N, int WH, int M, Scalars& s,
-                                            typename Ext::Extra& x) {
+                                            int* cont, int* mis, uint8_t* planes, size_t N, int WH, int M,
+                                            Scalars& s, typename Ext::Extra& x) {
   const int slot = min(used, c.R - 1);
   const int* cg = c.grid + (size_t)slot * WH * N + n;
   for (int k = 0; k < WH; ++k) grid[(size_t)k * N] = cg[(size_t)k * N];
@@ -194,6 +197,10 @@ __device__ __forceinline__ void cache_reset(const Cache& c, const Params& p, int
     for (int k = 0; k < M; ++k) mis[(size_t)k * N] = cm[(size_t)k * N];
   }
   if constexpr (Ext::MAX_K > 0) x = Ext::load(c.scal + (size_t)slot * c.K * N, n, N, p);
+  if constexpr (Ext::NUM_PLANES > 0) {
+    const uint8_t* cp = c.planes + (size_t)slot * Ext::NUM_PLANES * WH * N + n;
+    for (int k = 0; k < Ext::NUM_PLANES * WH; ++k) planes[(size_t)k * N] = cp[(size_t)k * N];
+  }
 }
 
 // The packed cells of the agent's V x V view (_view_bits_block), the

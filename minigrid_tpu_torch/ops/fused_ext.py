@@ -6,13 +6,14 @@ family whose dynamics differ (``_pre_step``, ``_map_action``,
 ``_post_step``) or whose levels the kernel regenerates itself
 (``covers_reset``) publishes a ``FusedExt``: a twin of its hooks compiled
 into the kernel (``csrc/ext/*.cuh``, picked by ``kernel_id``), the packing
-of its ``EnvState.extra`` into int32 per-env scalars, and the plain
-PyTorch version of its in-kernel level generator, ``reset_block``.  A
-family that keeps its reset cache (``covers_reset`` False) and carries
-extra scalars has them blended from the cache at every reset, with the
-rest of the level (``CachedExt``); its post-step hook has a plain twin,
-``post_step``, that the family's ``_post_step`` runs, so the plain step
-and the kernel's hook are one definition each side.
+of its ``EnvState.extra`` into int32 per-env scalars and, for BabyAI's
+verifier, extra planes of W*H cells, and the plain PyTorch version of its
+in-kernel level generator, ``reset_block``.  A family that keeps its reset
+cache (``covers_reset`` False) and carries extra scalars and planes has
+them blended from the cache at every reset, with the rest of the level
+(``CachedExt``); its post-step hook has a plain twin, ``post_step``, that
+the family's ``_post_step`` runs (GoToObject, GoToDoor, Fetch) or that a
+test holds to the plain step it mirrors (BabyAI's ``verify_step``).
 
 The counter-reset stream: every episode of an env draws from
 ``episode_seed(seed, ordinal)``, where ``seed`` is two int32 words fixed per
@@ -46,7 +47,9 @@ class FusedExt:
     """
 
     n_scalars: int = 0  # int32 per-env extra scalars carried by the kernel
-    n_planes: int = 0  # int32 [W*H] per-env extra planes (none ported)
+    # Per-env extra planes of W*H cells, each value in [0, 256): the kernels
+    # carry them as bytes, env-minor, and blend them from the reset cache.
+    n_planes: int = 0
     # The family's ``_pre_step`` is the kernel's ``pre_step`` hook.
     covers_pre_step: bool = False
     # The kernel regenerates a fresh level at every episode end from the
@@ -62,8 +65,13 @@ class FusedExt:
         """``extra`` (leaves [..., inner]) -> int32 [..., n_scalars]."""
         return None
 
-    def unpack_extra(self, env, scal: torch.Tensor | None):
-        """Inverse of ``pack_extra``."""
+    def pack_planes(self, env, extra) -> torch.Tensor | None:
+        """``extra`` -> int32 [..., n_planes, W*H] (cell (x, y) at x*H + y),
+        or None without planes."""
+        return None
+
+    def unpack_extra(self, env, scal: torch.Tensor | None, planes: torch.Tensor | None = None):
+        """Inverse of ``pack_extra`` and ``pack_planes``."""
         return None
 
     def kernel_params(self, env) -> tuple[int, ...] | None:
@@ -79,7 +87,8 @@ class FusedExt:
         states before and after the core step, ``action`` the unmapped
         action, ``reward`` the core step's and ``scal`` the packed extra
         scalars int32 [N, K].  Returns (extra termination bool [N], reward,
-        scal)."""
+        scal); an ext with planes takes them after ``scal`` (int32 [N, P,
+        W*H]) and returns them last."""
         return torch.zeros_like(state.terminated), reward, scal
 
     def apply_post_step(self, env, prev: EnvState, state: EnvState, action, reward):
@@ -97,8 +106,8 @@ class FusedExt:
 
 
 class CachedExt(FusedExt):
-    """An ext whose levels come from the reset cache, its extra scalars
-    blended from the cache slot with the rest of the level."""
+    """An ext whose levels come from the reset cache, its extra scalars and
+    planes blended from the cache slot with the rest of the level."""
 
 
 def episode_seed(seeds: torch.Tensor, ep_idx) -> tuple[torch.Tensor, torch.Tensor]:

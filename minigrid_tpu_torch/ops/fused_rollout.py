@@ -8,11 +8,11 @@ packed observation (the sum of the visible view cells, wrapping at int32),
 so that observations are consumed without being written out.  Families
 without a fused ext (fixed-start Empty, DoorKey, FourRooms) reset from an
 R-slot reset cache, and so do the cached exts (``fused_ext.CachedExt``:
-GoToObject, GoToDoor, Fetch), whose extra scalars the kernel blends from
-the same cache slot; a ``covers_reset`` ext with a compiled twin
-(``FusedExt.kernel_id``: random-start Empty, Crossing, Dynamic-Obstacles)
-regenerates a fresh level in the kernel from per-env seeds, with no cache.
-An ext with extra planes (``n_planes``, BabyAI's) has no kernel yet.
+GoToObject, GoToDoor, Fetch, and BabyAI's verifier with its two planes),
+whose extra scalars and planes the kernel blends from the same cache slot;
+a ``covers_reset`` ext with a compiled twin (``FusedExt.kernel_id``:
+random-start Empty, Crossing, Dynamic-Obstacles) regenerates a fresh level
+in the kernel from per-env seeds, with no cache.
 
 ``fused_rollout_core`` dispatches on the device of the state: CUDA tensors
 launch the kernel (or raise), CPU tensors run ``fused_rollout_reference``,
@@ -23,6 +23,7 @@ the kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +38,7 @@ COMPILED_VIEW_SIZES = (7,)
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 
 
 def supports_fused(env) -> bool:
@@ -66,13 +67,13 @@ def counter_reset(env) -> bool:
 
 def compiled_ext(env) -> bool:
     """Whether the CUDA kernel has the family's ext: none needed, or a
-    compiled twin (``kernel_id``) without extra planes whose sizes fit its
-    slots (``kernel_params``) and whose ``kernel_switches`` the family's
-    flags meet."""
+    compiled twin (``kernel_id``) whose sizes fit its slots
+    (``kernel_params``) and whose ``kernel_switches`` the family's flags
+    meet."""
     ext = env.fused_ext
     if ext is None:
         return True
-    if ext.kernel_id is None or ext.n_planes or ext.kernel_params(env) is None:
+    if ext.kernel_id is None or ext.kernel_params(env) is None:
         return False
     flags = (env.fused_no_objects, env.fused_static_mission, env.see_through_walls)
     return all(s is None or s == bool(f) for s, f in zip(ext.kernel_switches, flags))
@@ -189,23 +190,23 @@ def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
 
 def check_ext(env, states: EnvState, cache: EnvState | None, what: str) -> None:
     """Raise for an ext the kernels cannot run, and the plain versions with
-    them: one with extra planes, whose half of the reset-cache blend is not
-    ported, and a cached ext whose state or reset cache lacks its extra
-    scalars."""
+    them: one with extra planes but no compiled twin, whose planes no
+    kernel would carry, and a cached ext whose state or reset cache lacks
+    its extra scalars or planes."""
     ext, name = env.fused_ext, type(env).__name__
     if ext is None:
         return
     _require(
-        ext.n_planes == 0,
-        f"{name}'s fused ext carries {ext.n_planes} extra planes per env; the P planes of the "
-        "reset-cache blend are not ported yet",
+        ext.n_planes == 0 or ext.kernel_id is not None,
+        f"{name}'s fused ext carries {ext.n_planes} extra planes per env (P planes) and has no "
+        "compiled twin to carry them",
         what,
     )
-    if not ext.covers_reset and ext.n_scalars:
+    if not ext.covers_reset and (ext.n_scalars or ext.n_planes):
         _require(
             cache is not None and cache.extra is not None and states.extra is not None,
-            f"{name}'s fused ext blends {ext.n_scalars} extra scalars from the reset cache; the state and "
-            "the cache must both carry them",
+            f"{name}'s fused ext blends {ext.n_scalars} extra scalars and {ext.n_planes} planes from the "
+            "reset cache; the state and the cache must both carry them",
             what,
         )
 
@@ -306,21 +307,50 @@ def _pointer(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
-def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torch.Tensor | None, what: str):
-    """The ext arguments of a whole-rollout kernel: the extra scalars as an
-    env-minor int32 [K, N] copy the kernel updates in place (None without
-    any), a cached ext's cache scalars as [R, K, N] (else None), a
-    counter-reset ext's seeds as [2, N] (else None), the ext's kernel id
-    and its ``ExtParams`` (``FusedExt.kernel_params``)."""
+class ExtBuffers(NamedTuple):
+    """The ext arguments of a whole-rollout kernel (``ext_buffers``)."""
+
+    scal: torch.Tensor | None  # int32 [K, N] extra scalars, updated in place
+    cscal: torch.Tensor | None  # int32 [R, K, N] a cached ext's cache scalars
+    planes: torch.Tensor | None  # uint8 [P, W*H, N] extra planes, updated in place
+    cplanes: torch.Tensor | None  # uint8 [R, P, W*H, N] a cached ext's cache planes
+    seeds: torch.Tensor | None  # int32 [2, N] a counter-reset ext's seeds
+    ext_id: int
+    params: tuple[int, ...]  # ExtParams (FusedExt.kernel_params)
+
+    def pointers(self) -> tuple:
+        """The five buffers' addresses in the launch functions' order."""
+        return tuple(None if x is None else x.data_ptr() for x in (self.cscal, self.scal, self.planes, self.cplanes, self.seeds))
+
+
+def _planes_minor(planes: torch.Tensor, lead: tuple[int, ...], p: int, cells: int, device, what: str) -> torch.Tensor:
+    """int32 [*lead, P, W*H] planes as env-minor bytes [*lead[1:], P, W*H,
+    N] (every value must fit in a byte)."""
+    _require(
+        planes is not None and tuple(planes.shape) == lead + (p, cells), f"extra planes must pack to {lead + (p, cells)}", what
+    )
+    _require(bool(((planes >= 0) & (planes < 256)).all()), "extra plane values must fit in a byte", what)
+    order = tuple(range(1, len(lead))) + (len(lead), len(lead) + 1, 0)
+    return planes.to(device=device, dtype=torch.uint8).permute(order).contiguous()
+
+
+def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torch.Tensor | None, what: str) -> ExtBuffers:
+    """The ext arguments of a whole-rollout kernel: the extra scalars and
+    planes as env-minor copies the kernel updates in place, a cached ext's
+    cache scalars and planes, a counter-reset ext's seeds (each None where
+    the ext has none), the ext's kernel id and its ``ExtParams``."""
     ext = env.fused_ext
     if ext is None:
-        return None, None, None, 0, (0,) * 7
+        return ExtBuffers(None, None, None, None, None, 0, (0,) * 7)
     n, device = states.step_count.shape[0], states.device
-    scal = None
+    cells = env.width * env.height
+    scal = planes = None
     if ext.n_scalars:
         scal = ext.pack_extra(env, states.extra)
         _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]", what)
         scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
+    if ext.n_planes:
+        planes = _planes_minor(ext.pack_planes(env, states.extra), (n,), ext.n_planes, cells, device, what)
     if not ext.covers_reset:
         _require(reset_seeds is None, "a cached ext resets from its cache and takes no reset_seeds", what)
         r = cache.step_count.shape[1]
@@ -329,20 +359,29 @@ def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torc
             tuple(cscal.shape) == (n, r, ext.n_scalars), f"the cache's extra must pack to [{n}, {r}, {ext.n_scalars}]", what
         )
         cscal = cscal.to(device=device, dtype=torch.int32).permute(1, 2, 0).contiguous()
-        return scal, cscal, None, ext.kernel_id, ext.kernel_params(env)
+        cplanes = None
+        if ext.n_planes:
+            cplanes = _planes_minor(ext.pack_planes(env, cache.extra), (n, r), ext.n_planes, cells, device, what)
+        return ExtBuffers(scal, cscal, planes, cplanes, None, ext.kernel_id, ext.kernel_params(env))
     _require(
         reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
         and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
         f"reset_seeds must be int32 [{n}, 2] on the state's device",
         what,
     )
-    return scal, None, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env)
+    return ExtBuffers(scal, None, planes, None, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env))
 
 
-def with_extra(env, final: EnvState, scal: torch.Tensor | None) -> EnvState:
-    """``final`` with the kernel's final extra scalars [K, N] unpacked into
-    its ``extra``."""
-    return final if scal is None else final.replace(extra=env.fused_ext.unpack_extra(env, scal.t().contiguous()))
+def with_extra(env, final: EnvState, ext: ExtBuffers) -> EnvState:
+    """``final`` with the kernel's final extra scalars [K, N] and planes
+    [P, W*H, N] (widened back to int32) unpacked into its ``extra``."""
+    if ext.scal is None:
+        return final
+    scal = ext.scal.t().contiguous()
+    if ext.planes is None:
+        return final.replace(extra=env.fused_ext.unpack_extra(env, scal))
+    planes = ext.planes.permute(2, 0, 1).to(torch.int32).contiguous()
+    return final.replace(extra=env.fused_ext.unpack_extra(env, scal, planes))
 
 
 def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bool, reset_seeds):
@@ -353,7 +392,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     t = actions.shape[0]
     _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
     _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
-    scal, cscal, seeds, ext_id, params = ext_buffers(env, states, cache, reset_seeds, "fused_rollout")
+    ext = ext_buffers(env, states, cache, reset_seeds, "fused_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
     acts = actions.contiguous()
@@ -366,19 +405,21 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     fn = lib.fused_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    buffers = (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, seeds, used, obs, rew, done)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(_pointer(x) for x in buffers),
+            *(_pointer(x) for x in (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis)),
+            *ext.pointers(),
+            *(_pointer(x) for x in (used, obs, rew, done)),
             env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
-            0 if scal is None else scal.shape[0],
+            0 if ext.scal is None else ext.scal.shape[0],
+            0 if ext.planes is None else ext.planes.shape[0],
             int(bool(env.fused_no_objects)),
             int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
             int(bool(compute_obs)),
-            ext_id,
-            *params,
+            ext.ext_id,
+            *ext.params,
             stream,
         )
     if err != 0:
@@ -386,7 +427,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     KERNEL_LAUNCHES += 1
 
     return (
-        with_extra(env, from_env_minor(states, grid, cont, sc, mis), scal),
+        with_extra(env, from_env_minor(states, grid, cont, sc, mis), ext),
         rew.sum(),
         wrap_int32(done.sum(dtype=torch.int64)),
         wrap_int32(obs.sum(dtype=torch.int64)),

@@ -10,6 +10,8 @@ same tables and rules as ``minigrid_tpu/parallel/reset_budget.py``:
 * ``deterministic_generation`` families (fixed-start Empty) need R=1, since
   every fresh level is the same;
 * the others size R from the measured per-env episode maximum, with margin;
+  a learner's chunk shorter than 256 steps takes the 256-step R
+  (``learner_resets``);
 * callers check: the rollouts return the consumed-slot maximum and
   ``assert_chain_covered`` fails a run that went past R.
 """
@@ -20,8 +22,11 @@ import math
 
 # Maximum episodes any env finished in one 256-step chunk under a uniform
 # random policy, chained steady state, keyed by registry id.  Episode counts
-# do not depend on the hardware; the values are those of the JAX package
-# (measured there with tools/measure_reset_budget.py).
+# do not depend on the hardware.  The first rows are the JAX package's
+# (measured there with its tools/measure_reset_budget.py); this package's
+# tools/measure_reset_budget.py, on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit, confirmed GoToLocal's (10 <= 11) and GoTo's (4 <= 5) at 16384
+# envs.
 MEASURED_MAX_EPISODES_256: dict[str, int] = {
     "MiniGrid-Empty-Random-5x5-v0": 12,
     "MiniGrid-FourRooms-v0": 5,
@@ -30,8 +35,23 @@ MEASURED_MAX_EPISODES_256: dict[str, int] = {
     "MiniGrid-Dynamic-Obstacles-8x8-v0": 37,
     "BabyAI-GoToLocal-v0": 11,
     "MiniGrid-ObstructedMaze-2Dlh-v0": 2,
-    # An estimate, not a full-scale measurement (ROADMAP.md open questions).
+    # Entered as 5 in the JAX package for want of a full-scale measurement;
+    # this package measured 4.
     "BabyAI-GoTo-v0": 5,
+    # This package's rows, which the JAX table lacks: its
+    # tools/measure_reset_budget.py through the whole-rollout kernel on an
+    # NVIDIA H100 80GB HBM3 (700.00 W power limit), 65536 envs, the maximum
+    # over 8 chunks: 4 chained from spread episode ages (its default), 4
+    # from a reset (--from-reset).
+    # GoToObject and GoToDoor end an episode on every done or toggle.
+    "MiniGrid-GoToObject-6x6-N2-v0": 107,
+    "MiniGrid-GoToObject-8x8-N2-v0": 110,
+    "MiniGrid-GoToDoor-5x5-v0": 105,
+    "MiniGrid-GoToDoor-6x6-v0": 105,
+    "MiniGrid-GoToDoor-8x8-v0": 113,
+    "MiniGrid-Fetch-5x5-N2-v0": 17,
+    "MiniGrid-Fetch-6x6-N2-v0": 16,
+    "MiniGrid-Fetch-8x8-N3-v0": 11,
 }
 
 # Fallback for ids without a measured entry; deliberately generous.
@@ -48,6 +68,16 @@ MEASURED_MEAN_EPISODES_256: dict[str, float] = {
     "BabyAI-GoToLocal-v0": 4.67,
     "MiniGrid-ObstructedMaze-2Dlh-v0": 0.38,
     "BabyAI-GoTo-v0": 1.0,
+    # This package's rows (the 4 chunks from spread episode ages of the runs
+    # above).
+    "MiniGrid-GoToObject-6x6-N2-v0": 73.16,
+    "MiniGrid-GoToObject-8x8-N2-v0": 73.17,
+    "MiniGrid-GoToDoor-5x5-v0": 73.15,
+    "MiniGrid-GoToDoor-6x6-v0": 73.15,
+    "MiniGrid-GoToDoor-8x8-v0": 73.15,
+    "MiniGrid-Fetch-5x5-N2-v0": 4.89,
+    "MiniGrid-Fetch-6x6-N2-v0": 3.06,
+    "MiniGrid-Fetch-8x8-N3-v0": 2.0,
 }
 
 
@@ -82,6 +112,17 @@ def resets_for(env, num_steps: int, env_id: str | None = None) -> int:
         env_id = getattr(env, "env_id", None)
     measured = MEASURED_MAX_EPISODES_256.get(env_id, _FALLBACK_EPISODES_256)
     return covering_resets(measured, num_steps)
+
+
+def learner_resets(env, rollout_steps: int) -> int:
+    """Covering resets for a learner's chunk of ``rollout_steps``: the
+    256-step rule, not scaled down.  A shorter window lies inside some
+    256-step chunk, so the 256-step maximum bounds its episodes, where the
+    linear scaling of ``resets_for`` does not (Fetch-8x8-N3 ended 9 episodes
+    in a 128-step chunk against a scaled R of 8).  The rows come from a
+    uniform random policy and a learning one may end episodes faster, so
+    the learners report ``max_episodes_per_chunk`` to hold against it."""
+    return resets_for(env, max(rollout_steps, 256))
 
 
 def assert_chain_covered(step, carry, resets: int, env, chunks: int = 8) -> int:

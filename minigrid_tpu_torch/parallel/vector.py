@@ -59,7 +59,7 @@ def fused_eligible(env, device) -> bool:
     """Whether the whole-rollout CUDA kernel (ops/fused_rollout.py) runs this
     configuration: a CUDA device, a default-hook family or one whose fused
     ext the kernel has compiled (``compiled_ext``: the counter-reset and
-    the cached exts, none with extra planes), at most
+    the cached exts, BabyAI's with its two planes), at most
     ``MAX_FUSED_CELLS`` grid cells and a compiled view size.  The kernel
     keeps the reset cache in device memory, so R does not gate it."""
     return (

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.parallel.reset_budget import resets_for
+from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.rl.ppo import (
     AdamState,
     TrainState,
@@ -46,7 +46,7 @@ class IMPALAConfig(NamedTuple):
     entropy_coef: float = 0.01
     learning_rate: float = 3e-4
     max_grad_norm: float = 0.5
-    # None sizes the reset cache from parallel/reset_budget.resets_for; see
+    # None sizes the reset cache from parallel/reset_budget.learner_resets; see
     # PPOConfig.resets_per_chunk.
     resets_per_chunk: int | None = None
     num_minibatches: int = 8
@@ -107,7 +107,7 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
     resets_per_chunk = (
         config.resets_per_chunk
         if config.resets_per_chunk is not None
-        else resets_for(env, config.rollout_steps)
+        else learner_resets(env, config.rollout_steps)
     )
 
     def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:

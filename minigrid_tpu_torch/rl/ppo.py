@@ -20,7 +20,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.parallel.reset_budget import resets_for
+from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.rl.model import ActorCritic, apply_packed_fused
 from minigrid_tpu_torch.rl.rollout import collect_trajectory
 
@@ -35,7 +35,7 @@ class PPOConfig(NamedTuple):
     learning_rate: float = 2.5e-4
     max_grad_norm: float = 0.5
     # Pre-generated levels per env per rollout chunk; None sizes the cache
-    # from parallel/reset_budget.resets_for.  The emitted
+    # from parallel/reset_budget.learner_resets.  The emitted
     # ``max_episodes_per_chunk`` metric is to be held to this value.
     resets_per_chunk: int | None = None
     # Gradient minibatches per update (time slices) and epochs over the rollout.
@@ -131,7 +131,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
     resets_per_chunk = (
         config.resets_per_chunk
         if config.resets_per_chunk is not None
-        else resets_for(env, config.rollout_steps)
+        else learner_resets(env, config.rollout_steps)
     )
     steps_per_update = config.num_minibatches * config.update_epochs
 

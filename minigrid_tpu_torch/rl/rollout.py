@@ -18,7 +18,7 @@ from minigrid_tpu_torch.ops.actor_rollout import (
     sample_actions,
 )
 from minigrid_tpu_torch.ops.fused_rollout import counter_reset
-from minigrid_tpu_torch.parallel.reset_budget import resets_for
+from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import make_cached_stepper
 
 
@@ -71,7 +71,7 @@ def collect_trajectory(
         )
     num_envs = env_states.step_count.shape[0]
     if resets_per_chunk is None:
-        resets_per_chunk = resets_for(env, rollout_steps)
+        resets_per_chunk = learner_resets(env, rollout_steps)
     if fused_actor and env_states.device.type == "cuda":
         env_states, traj = fused_actor_rollout(
             env, model, env_states, generator, rollout_steps, resets_per_chunk

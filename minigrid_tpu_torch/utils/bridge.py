@@ -6,8 +6,12 @@ were turned into numpy arrays, given as a mapping of field name to array,
 and returns this package's ``EnvState`` on ``device``.  A family's
 ``extra`` state comes as a mapping of leaf name to array under ``"extra"``
 (Dynamic-Obstacles: ``obstacles`` [N, n, 2], ``front_not_clear``,
-``walk_seed`` [N, 2]), dtypes kept.  ``rng``, which this package does not
-hold, is ignored.  ``state_to_numpy`` is the inverse.
+``walk_seed`` [N, 2]), dtypes kept.  A structured leaf (BabyAI's
+``"instr"``, a dataclass of arrays) comes as a dataclass or as a mapping of
+its field names, and becomes the dataclass that the caller names for its
+key in ``extra_types``.  ``rng``, which this package does not hold, is
+ignored.  ``state_to_numpy`` is the inverse, with a dataclass leaf as a
+mapping of its field names.
 
 ``params_from_flax`` turns the flax ``ActorCritic`` parameter tree (nested
 dicts of numpy arrays: ``Dense_0..3`` with ``kernel [in, out]`` and
@@ -18,6 +22,7 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -28,8 +33,12 @@ from minigrid_tpu_torch.core.state import FIELDS, EnvState
 _BOOL_FIELDS = ("terminated", "truncated")
 
 
-def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> EnvState:
-    """``EnvState`` from a mapping of field name to numpy array."""
+def state_from_numpy(
+    arrays: Mapping[str, np.ndarray], device=None, extra_types: Mapping[str, type] | None = None
+) -> EnvState:
+    """``EnvState`` from a mapping of field name to numpy array; a
+    structured ``extra`` leaf becomes the dataclass ``extra_types`` names
+    for its key."""
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"state is missing fields {missing}")
@@ -39,8 +48,27 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> EnvState:
         out[f] = torch.from_numpy(np.array(arrays[f])).to(device=device, dtype=dtype)
     extra = arrays.get("extra")
     if extra is not None:
-        extra = {k: torch.from_numpy(np.array(v)).to(device) for k, v in extra.items()}
+        kinds = extra_types or {}
+        extra = {k: _leaf_from_numpy(v, device, kinds.get(k)) for k, v in extra.items()}
     return EnvState(**out, extra=extra)
+
+
+def _leaf_from_numpy(value, device, kind: type | None):
+    """An ``extra`` value: an array, or a dataclass (or mapping of its
+    fields) that becomes a ``kind``."""
+    if dataclasses.is_dataclass(value):
+        value = {f.name: getattr(value, f.name) for f in dataclasses.fields(value)}
+    if not isinstance(value, Mapping):
+        return torch.from_numpy(np.array(value)).to(device)
+    if kind is None:
+        raise TypeError("a structured extra leaf needs its dataclass in extra_types")
+    return kind(**{k: torch.from_numpy(np.array(v)).to(device) for k, v in value.items()})
+
+
+def _leaf_to_numpy(value):
+    if dataclasses.is_dataclass(value):
+        return {f.name: getattr(value, f.name).cpu().numpy() for f in dataclasses.fields(value)}
+    return value.cpu().numpy()
 
 
 def state_to_numpy(state: EnvState) -> dict:
@@ -48,7 +76,7 @@ def state_to_numpy(state: EnvState) -> dict:
     ``"extra"`` mapping where the state has one."""
     out = {f: getattr(state, f).cpu().numpy() for f in FIELDS}
     if state.extra is not None:
-        out["extra"] = {k: v.cpu().numpy() for k, v in state.extra.items()}
+        out["extra"] = {k: _leaf_to_numpy(v) for k, v in state.extra.items()}
     return out
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from minigrid_tpu_torch.core.state import FIELDS, EnvState
+from minigrid_tpu_torch.core.state import tree_map
 
 # Cell-lanes per chunk.  The generators keep about 60 bytes per cell-lane
 # live at their peak (int32 grids and blends, bool masks, the int32 rank
@@ -34,17 +34,16 @@ def lane_cap(cells: int) -> int:
     return max(1024, (CELL_LANE_BUDGET // max(int(cells), 1)) // 1024 * 1024)
 
 
-def cat_states(parts: list[EnvState]) -> EnvState:
-    """States concatenated along the leading axis, ``extra`` included."""
-    first = parts[0]
-    extra = None if first.extra is None else {k: torch.cat([p.extra[k] for p in parts]) for k in first.extra}
-    return EnvState(**{f: torch.cat([getattr(p, f) for p in parts]) for f in FIELDS}, extra=extra)
+def cat_trees(parts):
+    """Trees of tensors (states with their ``extra``, say) concatenated
+    along the leading axis, leaf by leaf."""
+    return tree_map(lambda *xs: torch.cat(xs), *parts)
 
 
-def chunked(generate, n: int, max_lanes: int) -> EnvState:
-    """``generate(count) -> EnvState`` of ``count`` lanes, called on
-    sequential chunks of at most ``max_lanes`` lanes that add up to ``n``;
-    the chunks' states concatenated."""
+def chunked(generate, n: int, max_lanes: int):
+    """``generate(count)``, a tree of tensors (an ``EnvState``, say) of
+    ``count`` lanes, called on sequential chunks of at most ``max_lanes``
+    lanes that add up to ``n``; the chunks' trees concatenated."""
     if n <= max_lanes:
         return generate(n)
-    return cat_states([generate(min(max_lanes, n - start)) for start in range(0, n, max_lanes)])
+    return cat_trees([generate(min(max_lanes, n - start)) for start in range(0, n, max_lanes)])

@@ -14,7 +14,7 @@ import torch
 
 import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch.core.env import MiniGridEnv
-from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_ext as fx
@@ -328,10 +328,11 @@ def test_actor_kernel_runs_the_cache_families(device, env_id):
 
 
 class _PlanesExt(fx.CachedExt):
-    """An ext with one extra plane per env, as BabyAI's has."""
+    """An ext with one extra plane per env, as BabyAI's has, and no compiled
+    twin."""
 
     n_planes = 1
-    kernel_id = 4
+    kernel_id = None
 
 
 def test_cached_ext_wrappers_reject_what_their_kernels_do_not_take(device):
@@ -355,6 +356,57 @@ def test_cached_ext_wrappers_reject_what_their_kernels_do_not_take(device):
             run(env, cache, seeds)
         with pytest.raises(ValueError, match="P planes"):
             run(planes, cache)
+
+
+# BabyAI's verifier (K=8 scalars, P=2 planes): GoToLocal's 8x8 room and
+# GoTo's 22x22 maze of 3x3 rooms, with the env's own max_steps.
+BABYAI_IDS = ["BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0"]
+
+
+def _assert_extra_same(got, want):
+    leaves = tree_leaves(want)
+    assert [k for k, _ in tree_leaves(got)] == [k for k, _ in leaves]
+    for (k, a), (_, b) in zip(tree_leaves(got), leaves):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+@pytest.mark.parametrize("env_id", BABYAI_IDS)
+def test_babyai_kernel_matches_plain_version(device, env_id, compute_obs):
+    # 4096 envs x 32 steps from the level's generator; R = 3 is passed on
+    # GoToLocal (the last slot replays, in both versions), and both planes
+    # come back bit for bit.
+    env = mgt.make(env_id)
+    n, steps = 4096, 32
+    gen = torch.Generator(device=device).manual_seed(7)
+    _, states = env.reset(n, gen)
+    cache = env.batch_reset_cache(n, 3, gen)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+    _assert_same(got, want)
+    _assert_extra_same(got[0].extra, want[0].extra)
+    assert int(got[2]) > 0
+
+
+@pytest.mark.parametrize("env_id", BABYAI_IDS)
+def test_actor_kernel_runs_babyai(device, env_id):
+    env = mgt.make(env_id)
+    n, t = 4096, 32
+    gen = torch.Generator(device=device).manual_seed(8)
+    _, states = env.reset(n, gen)
+    weights = _biased_actor(env, gen, device)
+    cache = env.batch_reset_cache(n, 3, gen)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) > 0
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
 
 
 def test_new_wrappers_reject_what_their_kernels_do_not_take(device):

@@ -20,6 +20,7 @@ from minigrid_tpu_torch.core.state import resolve_device
 from minigrid_tpu_torch.parallel import reset_budget as trb
 from minigrid_tpu_torch.parallel.vector import VectorEnv
 from minigrid_tpu_torch.rl import model as tmodel
+from minigrid_tpu_torch.tools import measure_reset_budget
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 from torch_port_util import assert_states_equal
@@ -35,20 +36,26 @@ EMPTY_IDS = [
 PORTED_FAMILIES = (
     "MiniGrid-Empty-", "MiniGrid-LavaCrossing", "MiniGrid-SimpleCrossing", "MiniGrid-Dynamic-Obstacles-",
     "MiniGrid-DoorKey-", "MiniGrid-FourRooms-", "MiniGrid-Fetch-", "MiniGrid-GoToDoor-", "MiniGrid-GoToObject-",
+    "BabyAI-GoTo",
 )
+# BabyAI's GoTo group less the two levels of levelgen.py.
+UNPORTED_PREFIXES = ("BabyAI-GoToSeq",)
 SHARED_ATTRS = (
     "width", "height", "max_steps", "see_through_walls", "agent_view_size", "deterministic_generation",
     "fused_no_objects", "fused_static_mission", "agent_start_pos", "agent_start_dir", "n_obstacles",
     "num_crossings", "obstacle_type", "expensive_reset", "num_objs", "_agent_default_pos", "_goal_default_pos",
+    "num_dists", "doors_open", "pool_factor", "fixed_max_steps", "max_gen_attempts", "unblocking",
 )
 
 
 def test_registered_ids_are_the_fixed_start_empty_subset():
     # The Empty, Crossing, Dynamic-Obstacles, DoorKey, FourRooms, Fetch,
-    # GoToDoor and GoToObject ids, with the JAX package's kwargs and kernel
-    # flags.
-    ported = {i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES)}
-    assert set(mgt.registered_ids()) == ported and len(ported) == 33
+    # GoToDoor and GoToObject ids and BabyAI's GoTo group, with the JAX
+    # package's kwargs and kernel flags.
+    ported = {
+        i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES) and not i.startswith(UNPORTED_PREFIXES)
+    }
+    assert set(mgt.registered_ids()) == ported and len(ported) == 65
     assert set(EMPTY_IDS) < ported
     for env_id in sorted(ported):
         jenv, tenv = mg.make(env_id), mgt.make(env_id)
@@ -57,7 +64,7 @@ def test_registered_ids_are_the_fixed_start_empty_subset():
         assert (tenv.fused_ext is None) == (getattr(jenv, "fused_ext", None) is None), env_id
 
 
-@pytest.mark.parametrize("env_id", ["BabyAI-GoToLocal-v0", "MiniGrid-Unlock-v0"])
+@pytest.mark.parametrize("env_id", ["BabyAI-GoToSeq-v0", "MiniGrid-Unlock-v0"])
 def test_unported_ids_raise(env_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mgt.make(env_id)
@@ -167,10 +174,76 @@ def test_step_cached_r2_matches_jax():
     assert int(used.max()) > r  # past the last slot: replays exercised
 
 
-def test_reset_budget_tables_match_jax():
-    assert trb.MEASURED_MAX_EPISODES_256 == jrb.MEASURED_MAX_EPISODES_256
-    assert trb.MEASURED_MEAN_EPISODES_256 == jrb.MEASURED_MEAN_EPISODES_256
+MEASURED_MAX_CORRECTIONS: dict[str, int] = {}
+MEASURED_MEAN_CORRECTIONS: dict[str, float] = {}
+# JAX rows the port's own measurement on the H100 replaced
+# (minigrid_tpu_torch/tools/measure_reset_budget.py; ROADMAP.md queue 3):
+# the per-env maximum and mean of each.  Every other JAX row must be in the
+# port unchanged.
+MEASURED_CORRECTIONS = {"max": MEASURED_MAX_CORRECTIONS, "mean": MEASURED_MEAN_CORRECTIONS}
+
+
+@pytest.mark.parametrize(
+    "port, jax_table, kind",
+    [
+        (trb.MEASURED_MAX_EPISODES_256, jrb.MEASURED_MAX_EPISODES_256, "max"),
+        (trb.MEASURED_MEAN_EPISODES_256, jrb.MEASURED_MEAN_EPISODES_256, "mean"),
+    ],
+)
+def test_reset_budget_tables_match_jax(port, jax_table, kind):
+    # The port's table holds every JAX row, equal unless the port measured
+    # it again, and its own measured rows besides (the GoTo and Fetch ids,
+    # which JAX's table lacks); the fallback is JAX's.
+    corrected = MEASURED_CORRECTIONS[kind]
+    assert set(jax_table) <= set(port)
+    for env_id, value in jax_table.items():
+        if env_id in corrected:
+            assert port[env_id] == corrected[env_id] != value, env_id
+        else:
+            assert port[env_id] == value, env_id
     assert trb._FALLBACK_EPISODES_256 == jrb._FALLBACK_EPISODES_256
+
+
+def test_every_cached_id_the_kernels_run_has_a_measured_row():
+    for env_id, _ in measure_reset_budget.CONFIGS:
+        for table in (trb.MEASURED_MAX_EPISODES_256, trb.MEASURED_MEAN_EPISODES_256):
+            assert env_id in table, env_id
+
+
+@pytest.mark.parametrize(
+    "env_id, steps, want",
+    [
+        # A learner's chunk takes the 256-step R: JAX's scaled rule would
+        # give GoToLocal 8 at 128 steps from its row 11, Fetch-8x8-N3 8 (it
+        # ended 9 in a 128-step chunk) and GoToDoor-8x8 19 at 32 steps.
+        ("BabyAI-GoToLocal-v0", 128, 14),
+        ("MiniGrid-Fetch-8x8-N3-v0", 128, 14),
+        ("MiniGrid-GoToDoor-8x8-v0", 32, 142),
+        ("BabyAI-GoToLocal-v0", 256, 14),
+        ("BabyAI-GoToLocal-v0", 512, 28),  # longer chunks scale as in JAX
+    ],
+)
+def test_learners_take_the_256_step_r(env_id, steps, want):
+    env = mgt.make(env_id)
+    assert trb.learner_resets(env, steps) == want == trb.resets_for(env, max(steps, 256))
+    if env_id in jrb.MEASURED_MAX_EPISODES_256:
+        assert want == jrb.resets_for(mg.make(env_id), max(steps, 256))
+        assert trb.resets_for(env, steps) == jrb.resets_for(mg.make(env_id), steps)
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_measure_reset_budget_counts_fresh_levels(plain):
+    # 256 envs x 2 chunks of 32 steps of GoToDoor-5x5 (an episode ends about
+    # every 3.5 steps): through the kernel's plain version with a 2-slot
+    # cache, which no chunk can fit, so each chunk runs again at a larger R
+    # until no env reached its last slot; or per-step regeneration.
+    out = measure_reset_budget.measure(
+        "MiniGrid-GoToDoor-5x5-v0", 256, 32, 2, plain, torch.device("cpu"), resets=None if plain else 2
+    )
+    assert out["how"] == ("plain" if plain else "kernel") and len(out["per_chunk_max"]) == 2
+    assert 4 <= out["max"] <= 32 and 4 < out["mean_episodes_per_chunk"] < out["max"]
+    if not plain:
+        assert all(m < r for m, r in zip(out["per_chunk_max"], out["certified_at_R"]))
 
 
 @pytest.mark.parametrize("num_steps", [1, 64, 256, 1000])

@@ -4,6 +4,8 @@ cross between the two as numpy arrays (``minigrid_tpu_torch.utils.bridge``)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +34,8 @@ def jax_to_numpy(state) -> dict:
     return out
 
 
-def to_port(state, device="cpu"):
-    return state_from_numpy(jax_to_numpy(state), device)
+def to_port(state, device="cpu", extra_types=None):
+    return state_from_numpy(jax_to_numpy(state), device, extra_types)
 
 
 def assert_states_equal(port_state, jax_state, what: str = "") -> None:
@@ -45,8 +47,23 @@ def assert_states_equal(port_state, jax_state, what: str = "") -> None:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f"{what}: {f}")
     assert ("extra" in got) == ("extra" in want), f"{what}: extra on one side only"
     for k, v in want.get("extra", {}).items():
-        assert got["extra"][k].dtype == v.dtype, f"{what}: extra {k} dtype"
-        np.testing.assert_array_equal(got["extra"][k], v, err_msg=f"{what}: extra {k}")
+        want_leaves, got_leaves = _fields(v), _fields(got["extra"][k])
+        assert want_leaves.keys() == got_leaves.keys(), f"{what}: extra {k} structure"
+        for name, want_leaf in want_leaves.items():
+            got_leaf = got_leaves[name]
+            assert got_leaf.dtype == want_leaf.dtype, f"{what}: extra {k}{name} dtype"
+            np.testing.assert_array_equal(got_leaf, want_leaf, err_msg=f"{what}: extra {k}{name}")
+
+
+def _fields(value) -> dict:
+    """The leaves of an ``extra`` value by name: an array as ``""``, an
+    instruction state (the JAX dataclass or the bridge's mapping) by
+    ``".field"``."""
+    if dataclasses.is_dataclass(value):
+        value = {f.name: getattr(value, f.name) for f in dataclasses.fields(value)}
+    if isinstance(value, dict):
+        return {f".{k}": np.asarray(x) for k, x in value.items()}
+    return {"": np.asarray(value)}
 
 
 def jax_state(arrays):
