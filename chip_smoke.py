@@ -29,8 +29,9 @@ Phases, one output line each; any failure raises and exits non-zero:
    bit-identical, each timed against the plain version;
 7. the learner slice: ``make_ppo`` on ``MiniGrid-Empty-8x8-v0`` at 8192 envs x
    128 steps, hidden 256, three train steps through the kernels (the actor
-   kernel once and the embed + dense-1 kernels 9 times forward and 8 times
-   backward per step), the last step's trajectory (collected after two
+   kernel once, the observation kernel once and the embed + dense-1
+   kernels 9 times forward and 8 times backward per step), the last
+   step's trajectory (collected after two
    updates, with every bias nonzero) held to the three contracts of the
    actor kernel against the plain versions (env replay exact, policy logp
    and value to atol 1e-4, sampled actions equal where the top two Gumbel
@@ -58,8 +59,9 @@ Phases, one output line each; any failure raises and exits non-zero:
    contracts, and timed against its plain version at 8192 x 128;
 10. IMPALA: ``make_impala`` on ``MiniGrid-Empty-8x8-v0`` (bench.py's
    configuration, 8192 x 128, hidden 256), three train steps (per step the
-   actor kernel once, the embed + dense-1 kernels 16 times forward and 8
-   times backward), the last trajectory held to the contracts, and
+   actor kernel once, the observation kernel once, the embed + dense-1
+   kernels 16 times forward and 8 times backward), the last trajectory
+   held to the contracts, and
    ``impala_env_steps_per_sec`` with its rollout/update split through the
    kernels and the plain versions; then one IMPALA train step on
    ``MiniGrid-Dynamic-Obstacles-8x8-v0`` with the same launch counts and
@@ -80,7 +82,7 @@ Phases, one output line each; any failure raises and exits non-zero:
    32 and R from ``reset_budget.learner_resets``, held to the three
    contracts with the cache (final ``extra`` exact) and timed at 8192 x
    128; then PPO on ``MiniGrid-DoorKey-8x8-v0`` as in
-   phase 7 (three train steps, launches 1/9/8, the last trajectory held to
+   phase 7 (three train steps, launches 1/1/9/8, the last trajectory held to
    the contracts with its cache, timed with its rollout/update split);
 13. BabyAI: ``BabyAI-GoToLocal-v0`` and ``BabyAI-GoTo-v0`` (22x22) at 16384
    envs x 256 steps (bench.py's size) as in phase 11, through the kernel's
@@ -90,15 +92,41 @@ Phases, one output line each; any failure raises and exits non-zero:
    apart with its peak memory;
 14. PPO on ``BabyAI-GoToLocal-v0`` as in phase 7 (three train steps through
    the actor kernel's BabyAI instantiation and the embed + dense-1 kernels,
-   launches 1/9/8, the last trajectory held to the contracts with its cache,
-   timed with its rollout/update split).
+   the last trajectory held to the contracts with its cache, timed with its
+   rollout/update split);
+15. the stepwise API with observations through the observation kernel: the
+   kernel bit-exact with its plain version on object-rich random states
+   (65536 on an 8x8 grid, 16384 on a 22x22 grid) at every built view size
+   and both values of ``see_through_walls``; then bench.py's
+   ``obs_consumed_xla_steps_per_sec`` loop through the port's entry points,
+   ``make("MiniGrid-Empty-8x8-v0")``, ``env.reset`` of 65536 envs and 256
+   ``env.step`` calls with ``obs["image"]`` summed into an int32 checksum
+   (257 kernel launches, counted), held to the same loop through the plain
+   observation on the same actions (every state field and the checksum
+   exact, the reward total to rtol 1e-5); the loop and the kernel alone
+   timed against the plain version;
+16. the wrappers and frames on the card: the 8 recorded wrapper outputs of
+   both ``wrappers_*.npz`` fixtures and the 450 ``NoDeath`` transitions of
+   ``nodeath_lava.npz`` bit-exact (the reward to rtol 1e-6); then
+   ``ImgObsWrapper(ViewSizeWrapper(make("MiniGrid-DoorKey-8x8-v0"), 5))`` at
+   65536 envs x 64 steps and ``RGBImgPartialObsWrapper`` on DoorKey-8x8 at
+   4096 x 8, every observation exact with the plain observation's in
+   lockstep, the first timed against it; each wrapped step launches the
+   observation kernel once (a wrapper that replaces the image asks its
+   inner env for the rest of the observation without one).
 
-Every learner run and actor-kernel check on a reset-cache family (DoorKey,
-GoToDoor, Fetch, GoToLocal) is held to its reset budget, the R that the
-learners' defaults take (``reset_budget.learner_resets``): no env may end
-more episodes in a chunk than the cache has levels
-(``max_episodes_per_chunk <= resets_per_chunk``), or levels were replayed,
-and the smoke fails.
+Every learner train step (phases 7, 9, 10, 12, 14) launches the actor kernel
+once, the observation kernel once (the bootstrap value) and the embed +
+dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
+plain timing references, ``fused_rollout_reference``,
+``actor_rollout_reference`` and ``check_trajectory`` launch the observation
+kernel 0 times.  Every learner run on a reset-cache
+family (DoorKey, GoToLocal) is held to its reset budget: the learners size R
+from their own chunks (``rl/rollout.LearnerResets``) and report the resets
+past it, which must be 0 (``replayed``).  Every actor-kernel check on one
+(GoToDoor, Fetch) is held to the learners' first R
+(``reset_budget.learner_resets``): no env may end more episodes than the
+cache has levels, or levels were replayed, and the smoke fails.
 
 Every kernel entry of the JSON line carries its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
@@ -110,6 +138,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -125,7 +154,9 @@ import numpy as np
 import torch
 
 import minigrid_tpu_torch as mgt
-from minigrid_tpu_torch.core.constants import see_behind
+from minigrid_tpu_torch import wrappers as wr
+from minigrid_tpu_torch.core import obs as obs_lib
+from minigrid_tpu_torch.core.constants import see_behind, unpack_grid
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.obs import process_vis
 from minigrid_tpu_torch.core.sampling import randint
@@ -134,6 +165,7 @@ from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
@@ -162,7 +194,7 @@ EMBED_SAMPLES = PPO_STEPS // PPOConfig().num_minibatches * PPO_ENVS
 BF16_ATOL = 2e-2
 # Sampled actions are compared where the top two Gumbel scores differ by more.
 TIE_MARGIN = 1e-2
-KERNELS = ("fused_rollout", "embed_dense", "actor_rollout")
+KERNELS = ("fused_rollout", "embed_dense", "actor_rollout", "obs_packed")
 SOURCE = "minigrid_tpu_torch/ops/csrc/fused_rollout.cu"
 REPLACES = "minigrid_tpu/ops/fused_rollout.py:335"
 # The counter-reset slice: bench.py's TRACKED families with in-kernel resets.
@@ -194,6 +226,13 @@ OVERLAY_IDS = ("MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid
 BABYAI_IDS = ("BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0")
 BABYAI_ENVS = 16384
 GOTOLOCAL_ID = BABYAI_IDS[0]
+# The stepwise API with observations (bench.py's obs_consumed_xla loop) and
+# the wrappers: object-rich states for the observation kernel on an 8x8 and
+# a 22x22 grid, the wrapped DoorKey-8x8 loop, and the RGB frames' size.
+OBS_CHECK_SIZES = ((NUM_ENVS, 8, 8), (16384, 22, 22))
+WRAPPED_STEPS = 64
+RGB_ENVS = 4096
+RGB_STEPS = 8
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -213,8 +252,20 @@ def check(ok: bool, message: str) -> None:
         raise AssertionError(message)
 
 
+START = time.perf_counter()
+
+
 def phase(n: int, text: str) -> None:
-    print(f"phase {n}: {text}", flush=True)
+    print(f"phase {n} (+{time.perf_counter() - START:.1f} s): {text}", flush=True)
+
+
+def plain_only(fn, *args):
+    """``fn(*args)``, a plain reference, held to launch the observation
+    kernel 0 times."""
+    before = op.KERNEL_LAUNCHES
+    out = fn(*args)
+    check(op.KERNEL_LAUNCHES == before, f"{fn.__name__} launched the observation kernel")
+    return out
 
 
 def card_line() -> str:
@@ -349,7 +400,7 @@ def synthetic_check(device) -> float:
         env = MiniGridEnv(w, h, max_steps=100, see_through_walls=see_through)
         for compute_obs in (True, False):
             kernel = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
-            plain = fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+            plain = plain_only(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
             what = f"synthetic see_through={see_through} compute_obs={compute_obs}"
             err = max(err, compare(kernel, plain, what))
             check(int(kernel[2]) > 0, f"{what}: no episode ended")
@@ -583,35 +634,36 @@ def onehot_rows(packed, direction) -> torch.Tensor:
     )
 
 
-def launch_counts() -> tuple[int, int, int]:
-    """Launches so far of the actor kernel and the embed + dense-1 forward
-    and backward."""
-    return ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"]
+def launch_counts() -> tuple[int, int, int, int]:
+    """Launches so far of the actor kernel, the observation kernel and the
+    embed + dense-1 forward and backward."""
+    return ar.KERNEL_LAUNCHES, op.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"]
 
 
 def zero_launch_counts() -> None:
     ar.KERNEL_LAUNCHES = 0
+    op.KERNEL_LAUNCHES = 0
     ed.KERNEL_LAUNCHES.update(fwd=0, bwd=0)
 
 
-def cached_budget(env, steps: int) -> int | None:
-    """The reset budget a learner's chunk of ``steps`` on ``env`` is held
-    to: its cache's R, or None for a family without a cache to exhaust
-    (counter reset) or whose levels are all alike (deterministic)."""
-    if ar.counter_reset(env) or env.deterministic_generation:
-        return None
-    return learner_resets(env, steps)
+def learner_launches(num_minibatches: int, impala: bool = False) -> tuple[int, int, int, int]:
+    """Launches of one train step (actor, observation, embed fwd, embed
+    bwd): one collection, one bootstrap observation, and the embed + dense-1
+    kernels per minibatch (IMPALA's bootstrap forward in each) and for
+    PPO's bootstrap value."""
+    fwd = 2 * num_minibatches if impala else num_minibatches + 1
+    return 1, 1, fwd, num_minibatches
 
 
-def train_and_keep_last(train_step, state, gen, want, what: str, budget: int | None = None):
-    """``PPO_TRAIN_STEPS`` train steps, each step's launches (actor, embed
-    fwd, embed bwd) held to ``want``, its losses to finite values and, on a
-    reset-cache family, its ``max_episodes_per_chunk`` to the cache's R
-    (``budget``).  The last step runs as its two phases, to keep its
-    trajectory and the parameters it was collected with: after the updates
-    before it, every bias is nonzero.  Returns (state, launches of one
-    step, (model, states0, snapshot, final, traj, metrics)) for that last
-    step."""
+def train_and_keep_last(train_step, state, gen, want, what: str):
+    """``PPO_TRAIN_STEPS`` train steps, each step's launches (actor,
+    observation, embed fwd, embed bwd) held to ``want``, its losses to
+    finite values and its reset budget to no replayed level (``replayed``
+    0; the learner grows R from its chunks).  The last step runs as its two
+    phases, to keep its trajectory and the parameters it was collected
+    with: after the updates before it, every bias is nonzero.  Returns
+    (state, launches of one step, (model, states0, snapshot, final, traj,
+    metrics)) for that last step."""
     per_step = []
     for i in range(PPO_TRAIN_STEPS):
         before = launch_counts()
@@ -626,18 +678,19 @@ def train_and_keep_last(train_step, state, gen, want, what: str, budget: int | N
         per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
         losses = [float(metrics[k]) for k in ("pg_loss", "value_loss", "entropy")]
         check(all(np.isfinite(losses)), f"{what} train step {i}: losses {losses}")
-        episodes = int(metrics["max_episodes_per_chunk"])
+        episodes, r = int(metrics["max_episodes_per_chunk"]), int(metrics["resets_per_chunk"])
         check(
-            budget is None or episodes <= budget,
-            f"{what} train step {i}: an env ended {episodes} episodes, past the cache's R={budget}: levels replayed",
+            int(metrics["replayed"]) == 0,
+            f"{what} train step {i}: an env ended {episodes} episodes, past the cache's R={r}: "
+            f"{int(metrics['replayed'])} levels replayed",
         )
     torch.cuda.synchronize()
     check(all(p == want for p in per_step), f"{what}: launches per step {per_step}, expected {want}")
     return state, per_step[0], (model, states0, snapshot, final, traj, metrics)
 
 
-def replay_actor_draws(env, snapshot, n: int, steps: int, device):
-    """The reset cache (of the learners' R), or a counter-reset family's
+def replay_actor_draws(env, snapshot, n: int, steps: int, device, resets: int):
+    """The reset cache of ``resets`` levels, or a counter-reset family's
     seeds, and then the sampling bits that ``fused_actor_rollout`` drew
     from a generator in state ``snapshot``."""
     gen = torch.Generator(device=device)
@@ -646,7 +699,7 @@ def replay_actor_draws(env, snapshot, n: int, steps: int, device):
     if ar.counter_reset(env):
         seeds = draw_seeds(gen, n, device)
     else:
-        cache = env.batch_reset_cache(n, learner_resets(env, steps), gen, device)
+        cache = env.batch_reset_cache(n, resets, gen, device)
     return cache, seeds, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
 
@@ -654,14 +707,16 @@ def check_last_trajectory(env, last, device, what: str):
     """Hold the last train step's trajectory to the actor kernel's three
     contracts against the plain versions; returns (weights, states0, cache,
     seeds, noise, max abs err, near-ties)."""
-    model, states0, snapshot, final, traj, _ = last
+    model, states0, snapshot, final, traj, metrics = last
     check(traj.obs.shape == (PPO_STEPS, PPO_ENVS, env.agent_view_size**2), f"{what}: trajectory obs shape")
-    cache, seeds, noise = replay_actor_draws(env, snapshot, PPO_ENVS, PPO_STEPS, device)
+    resets = int(metrics["resets_per_chunk"])
+    cache, seeds, noise = replay_actor_draws(env, snapshot, PPO_ENVS, PPO_STEPS, device, resets)
     weights = ar.repack_actor_params(model)
     for name in ("b1", "b2", "bh"):
         check(bool((getattr(weights, name) != 0).any()), f"bias {name} is still 0: the check would not see it")
-    err, ties = ar.check_trajectory(
-        env, weights, states0, cache, noise, final, traj._asdict(), ar.PLAIN_ATOL, TIE_MARGIN, seeds
+    err, ties = plain_only(
+        ar.check_trajectory, env, weights, states0, cache, noise, final, traj._asdict(), ar.PLAIN_ATOL, TIE_MARGIN,
+        seeds,
     )
     return weights, states0, cache, seeds, noise, err, ties
 
@@ -673,6 +728,7 @@ def time_train_steps(make, env, env_id: str, config, state, card: str, metric: s
     steps = PPO_ENVS * PPO_STEPS
     for label, kernels, reps in plan:
         _, step_fn = make(env, config, hidden=PPO_HIDDEN, _plain=not kernels)
+        before = launch_counts()
         holder = {}
 
         def roll():
@@ -690,6 +746,8 @@ def time_train_steps(make, env, env_id: str, config, state, card: str, metric: s
             r_ms.append(event_ms(roll))
             u_ms.append(event_ms(upd))
         r, u = statistics.median(r_ms), statistics.median(u_ms)
+        launched = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(kernels or launched == (0, 0, 0, 0), f"{metric} {env_id}: the plain versions launched {launched}")
         print(
             f"{metric} ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS} {label}: "
             f"{steps / (r + u) * 1e3:.6g} (train step {r + u:.4f} ms = rollout {r:.4f} ms + update {u:.4f} ms; "
@@ -737,9 +795,8 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
     check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), "the slice must take the actor kernel")
 
     zero_launch_counts()
-    want = (1, config.num_minibatches + 1, config.num_minibatches)
-    budget = cached_budget(env, PPO_STEPS)
-    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {env_id}", budget)
+    want = learner_launches(config.num_minibatches)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {env_id}")
     launches_k2 = ar.KERNEL_LAUNCHES
     launches_k3 = dict(ed.KERNEL_LAUNCHES)
     weights, states0, cache, _, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {env_id}")
@@ -747,18 +804,18 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
     phase(
         number,
         f"PPO {env_id} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
-        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"launches per step (actor, observation, embed fwd, embed bwd) {per_step}, last metrics "
         f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
         f"versions (logp/value max abs err {err}, {ties} near-ties of {PPO_STEPS * PPO_ENVS}, "
         f"{episodes} episodes, R={cache.step_count.shape[1]}, most episodes of an env per chunk "
-        f"{int(last[5]['max_episodes_per_chunk'])}{'' if budget is None else f' <= R={budget}'})",
+        f"{int(last[5]['max_episodes_per_chunk'])}, replayed {int(last[5]['replayed'])})",
     )
 
     # Times: the actor kernel alone against its plain version on the same
     # inputs, then train steps, rollout and update apart, through the
     # kernels and through the plain versions.
     k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
-    p2 = partial(ar.actor_rollout_reference, env, weights, states0, cache, noise)
+    p2 = partial(plain_only, ar.actor_rollout_reference, env, weights, states0, cache, noise)
     tp1, tk1, tk2, tp2 = time_ms(p2, 1), time_ms(k2, 5), time_ms(k2, 5), time_ms(p2, 1)
     k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
     print(
@@ -823,7 +880,7 @@ def ppo_counter_slice(device, card: str) -> dict:
     check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), f"{DYNOBS_ID} must take the actor kernel")
 
     zero_launch_counts()
-    want = (1, config.num_minibatches + 1, config.num_minibatches)
+    want = learner_launches(config.num_minibatches)
     state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {DYNOBS_ID}")
     launches = ar.KERNEL_LAUNCHES
     weights, states0, _, seeds, noise, err, ties = check_last_trajectory(env, last, device, f"PPO {DYNOBS_ID}")
@@ -833,7 +890,7 @@ def ppo_counter_slice(device, card: str) -> dict:
     phase(
         9,
         f"PPO {DYNOBS_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
-        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"launches per step (actor, observation, embed fwd, embed bwd) {per_step}, last metrics "
         f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
         f"versions, final state and extra exact ({episodes} episodes, logp/value max abs err {err}, "
         f"{ties} near-ties of {PPO_STEPS * PPO_ENVS})",
@@ -863,9 +920,7 @@ def impala_slice(device, card: str) -> None:
     """Phase 10: IMPALA on Empty-8x8 (bench.py's configuration) and one
     IMPALA train step on Dynamic-Obstacles-8x8, through the kernels."""
     config = IMPALAConfig(rollout_steps=PPO_STEPS)
-    # Per minibatch: two embed + dense-1 forwards (the slice and its
-    # bootstrap) and one backward.
-    want = (1, 2 * config.num_minibatches, config.num_minibatches)
+    want = learner_launches(config.num_minibatches, impala=True)
     env = mgt.make(ENV_ID)
     init_fn, train_step = make_impala(env, config, hidden=PPO_HIDDEN)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -876,7 +931,7 @@ def impala_slice(device, card: str) -> None:
     phase(
         10,
         f"IMPALA {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {PPO_TRAIN_STEPS} train steps, "
-        f"launches per step (actor, embed fwd, embed bwd) {per_step}, last metrics "
+        f"launches per step (actor, observation, embed fwd, embed bwd) {per_step}, last metrics "
         f"{ {k: float(v) for k, v in last[5].items()} }; actor kernel on step {PPO_TRAIN_STEPS} == plain "
         f"versions (logp/value max abs err {err}, {ties} near-ties)",
     )
@@ -1068,6 +1123,240 @@ def actor_cache_check(env_id: str, device, card: str) -> dict:
     return kernel_entry(f"actor_rollout[{env_id}]", ACTOR_SOURCE, ACTOR_REPLACES, launches, err, k_ms, p_ms, b)
 
 
+def obs_args(states) -> tuple:
+    """The observation kernel's inputs from a batch of states."""
+    return states.grid, states.agent_x, states.agent_y, states.agent_dir, states.carrying
+
+
+def obs_kernel_check(device) -> tuple[int, int]:
+    """Phase 15, first part: the observation kernel against its plain
+    version on object-rich random states at every built view size and both
+    values of ``see_through_walls``, bit for bit; a nonzero cell is exactly
+    a visible one.  Returns the number of cases and the largest absolute
+    difference of kernel and plain version over them."""
+    rng = np.random.default_rng(15)
+    cases, err = 0, 0
+    for n, w, h in OBS_CHECK_SIZES:
+        states = state_from_numpy(random_states(rng, (n,), w, h), device)
+        for v in op.BUILT_VIEW_SIZES:
+            for see_through in (False, True):
+                got = op.fused_obs_packed(*obs_args(states), v, see_through)
+                want = op.fused_obs_packed_reference(*obs_args(states), v, see_through)
+                _, vis = op.view_and_vis_packed(*obs_args(states), v, see_through)
+                what = f"observation kernel {n} x {w}x{h}, v={v}, see_through={see_through}"
+                check(got.shape == (n, v, v) and torch.equal(got, want), f"{what}: differs from the plain version")
+                check(torch.equal(got != 0, vis), f"{what}: a nonzero cell is not exactly a visible one")
+                err = max(err, int((got - want).abs().max()))
+                cases += 1
+    torch.cuda.synchronize()
+    return cases, err
+
+
+def obs_step_loop(env, gen, n: int, steps: int):
+    """``env.reset`` of ``n`` envs, then ``steps`` calls of ``env.step`` on
+    uniform random actions from ``gen``, every step's ``obs["image"]``
+    summed into an int32 checksum (bench.py's obs_consumed_xla loop).
+    Returns (final state, reward total, checksum)."""
+    _, states = env.reset(n, gen)
+    total_r = torch.zeros((), dtype=torch.float32, device=states.device)
+    acc = torch.zeros((), dtype=torch.int64, device=states.device)
+    for _ in range(steps):
+        actions = torch.randint(0, env.num_actions, (n,), generator=gen, device=states.device, dtype=torch.int32)
+        obs, states, reward, _, _ = env.step(states, actions, gen)
+        acc += obs["image"].sum(dtype=torch.int64)
+        total_r += reward.sum()
+    return states, total_r, fr.wrap_int32(acc)
+
+
+def step_loop_split(env, gen, n: int, steps: int, plain: bool) -> dict[str, float]:
+    """Milliseconds of each part of ``obs_step_loop``'s steps, summed over
+    ``steps`` steps, each part timed alone between CUDA events: the
+    transition (``step_env``), the auto-reset, the observation (the kernel,
+    or with ``plain`` the plain version) and its uint8 unpacking, and the
+    checksum."""
+    _, states = env.reset(n, gen)
+    parts = {"step_env": 0.0, "autoreset": 0.0, "observation": 0.0, "unpack": 0.0, "checksum": 0.0}
+    acc = torch.zeros((), dtype=torch.int64, device=states.device)
+    for _ in range(steps):
+        actions = torch.randint(0, env.num_actions, (n,), generator=gen, device=states.device, dtype=torch.int32)
+        out = {}
+        parts["step_env"] += event_ms(lambda: out.update(stepped=env.step_env(states, actions)[0]))
+        parts["autoreset"] += event_ms(lambda: out.update(states=env.autoreset(out["stepped"], gen)))
+        states = out["states"]
+        parts["observation"] += event_ms(
+            lambda: out.update(
+                packed=obs_lib.gen_obs_packed(states, env.agent_view_size, env.see_through_walls, plain)
+            )
+        )
+        parts["unpack"] += event_ms(lambda: out.update(image=unpack_grid(out["packed"])))
+        parts["checksum"] += event_ms(lambda: acc.add_(out["image"].sum(dtype=torch.int64)))
+    return parts
+
+
+def obs_slice(device, card: str) -> dict:
+    """Phase 15: the stepwise API with observations through the observation
+    kernel, held to the plain observation and timed against it."""
+    cases, err = obs_kernel_check(device)
+    phase(
+        15,
+        f"observation kernel == plain version (max abs err {err}) on {cases} cases (sizes {OBS_CHECK_SIZES}, v {op.BUILT_VIEW_SIZES}, "
+        "see_through_walls both), nonzero == visible",
+    )
+
+    env = mgt.make(ENV_ID)
+    gen = torch.Generator(device=device).manual_seed(15)
+    snapshot = gen.get_state()
+    zero_launch_counts()
+    final, total_r, checksum = obs_step_loop(env, gen, NUM_ENVS, NUM_STEPS)
+    torch.cuda.synchronize()
+    launches = op.KERNEL_LAUNCHES
+    check(launches == NUM_STEPS + 1, f"the step loop launched the observation kernel {launches} times, expected 257")
+    gen.set_state(snapshot)
+    with obs_lib.plain_observations():
+        plain = obs_step_loop(env, gen, NUM_ENVS, NUM_STEPS)
+    torch.cuda.synchronize()
+    check(op.KERNEL_LAUNCHES == launches, "the plain loop launched the observation kernel")
+    for f in FIELDS:
+        check(torch.equal(getattr(final, f), getattr(plain[0], f)), f"step loop: state field {f} differs")
+    check(int(checksum) == int(plain[2]), f"step loop: checksum {int(checksum)} != {int(plain[2])}")
+    rk, rp = float(total_r), float(plain[1])
+    check(np.isfinite(rk) and abs(rk - rp) <= REWARD_RTOL * abs(rp), f"step loop: reward {rk} != {rp}")
+    phase(
+        15,
+        f"{ENV_ID} env.reset({NUM_ENVS}) + {NUM_STEPS} x env.step: {launches} observation-kernel launches, state and "
+        f"checksum {int(checksum)} == plain observation's, reward {rk}",
+    )
+
+    def loop(plain_obs: bool):
+        gen.set_state(snapshot)
+        if plain_obs:
+            with obs_lib.plain_observations():
+                return obs_step_loop(env, gen, NUM_ENVS, NUM_STEPS)
+        return obs_step_loop(env, gen, NUM_ENVS, NUM_STEPS)
+
+    tp1, tk1, tk2, tp2 = (event_ms(partial(loop, p)) for p in (True, False, False, True))
+    loop_k, loop_p = min(tk1, tk2), min(tp1, tp2)
+    # The kernel alone at the loop's shape (v=7, the Empty-8x8 states).
+    args = (*obs_args(final), env.agent_view_size, env.see_through_walls)
+    k = partial(op.fused_obs_packed, *args)
+    p = partial(op.fused_obs_packed_reference, *args)
+    zp1, zk1, zk2, zp2 = time_ms(p, 5), time_ms(k, 50), time_ms(k, 50), time_ms(p, 5)
+    k_ms, p_ms = min(zk1, zk2), min(zp1, zp2)
+    err = max(err, int((k() - p()).abs().max()))
+    steps = NUM_ENVS * NUM_STEPS
+    print(
+        f"obs_consumed_xla_steps_per_sec ({card}) {ENV_ID} {NUM_ENVS}x{NUM_STEPS} env.step loop: observation kernel "
+        f"{steps / loop_k * 1e3:.6g} ({loop_k:.4f} ms), plain observation {steps / loop_p * 1e3:.6g} "
+        f"({loop_p:.4f} ms), speedup {loop_p / loop_k:.3g}x; the kernel's {NUM_STEPS + 1} calls "
+        f"{(NUM_STEPS + 1) * k_ms:.4f} ms of the loop",
+        flush=True,
+    )
+    print(
+        f"obs_packed ({card}) {NUM_ENVS} envs, v={env.agent_view_size}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+        f"per call",
+        flush=True,
+    )
+    for label, plain_obs in (("observation kernel", False), ("plain observation", True)):
+        gen.set_state(snapshot)
+        split = step_loop_split(env, gen, NUM_ENVS, NUM_STEPS, plain_obs)
+        print(
+            f"step loop split ({card}) {ENV_ID} {NUM_ENVS}x{NUM_STEPS}, {label}, ms over the steps, each part "
+            f"timed alone: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+            flush=True,
+        )
+    return kernel_entry(
+        "obs_packed", "minigrid_tpu_torch/ops/csrc/obs_packed.cu", "minigrid_tpu/ops/obs_pallas.py:96", launches, err,
+        k_ms, p_ms, bound(obs_bytes(final, env.agent_view_size, env.see_through_walls), 0.0),
+    )
+
+
+def obs_bytes(states, v: int, see_through_walls: bool) -> int:
+    """Bytes the observation of ``states`` must move: the grid cells it
+    reads, the 4 scalars of each env and the v*v cells it writes.  Only a
+    view cell that lies inside the grid and is seen is read: one outside is
+    a wall without a read, and the flood reads no unseen cell (an unseen
+    one is written as 0)."""
+    n, w, h = states.grid.shape
+    wx, wy = op.view_world_coords(states.agent_x, states.agent_y, states.agent_dir, v)
+    inside = (wx >= 0) & (wx < w) & (wy >= 0) & (wy < h)
+    _, vis = op.view_and_vis_packed(*obs_args(states), v, see_through_walls)
+    return int((inside & vis).sum()) * 4 + n * (16 + v * v * 4)
+
+
+def lockstep(env, device, n: int, steps: int, seed: int) -> tuple[int, float, float]:
+    """``env`` (a wrapped env whose observation is a tensor or has an
+    ``"image"``) reset on ``n`` envs and stepped ``steps`` times on random
+    actions, beside the same run through the plain observation on a twin
+    generator: every observation and the final state exact.  Returns (the
+    observation kernel's launches in the run, the run's time and the plain
+    run's, in ms on the host's clock, each step synchronised)."""
+    gens = {plain: torch.Generator(device=device).manual_seed(seed) for plain in (False, True)}
+    states, times, launches = {}, {False: 0.0, True: 0.0}, 0
+    for t in range(steps + 1):
+        images = {}
+        for plain in (False, True):
+            before = op.KERNEL_LAUNCHES
+            start = time.perf_counter()
+            with obs_lib.plain_observations() if plain else contextlib.nullcontext():
+                if t == 0:
+                    obs, states[plain] = env.reset(n, gens[plain])
+                else:
+                    a = torch.randint(0, env.num_actions, (n,), generator=gens[plain], device=device, dtype=torch.int32)
+                    obs, states[plain], *_ = env.step(states[plain], a, gens[plain])
+            torch.cuda.synchronize()
+            times[plain] += (time.perf_counter() - start) * 1e3
+            launched = op.KERNEL_LAUNCHES - before
+            check(not plain or launched == 0, "the plain observation launched the kernel")
+            launches += 0 if plain or t == 0 else launched
+            images[plain] = obs["image"] if isinstance(obs, dict) else obs
+        check(torch.equal(images[False], images[True]), f"step {t}: the observation differs from the plain one's")
+    for f in FIELDS:
+        check(torch.equal(getattr(states[False], f), getattr(states[True], f)), f"final state field {f} differs")
+    return launches, times[False], times[True]
+
+
+def wrapper_slice(device, card: str) -> None:
+    """Phase 16: the recorded wrapper outputs and NoDeath transitions on the
+    card, then two wrapped DoorKey-8x8 loops through the observation kernel
+    in lockstep with the plain observation."""
+    files = sorted(GOLDEN.glob("wrappers_*.npz"))
+    check(len(files) == 2, f"expected 2 wrapper fixtures, found {len(files)}")
+    states = sum(golden.replay_wrappers(path, device) for path in files)
+    transitions = golden.replay_nodeath(GOLDEN / "nodeath_lava.npz", device)
+    phase(
+        16,
+        f"{len(files)} wrapper fixtures x 8 wrappers ({states} states) and {transitions} NoDeath transitions "
+        f"bit-exact on {device}",
+    )
+
+    env = wr.ImgObsWrapper(wr.ViewSizeWrapper(mgt.make(DOORKEY_ID), agent_view_size=5))
+    check(not fused_eligible(env, device), "a wrapped env must take the plain per-step path")
+    launches, k_ms, p_ms = lockstep(env, device, NUM_ENVS, WRAPPED_STEPS, 16)
+    # Per step: the wrapper's view (v=5); the inner one (v=7) is not made.
+    check(launches == WRAPPED_STEPS, f"ImgObsWrapper(ViewSizeWrapper): {launches} launches in the steps")
+    steps = NUM_ENVS * WRAPPED_STEPS
+    phase(
+        16,
+        f"ImgObsWrapper(ViewSizeWrapper({DOORKEY_ID}, 5)) {NUM_ENVS} envs x {WRAPPED_STEPS} steps: every observation "
+        f"== plain observation's, {launches} observation-kernel launches in the steps",
+    )
+    print(
+        f"wrapped steps/s ({card}) ImgObsWrapper(ViewSizeWrapper({DOORKEY_ID}, 5)) {NUM_ENVS}x{WRAPPED_STEPS}: "
+        f"observation kernel {steps / k_ms * 1e3:.6g} ({k_ms:.4f} ms), plain observation {steps / p_ms * 1e3:.6g} "
+        f"({p_ms:.4f} ms), host clock with a synchronise per step",
+        flush=True,
+    )
+    env = wr.RGBImgPartialObsWrapper(mgt.make(DOORKEY_ID))
+    launches, k_ms, p_ms = lockstep(env, device, RGB_ENVS, RGB_STEPS, 17)
+    # Per step: the frame's visibility; the inner image is not made.
+    check(launches == RGB_STEPS, f"RGBImgPartialObsWrapper: {launches} launches in the steps")
+    phase(
+        16,
+        f"RGBImgPartialObsWrapper({DOORKEY_ID}) {RGB_ENVS} envs x {RGB_STEPS} steps: every frame == plain "
+        f"observation's ({launches} observation-kernel launches in the steps; {k_ms:.4f} ms against {p_ms:.4f} ms)",
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1182,10 +1471,12 @@ def main() -> None:
     doorkey_entry, _ = ppo_slice(device, card, DOORKEY_ID, 12)
     babyai_entries = [cache_slice(env_id, device, card, BABYAI_ENVS, 13) for env_id in BABYAI_IDS]
     gotolocal_entry, _ = ppo_slice(device, card, GOTOLOCAL_ID, 14)
+    obs_entry = obs_slice(device, card)
+    wrapper_slice(device, card)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, actor_entry, actor_ext_entry,
-            doorkey_entry, *actor_cache_entries, gotolocal_entry, *embed_entries,
+            doorkey_entry, *actor_cache_entries, gotolocal_entry, *embed_entries, obs_entry,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -9,7 +9,11 @@ table to move there.  Packed constants are Python ints.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# Pixels per tile of a rendered frame (reference: minigrid/core/constants.py:3).
+TILE_PIXELS = 32
 
 # -- Object types (reference: minigrid/core/constants.py:25-37) --
 OBJ_UNSEEN = 0
@@ -51,6 +55,19 @@ NUM_COLORS = 6
 
 COLOR_TO_IDX = {"red": 0, "green": 1, "blue": 2, "purple": 3, "yellow": 4, "grey": 5}
 IDX_TO_COLOR = {v: k for k, v in COLOR_TO_IDX.items()}
+# Their RGB values (reference: minigrid/core/constants.py:8-15), for the
+# renderer's tile atlas.
+COLORS_RGB = np.array(
+    [
+        [255, 0, 0],  # red
+        [0, 255, 0],  # green
+        [0, 0, 255],  # blue
+        [112, 39, 195],  # purple
+        [255, 255, 0],  # yellow
+        [100, 100, 100],  # grey
+    ],
+    dtype=np.uint8,
+)
 # The reference draws colors from the sorted name list
 # (minigrid/core/constants.py:17): SORTED_COLOR_IDX[i] is the index of the
 # i-th sorted name (blue, green, grey, purple, red, yellow).

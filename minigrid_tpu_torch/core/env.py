@@ -22,6 +22,7 @@ from minigrid_tpu_torch.core.mission import mission_to_text
 from minigrid_tpu_torch.core.state import EnvState, resolve_device, select
 from minigrid_tpu_torch.core.step import core_step
 from minigrid_tpu_torch.ops.prng import draw_seeds
+from minigrid_tpu_torch.render import frame as frame_lib
 from minigrid_tpu_torch.utils.chunked import chunked, lane_cap
 
 
@@ -95,13 +96,16 @@ class MiniGridEnv:
         return state, reward
 
     # -- batched API -----------------------------------------------------------
-    def observation(self, state: EnvState) -> dict:
-        return obs_lib.gen_obs(state, self.agent_view_size, self.see_through_walls)
+    def observation(self, state: EnvState, image: bool = True) -> dict:
+        """The observation dict; ``image=False`` leaves out the image, for a
+        wrapper that replaces it (``wrappers/base.py``)."""
+        return obs_lib.gen_obs(state, self.agent_view_size, self.see_through_walls, image)
 
-    def observation_packed(self, state: EnvState) -> torch.Tensor:
+    def observation_packed(self, state: EnvState, plain: bool = False) -> torch.Tensor:
         """int32[N, v*v] packed view, the learner's observation: cell (i, j)
-        of ``core/obs.gen_obs_packed`` at i*v + j, unseen cells 0."""
-        packed = obs_lib.gen_obs_packed(state, self.agent_view_size, self.see_through_walls)
+        of ``core/obs.gen_obs_packed`` at i*v + j, unseen cells 0.  ``plain``
+        takes the plain version on any device (the kernels' references)."""
+        packed = obs_lib.gen_obs_packed(state, self.agent_view_size, self.see_through_walls, plain)
         return packed.reshape(packed.shape[0], -1)
 
     def reset(self, num_envs: int, generator: torch.Generator | None = None, device=None):
@@ -162,6 +166,24 @@ class MiniGridEnv:
         stepped, reward = self.step_env(state, action)
         state, used = cached_autoreset(stepped, cache, used)
         return self.observation(state), state, reward, stepped.terminated, stepped.truncated, used
+
+    # -- rendering -------------------------------------------------------------
+    def get_frame(self, state: EnvState, highlight: bool = True, tile_size: int = 32, agent_pov: bool = False):
+        """uint8 [N, rows, columns, 3] RGB frames of the batch
+        (minigrid/minigrid_env.py:716-739), on the state's device."""
+        return frame_lib.get_frame(
+            state,
+            self.agent_view_size,
+            self.see_through_walls,
+            highlight=highlight,
+            tile_size=tile_size,
+            agent_pov=agent_pov,
+        )
+
+    def render(self, state: EnvState, tile_size: int = 32):
+        """The ``rgb_array`` render (minigrid/minigrid_env.py:741-785) of every
+        env, as a numpy uint8 [N, rows, columns, 3] array."""
+        return self.get_frame(state, tile_size=tile_size).cpu().numpy()
 
     def mission_text(self, mission) -> str:
         """The reference's mission string of one mission vector."""

@@ -91,3 +91,67 @@ def mission_to_text(mission) -> str:
     m = [int(v) for v in mission]
     template, kinds = TEMPLATES[m[0]]
     return template.format(*(_format_param(k, m[1 + i]) for i, k in enumerate(kinds)))
+
+
+# -- Word tokens for the language wrappers -----------------------------------
+# The reference's fixed Minigrid vocabulary (minigrid/wrappers.py:471-530):
+# colors, objects, verbs and other words, as minigrid_tpu/core/mission.py:77-92.
+MINIGRID_WORDS = (
+    ["red", "green", "blue", "yellow", "purple", "grey"]
+    + ["unseen", "empty", "wall", "floor", "box", "key", "ball", "door", "goal", "agent", "lava"]
+    + ["pick", "avoid", "get", "find", "put", "use", "open", "go", "fetch", "reach", "unlock", "traverse"]
+    + [
+        "up", "the", "a", "at", ",", "square", "and", "then", "to", "of", "rooms", "near", "opening",
+        "must", "you", "matching", "end", "hallway", "object", "from", "room", "maze",
+    ]
+)
+WORD_TO_IDX = {w: i for i, w in enumerate(MINIGRID_WORDS)}
+_SLOT_KINDS = {PARAM_COLOR: 0, PARAM_TYPE: 1, PARAM_INT: 2}
+
+
+def _template_words(template: str) -> list[str | int]:
+    """A template as vocabulary words and int parameter-slot markers; commas
+    are words of their own (the reference's string_to_indices,
+    minigrid/wrappers.py:532-544, spaces them out)."""
+    out: list[str | int] = []
+    for piece in template.replace(",", " , ").split():
+        out.append(int(piece[1:-1]) if piece.startswith("{") and piece.endswith("}") else piece)
+    return out
+
+
+def build_token_tables(max_words: int = 50) -> dict[str, torch.Tensor]:
+    """Tables for mission vector -> word indices, as CPU tensors:
+
+    * ``tokens`` int32 [T, max_words]: word index + 1 per template word, 0
+      padding, and -(slot + 1) where parameter slot ``slot`` goes;
+    * ``slot_kind`` int32 [T, MISSION_DIM - 1]: 0 color, 1 type, 2 int;
+    * ``color_words``, ``type_words``: word index + 1 of each color and
+      object type (0 for a type outside the vocabulary).
+    """
+    tokens = torch.zeros((len(TEMPLATES), max_words), dtype=torch.int32)
+    slot_kind = torch.zeros((len(TEMPLATES), MISSION_DIM - 1), dtype=torch.int32)
+    for t, (template, kinds) in enumerate(TEMPLATES):
+        for s, kind in enumerate(kinds):
+            slot_kind[t, s] = _SLOT_KINDS[kind]
+        for w, piece in enumerate(_template_words(template)):
+            tokens[t, w] = -(piece + 1) if isinstance(piece, int) else WORD_TO_IDX[piece] + 1
+    color_words = torch.tensor([WORD_TO_IDX[IDX_TO_COLOR[c]] + 1 for c in range(6)], dtype=torch.int32)
+    type_words = torch.tensor([WORD_TO_IDX.get(IDX_TO_OBJECT[o], -1) + 1 for o in range(11)], dtype=torch.int32)
+    return {"tokens": tokens, "slot_kind": slot_kind, "color_words": color_words, "type_words": type_words}
+
+
+def mission_word_tokens(mission: torch.Tensor, tables: dict[str, torch.Tensor]) -> torch.Tensor:
+    """int32 [N, max_words] word indices (+1, 0 padding) of mission vectors
+    [N, M]: the reference's string_to_indices (minigrid/wrappers.py:546-550).
+    Indices past a table's end are clamped to it, as JAX's gathers do."""
+    tables = {k: v.to(mission.device) for k, v in tables.items()}
+    tid = mission[:, 0].long().clamp(0, tables["tokens"].shape[0] - 1)
+    toks = tables["tokens"][tid]
+    for s in range(MISSION_DIM - 1):
+        kind = tables["slot_kind"][tid, s]
+        p = mission[:, 1 + s].long()
+        word = torch.where(
+            kind == 0, tables["color_words"][p.clamp(0, 5)], tables["type_words"][p.clamp(0, 10)]
+        )
+        toks = torch.where(toks == -(s + 1), word[:, None], toks)
+    return toks

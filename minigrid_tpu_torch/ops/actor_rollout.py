@@ -175,7 +175,7 @@ def actor_rollout_reference(
     out = {k: [] for k in ("obs", "direction", "action", "logp", "value", "reward", "done")}
     st = states
     for bits in noise:
-        obs = env.observation_packed(st)
+        obs = env.observation_packed(st, plain=True)
         logits, value = actor_policy_reference(weights, obs, st.agent_dir)
         action, logp = sample_actions(logits, bits)
         stepped, reward = env.step_env(st, action)
@@ -219,7 +219,7 @@ def check_trajectory(
     err, ties = 0.0, 0
     for t, bits in enumerate(noise):
         obs, direction, action = traj["obs"][t], traj["direction"][t], traj["action"][t]
-        ensure(torch.equal(env.observation_packed(st), obs), f"obs differs at t={t}")
+        ensure(torch.equal(env.observation_packed(st, plain=True), obs), f"obs differs at t={t}")
         ensure(torch.equal(st.agent_dir, direction), f"direction differs at t={t}")
         logits, value = actor_policy_reference(weights, obs, direction)
         logp = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]

@@ -1,7 +1,8 @@
 // Device functions shared by the kernels: the core transition, the
-// auto-reset from an R-slot reset cache and the agent's view with its
-// occlusion flood (fused_rollout.cu, actor_rollout.cu), and the rows of the
-// learner's one-hot features (actor_rollout.cu, embed_dense.cu).
+// auto-reset from an R-slot reset cache (fused_rollout.cu,
+// actor_rollout.cu), the agent's view with its occlusion flood (those two
+// and obs_packed.cu), and the rows of the learner's one-hot features
+// (actor_rollout.cu, embed_dense.cu).
 //
 // Every env-state array is env-minor: an env's column of a [K, N] array is
 // a pointer to its element 0, and element k lies at [k * N].  One thread
@@ -203,17 +204,37 @@ __device__ __forceinline__ void cache_reset(const Cache& c, const Params& p, int
   }
 }
 
+// The agent's frame: its cell, its facing vector f and r = (-f_y, f_x).
+struct ViewFrame {
+  int ax, ay, fx, fy, rx, ry;
+};
+
+__device__ __forceinline__ ViewFrame view_frame(int ax, int ay, int d) {
+  const int fx = (d == 0) - (d == 2);
+  const int fy = (d == 1) - (d == 3);
+  return ViewFrame{ax, ay, fx, fy, -fy, fx};
+}
+
+// The packed grid cell under view cell (i, j) of a V x V view: world cell
+// agent + f * (V-1-j) - r * (V/2 - i), a wall outside the grid.  `grid`
+// points at the env's cell 0 and cell (x, y) lies at [(x * H + y) * stride]:
+// stride N for the kernels' env-minor planes, 1 for an env-major [N, W*H]
+// grid.
+template <int V>
+__device__ __forceinline__ int view_cell(const int* grid, size_t stride, int W, int H, const ViewFrame& f,
+                                         int i, int j) {
+  const int wx = f.ax + f.fx * (V - 1 - j) - f.rx * (V / 2 - i);
+  const int wy = f.ay + f.fy * (V - 1 - j) - f.ry * (V / 2 - i);
+  const bool inside = wx >= 0 && wx < W && wy >= 0 && wy < H;
+  return inside ? grid[(size_t)(wx * H + wy) * stride] : WALL_CELL;
+}
+
 // The packed cells of the agent's V x V view (_view_bits_block), the
-// carried object (or empty) at the agent cell.  View cell (i, j) lies at
-// agent + f * (V-1-j) - r * (V/2 - i), with f the facing vector and
-// r = (-f_y, f_x); cells outside the grid read as walls.
+// carried object (or empty) at the agent cell; `grid` as in view_cell.
 template <int V>
 __device__ __forceinline__ void view_cells(const int* grid, size_t N, int W, int H,
                                            const Scalars& s, int view[V][V]) {
-  const int fx = (s.d == 0) - (s.d == 2);
-  const int fy = (s.d == 1) - (s.d == 3);
-  const int rx = -fy;
-  const int ry = fx;
+  const ViewFrame f = view_frame(s.ax, s.ay, s.d);
 #pragma unroll
   for (int i = 0; i < V; ++i) {
 #pragma unroll
@@ -221,40 +242,47 @@ __device__ __forceinline__ void view_cells(const int* grid, size_t N, int W, int
       if (i == V / 2 && j == V - 1) {
         view[i][j] = s.carry != 0 ? (s.carry & 0xFFFF) : OBJ_EMPTY;
       } else {
-        const int wx = s.ax + fx * (V - 1 - j) - rx * (V / 2 - i);
-        const int wy = s.ay + fy * (V - 1 - j) - ry * (V / 2 - i);
-        const bool inside = wx >= 0 && wx < W && wy >= 0 && wy < H;
-        view[i][j] = inside ? grid[(size_t)(wx * H + wy) * N] : WALL_CELL;
+        view[i][j] = view_cell<V>(grid, N, W, H, f, i, j);
       }
     }
   }
 }
 
+// One row of the bit-parallel occlusion flood (minigrid_tpu/core/obs.py:
+// 108-154), rows taken from j = V-1 (the agent's) up to 0: bit i of `t` is
+// whether view cell (i, j) lets light through, `up` the cells the row below
+// lit in this row (1 << V/2, the agent cell, for row V-1).  Light floods
+// right in closed carry form, left by V-1 single spreads, and lit
+// transparent cells light the three cells above them, which go into `up`
+// for the next row.  Returns the row's lit mask.
+template <int V>
+__device__ __forceinline__ int flood_row(int t, int& up) {
+  constexpr int FULL = (1 << V) - 1;
+  const int m_r = up | ((((up & t) + t) & FULL) ^ t);
+  const int cond_r = m_r & t & ((1 << (V - 1)) - 1);
+  const int new_up = cond_r | ((cond_r << 1) & FULL);
+  int m_l = m_r;
+#pragma unroll
+  for (int k = 0; k < V - 1; ++k) m_l |= (m_l & t) >> 1;
+  const int cond_l = m_l & t & ~1;
+  up = new_up | cond_l | (cond_l >> 1);
+  return m_l;
+}
+
 // Sets the cells the agent cannot see to 0 ("unseen"), as
-// core/obs.gen_obs_packed does.  Bit-parallel occlusion flood
-// (minigrid_tpu/core/obs.py:108-154): bit i of row j's mask is view column
-// i; light floods right in closed carry form, left by V-1 single spreads,
-// and lit transparent cells light the three cells above them.
+// core/obs.gen_obs_packed does.
 template <int V, bool SEE_THROUGH>
 __device__ __forceinline__ void hide_unseen(int view[V][V]) {
   if (SEE_THROUGH) return;
-  constexpr int FULL = (1 << V) - 1;
   int up = 1 << (V / 2);
 #pragma unroll
   for (int j = V - 1; j >= 0; --j) {
     int t = 0;
 #pragma unroll
     for (int i = 0; i < V; ++i) t |= see_behind(view[i][j]) ? (1 << i) : 0;
-    const int m_r = up | ((((up & t) + t) & FULL) ^ t);
-    const int cond_r = m_r & t & ((1 << (V - 1)) - 1);
-    const int new_up = cond_r | ((cond_r << 1) & FULL);
-    int m_l = m_r;
+    const int lit = flood_row<V>(t, up);
 #pragma unroll
-    for (int k = 0; k < V - 1; ++k) m_l |= (m_l & t) >> 1;
-    const int cond_l = m_l & t & ~1;
-    up = new_up | cond_l | (cond_l >> 1);
-#pragma unroll
-    for (int i = 0; i < V; ++i) view[i][j] = ((m_l >> i) & 1) ? view[i][j] : 0;
+    for (int i = 0; i < V; ++i) view[i][j] = ((lit >> i) & 1) ? view[i][j] : 0;
   }
 }
 

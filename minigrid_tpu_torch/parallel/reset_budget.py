@@ -23,35 +23,39 @@ import math
 # Maximum episodes any env finished in one 256-step chunk under a uniform
 # random policy, chained steady state, keyed by registry id.  Episode counts
 # do not depend on the hardware.  The first rows are the JAX package's
-# (measured there with its tools/measure_reset_budget.py); this package's
-# tools/measure_reset_budget.py, on an NVIDIA H100 80GB HBM3 at a 700.00 W
-# power limit, confirmed GoToLocal's (10 <= 11) and GoTo's (4 <= 5) at 16384
-# envs.
+# (measured there with its tools/measure_reset_budget.py), but where this
+# package's tools/measure_reset_budget.py, on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit, measured more over 32 chunks chained from spread
+# episode ages (65536 envs, 16384 for BabyAI): FourRooms 6 (JAX's row 5)
+# and GoToLocal 12 (JAX's row 11).  The same measurement confirmed DoorKey-8x8
+# (2) and GoTo (5).
 MEASURED_MAX_EPISODES_256: dict[str, int] = {
     "MiniGrid-Empty-Random-5x5-v0": 12,
-    "MiniGrid-FourRooms-v0": 5,
+    "MiniGrid-FourRooms-v0": 6,
     "MiniGrid-DoorKey-8x8-v0": 2,
     "MiniGrid-LavaCrossingS9N2-v0": 18,
     "MiniGrid-Dynamic-Obstacles-8x8-v0": 37,
-    "BabyAI-GoToLocal-v0": 11,
+    "BabyAI-GoToLocal-v0": 12,
     "MiniGrid-ObstructedMaze-2Dlh-v0": 2,
     # Entered as 5 in the JAX package for want of a full-scale measurement;
-    # this package measured 4.
+    # this package measured 4 over 8 chunks and 5 over 32.
     "BabyAI-GoTo-v0": 5,
     # This package's rows, which the JAX table lacks: its
     # tools/measure_reset_budget.py through the whole-rollout kernel on an
     # NVIDIA H100 80GB HBM3 (700.00 W power limit), 65536 envs, the maximum
     # over 8 chunks: 4 chained from spread episode ages (its default), 4
-    # from a reset (--from-reset).
+    # from a reset (--from-reset); GoToObject-8x8-N2 and Fetch-8x8-N3 raised
+    # to the maximum over 32 chunks from spread episode ages (GoToDoor-8x8
+    # measured 109 there).
     # GoToObject and GoToDoor end an episode on every done or toggle.
     "MiniGrid-GoToObject-6x6-N2-v0": 107,
-    "MiniGrid-GoToObject-8x8-N2-v0": 110,
+    "MiniGrid-GoToObject-8x8-N2-v0": 112,
     "MiniGrid-GoToDoor-5x5-v0": 105,
     "MiniGrid-GoToDoor-6x6-v0": 105,
     "MiniGrid-GoToDoor-8x8-v0": 113,
     "MiniGrid-Fetch-5x5-N2-v0": 17,
     "MiniGrid-Fetch-6x6-N2-v0": 16,
-    "MiniGrid-Fetch-8x8-N3-v0": 11,
+    "MiniGrid-Fetch-8x8-N3-v0": 13,
 }
 
 # Fallback for ids without a measured entry; deliberately generous.

@@ -24,16 +24,16 @@ from typing import NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.rl.ppo import (
     AdamState,
     TrainState,
     apply_gradients,
+    bootstrap_observation,
     init_train_state,
     mesh_not_ported,
     update_apply,
 )
-from minigrid_tpu_torch.rl.rollout import collect_trajectory
+from minigrid_tpu_torch.rl.rollout import LearnerResets, collect_trajectory
 
 
 class IMPALAConfig(NamedTuple):
@@ -46,8 +46,8 @@ class IMPALAConfig(NamedTuple):
     entropy_coef: float = 0.01
     learning_rate: float = 3e-4
     max_grad_norm: float = 0.5
-    # None sizes the reset cache from parallel/reset_budget.learner_resets; see
-    # PPOConfig.resets_per_chunk.
+    # None sizes the reset cache from parallel/reset_budget.learner_resets and
+    # grows it; see PPOConfig.resets_per_chunk.
     resets_per_chunk: int | None = None
     num_minibatches: int = 8
     update_epochs: int = 1
@@ -104,18 +104,15 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
     reference: the plain versions on a CUDA device too.
     """
     mesh_not_ported(mesh)
-    resets_per_chunk = (
-        config.resets_per_chunk
-        if config.resets_per_chunk is not None
-        else learner_resets(env, config.rollout_steps)
-    )
+    resets = LearnerResets(env, config.rollout_steps, config.resets_per_chunk)
 
     def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:
         return init_train_state(env, hidden, generator, num_envs)
 
     def rollout(model, env_states, generator):
         return collect_trajectory(
-            env, model, env_states, generator, config.rollout_steps, resets_per_chunk, fused_actor=not _plain
+            env, model, env_states, generator, config.rollout_steps, resets.r,
+            fused_actor=not _plain, plain_obs=_plain,
         )
 
     def loss_fn(apply, batch):
@@ -147,7 +144,7 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
                 f"{config.num_minibatches} (time-axis slicing)"
             )
         mb_t = num_steps // config.num_minibatches
-        last_obs = env.observation_packed(env_states)
+        last_obs = bootstrap_observation(env, env_states, _plain)
         data = (traj.obs, traj.direction, traj.action, traj.logp, traj.reward, traj.done)
         names, params = zip(*model.named_parameters())
         auxes = []
@@ -170,8 +167,8 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
             "entropy": entropy,
             "reward_per_step": traj.reward.mean(),
             "episodes": traj.done.sum(),
-            # Reset-budget certification, as in rl/ppo.py.
-            "max_episodes_per_chunk": traj.done.int().sum(dim=0).max(),
+            # Reset-budget certification and R's growth, as in rl/ppo.py.
+            **resets.observe(traj.done),
         }
         return model, opt_state, metrics
 
@@ -182,5 +179,6 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
 
     train_step.rollout = rollout
     train_step.update = update
+    train_step.resets = resets
     train_step.loss_fn = loss_fn
     return init_fn, train_step

@@ -20,9 +20,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.rl.model import ActorCritic, apply_packed_fused
-from minigrid_tpu_torch.rl.rollout import collect_trajectory
+from minigrid_tpu_torch.rl.rollout import LearnerResets, collect_trajectory
 
 
 class PPOConfig(NamedTuple):
@@ -34,9 +33,10 @@ class PPOConfig(NamedTuple):
     entropy_coef: float = 0.01
     learning_rate: float = 2.5e-4
     max_grad_norm: float = 0.5
-    # Pre-generated levels per env per rollout chunk; None sizes the cache
-    # from parallel/reset_budget.learner_resets.  The emitted
-    # ``max_episodes_per_chunk`` metric is to be held to this value.
+    # Pre-generated levels per env per rollout chunk, fixed; None sizes the
+    # cache from parallel/reset_budget.learner_resets and grows it from the
+    # chunks' episodes (rl/rollout.LearnerResets).  The metrics report each
+    # chunk's R (``resets_per_chunk``) and the resets past it (``replayed``).
     resets_per_chunk: int | None = None
     # Gradient minibatches per update (time slices) and epochs over the rollout.
     num_minibatches: int = 8
@@ -108,6 +108,14 @@ def update_apply(model: ActorCritic, plain: bool):
     return lambda obs, direction: apply_packed_fused(model, obs, direction)
 
 
+def bootstrap_observation(env, env_states, plain: bool) -> torch.Tensor:
+    """The packed observation after a collection, which an update
+    bootstraps its values from: through the observation kernel on a CUDA
+    device, or with ``plain`` (the plain timing reference) its plain
+    version."""
+    return env.observation_packed(env_states, plain=plain)
+
+
 def mesh_not_ported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -122,17 +130,14 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
     and initialises the network on the generator's device;
     ``train_step(state) -> (TrainState, metrics)`` collects and updates.
     ``train_step.rollout``, ``.update`` and ``.gae`` are its phases, and
-    ``.loss_fn(apply, batch)`` its minibatch loss.  The parameters are
+    ``.loss_fn(apply, batch)`` its minibatch loss; ``train_step.resets`` is
+    the ``LearnerResets`` that sizes each chunk's reset cache.  The parameters are
     updated in place.  ``_plain=True`` is a timing reference, not a
     learner option: it runs the plain versions on a CUDA device too, which
     ``chip_smoke.py`` times the kernels against.
     """
     mesh_not_ported(mesh)
-    resets_per_chunk = (
-        config.resets_per_chunk
-        if config.resets_per_chunk is not None
-        else learner_resets(env, config.rollout_steps)
-    )
+    resets = LearnerResets(env, config.rollout_steps, config.resets_per_chunk)
     steps_per_update = config.num_minibatches * config.update_epochs
 
     def learning_rate(count: int) -> float:
@@ -149,7 +154,8 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
 
     def rollout(model: ActorCritic, env_states, generator):
         return collect_trajectory(
-            env, model, env_states, generator, config.rollout_steps, resets_per_chunk, fused_actor=not _plain
+            env, model, env_states, generator, config.rollout_steps, resets.r,
+            fused_actor=not _plain, plain_obs=_plain,
         )
 
     def gae(values, rewards, dones, last_value):
@@ -187,7 +193,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
         obs, direction, action, logp, value, reward, done = traj
         apply = update_apply(model, _plain)
         with torch.no_grad():
-            _, last_value = apply(env.observation_packed(env_states), env_states.agent_dir)
+            _, last_value = apply(bootstrap_observation(env, env_states, _plain), env_states.agent_dir)
             adv = gae(value, reward, done, last_value)
         target = adv + value
         num_steps = obs.shape[0]
@@ -218,11 +224,11 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
             "reward_per_step": reward.mean(),
             "episodes": done.sum(),
             # Reset-budget certification (parallel/reset_budget): the most
-            # episodes any env finished this chunk; above resets_per_chunk
-            # the reset cache replayed its last level (exempt for
-            # deterministic_generation families).  A counter-reset family
-            # has no cache to exhaust: every reset is a fresh level.
-            "max_episodes_per_chunk": done.int().sum(dim=0).max(),
+            # episodes any env finished this chunk, the chunk's R and the
+            # resets past it, which replayed the cache's last level (0 for
+            # a family that cannot replay one); R grows for the next chunk
+            # when the chunk comes near it.
+            **resets.observe(done),
         }
         return model, opt_state, metrics
 
@@ -233,6 +239,7 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
 
     train_step.rollout = rollout
     train_step.update = update
+    train_step.resets = resets
     train_step.gae = gae
     train_step.loss_fn = loss_fn
     return init_fn, train_step

@@ -22,6 +22,41 @@ from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import make_cached_stepper
 
 
+class LearnerResets:
+    """The R of a learner's reset cache, grown from what its chunks end.
+
+    The first chunk takes ``resets_per_chunk`` where the caller gives one,
+    which then stays fixed, else ``reset_budget.learner_resets``, whose rows
+    a uniform random policy measured; a learning policy may end episodes
+    faster.  ``observe(done)`` reads a collected chunk (bool [T, N]) and
+    returns its metrics: ``max_episodes_per_chunk``, the ``resets_per_chunk``
+    it was drawn at and ``replayed``, the resets that went past R (each of
+    an env's episodes beyond R replayed the cache's last slot).  Where the
+    chunk's maximum comes within a margin of R (above R - max(2, R // 4)),
+    the next chunk draws max(2 * maximum, R + 1) levels.  A family that
+    cannot replay a level (a counter-reset family has no cache, and a
+    deterministic one's levels are all alike) keeps its R and reports 0.
+    """
+
+    def __init__(self, env, rollout_steps: int, resets_per_chunk: int | None = None):
+        self.fixed = resets_per_chunk is not None
+        self.r = resets_per_chunk if self.fixed else learner_resets(env, rollout_steps)
+        self.can_replay = not counter_reset(env) and not env.deterministic_generation
+
+    def observe(self, done: torch.Tensor) -> dict[str, torch.Tensor]:
+        episodes = done.int().sum(dim=0)
+        most = episodes.max()
+        r = self.r
+        replayed = (episodes - r).clamp(min=0).sum() if self.can_replay else torch.zeros_like(most)
+        if self.can_replay and not self.fixed and int(most) > r - max(2, r // 4):
+            self.r = max(2 * int(most), r + 1)
+        return {
+            "max_episodes_per_chunk": most,
+            "resets_per_chunk": torch.tensor(r, dtype=torch.int32, device=done.device),
+            "replayed": replayed.int(),
+        }
+
+
 class Trajectory(NamedTuple):
     obs: torch.Tensor  # int32 [T, N, v*v] packed view
     direction: torch.Tensor  # int32 [T, N]
@@ -42,6 +77,7 @@ def collect_trajectory(
     resets_per_chunk: int | None = None,
     fused_actor: bool = False,
     mesh=None,
+    plain_obs: bool = False,
 ):
     """``rollout_steps`` policy steps of ``model`` (an ``rl/model.ActorCritic``)
     in every env; returns (env_states, Trajectory).
@@ -53,7 +89,9 @@ def collect_trajectory(
     the trajectory is written.  A configuration the kernel does not take
     raises there (``supports_fused_actor`` says which it takes).  On CPU tensors, or with
     ``fused_actor=False``, every step is the plain loop: the packed
-    observation, ``model``'s forward, Gumbel-argmax sampling from bits
+    observation (through the observation kernel on the card, or with
+    ``plain_obs``, the learners' ``_plain`` timing reference, its plain
+    version), ``model``'s forward, Gumbel-argmax sampling from bits
     drawn from ``generator``, and the batched step with auto-reset.  The
     auto-reset of an ``expensive_reset`` family whose kernel reads a reset
     cache (DoorKey, FourRooms, GoToObject, GoToDoor, Fetch) draws from a
@@ -85,7 +123,7 @@ def collect_trajectory(
         used = torch.zeros(num_envs, dtype=torch.int32, device=env_states.device)
     steps = []
     for _ in range(rollout_steps):
-        obs = env.observation_packed(env_states)
+        obs = env.observation_packed(env_states, plain=plain_obs)
         direction = env_states.agent_dir
         logits, value = model(obs, direction, packed=True)
         bits = draw_bits(generator, (logits.shape[-1], num_envs), env_states.device)

@@ -53,7 +53,7 @@ CACHE_IDS = [
 # R at 256 steps: the measured maximum plus 25% and at least 2.
 COVERING_R_256 = {
     "MiniGrid-DoorKey-5x5-v0": 10,  # no row: the fallback of 8
-    "MiniGrid-FourRooms-v0": 7,  # 5
+    "MiniGrid-FourRooms-v0": 8,  # 6, measured over 32 chunks (JAX's row: 5)
     "MiniGrid-Fetch-5x5-N2-v0": 22,  # 17
     "MiniGrid-GoToObject-6x6-N2-v0": 134,  # 107
     "MiniGrid-GoToDoor-5x5-v0": 132,  # 105
@@ -161,8 +161,8 @@ def test_cache_families_take_the_kernels_on_cuda_and_the_plain_loop_on_cpu(env_i
     assert fr.supports_fused(env) and fr.compiled_ext(env) and not fr.counter_reset(env)
     assert fused_eligible(env, "cuda") and not fused_eligible(env, "cpu")
     assert ar.supports_fused_actor(env, "cuda", 1024, 64)
-    # The measured rows of parallel/reset_budget.py (JAX's FourRooms row, the
-    # port's own GoTo and Fetch rows), else its fallback (DoorKey-5x5).
+    # The measured rows of parallel/reset_budget.py (the port's FourRooms
+    # correction, its own GoTo and Fetch rows), else its fallback (DoorKey-5x5).
     assert rollout_capacity(env, 256, "cuda") == COVERING_R_256[env_id]
     assert rollout_capacity(env, 256, "cpu") == 0
 

@@ -13,16 +13,19 @@ import pytest
 import torch
 
 import minigrid_tpu_torch as mgt
+from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
+from minigrid_tpu_torch.rl.rollout import collect_trajectory
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 
@@ -34,6 +37,12 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     return torch.device("cuda")
+
+
+def _launches():
+    """Launches so far of the actor kernel, the observation kernel and the
+    embed + dense-1 forward and backward."""
+    return ar.KERNEL_LAUNCHES, op.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"]
 
 
 def _assert_same(got, want):
@@ -221,20 +230,21 @@ def test_actor_kernel_meets_the_contracts(device, kind):
 def test_train_step_goes_through_the_kernels(device, learner, env_id):
     env = mgt.make(env_id)
     if learner == "ppo":
-        # The actor kernel, then per minibatch one embed + dense-1 forward
-        # and backward, and one forward for GAE's bootstrap value.
+        # The actor kernel, the observation kernel for the bootstrap value,
+        # then per minibatch one embed + dense-1 forward and backward, and
+        # one forward for GAE's bootstrap value.
         init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=16, num_minibatches=2), hidden=64)
-        want = (1, 3, 2)
+        want = (1, 1, 3, 2)
     else:
         # Per minibatch two forwards (its slice and its bootstrap) and one
         # backward.
         init_fn, train_step = make_impala(env, IMPALAConfig(rollout_steps=16, num_minibatches=2), hidden=64)
-        want = (1, 4, 2)
+        want = (1, 1, 4, 2)
     state = init_fn(torch.Generator(device=device).manual_seed(0), 1024)
-    before = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
+    before = _launches()
     state, metrics = train_step(state)
     torch.cuda.synchronize()
-    after = (ar.KERNEL_LAUNCHES, ed.KERNEL_LAUNCHES["fwd"], ed.KERNEL_LAUNCHES["bwd"])
+    after = _launches()
     assert tuple(a - b for a, b in zip(after, before)) == want
     assert all(bool(torch.isfinite(metrics[k])) for k in ("pg_loss", "value_loss", "entropy"))
     assert state.env_states.grid.device.type == "cuda"
@@ -451,3 +461,86 @@ def test_learner_raises_where_the_actor_kernel_does_not_run(device):
     state = init_fn(torch.Generator(device=device).manual_seed(0), 64)
     with pytest.raises(ValueError, match="hidden size 96"):
         train_step(state)
+
+
+def _obs_inputs(states):
+    return states.grid, states.agent_x, states.agent_y, states.agent_dir, states.carrying
+
+
+@pytest.mark.parametrize("see_through", [False, True])
+@pytest.mark.parametrize("view_size", op.BUILT_VIEW_SIZES)
+def test_obs_kernel_matches_plain_version(device, view_size, see_through):
+    rng = np.random.default_rng(view_size)
+    for n, w, h in ((4096, 9, 7), (1024, 22, 22)):
+        states = state_from_numpy(random_states(rng, (n,), w, h), device)
+        before = op.KERNEL_LAUNCHES
+        got = op.fused_obs_packed(*_obs_inputs(states), view_size, see_through)
+        torch.cuda.synchronize()
+        assert op.KERNEL_LAUNCHES == before + 1
+        want = op.fused_obs_packed_reference(*_obs_inputs(states), view_size, see_through)
+        assert got.shape == (n, view_size, view_size) and torch.equal(got, want)
+
+
+def test_obs_kernel_raises_on_what_it_does_not_take(device):
+    states = state_from_numpy(random_states(np.random.default_rng(0), (64,), 8, 8), device)
+    for v in (17, 4, 1):
+        with pytest.raises(ValueError, match=f"view size {v} was not built"):
+            op.fused_obs_packed(*_obs_inputs(states), v)
+    with pytest.raises(ValueError, match="need CUDA"):
+        op._launch(*_obs_inputs(states.map(lambda x: x.cpu())), 7, False)
+    with pytest.raises(ValueError, match="agent_x on cpu"):
+        op.fused_obs_packed(states.grid, states.agent_x.cpu(), states.agent_y, states.agent_dir, states.carrying)
+    with pytest.raises(ValueError, match="carrying must be int32"):
+        op.fused_obs_packed(states.grid, states.agent_x, states.agent_y, states.agent_dir, states.carrying.long())
+
+
+def test_env_observations_take_the_obs_kernel(device):
+    env = mgt.make("MiniGrid-DoorKey-8x8-v0")
+    gen = torch.Generator(device=device).manual_seed(0)
+    before = op.KERNEL_LAUNCHES
+    obs, states = env.reset(256, gen)
+    obs, states, *_ = env.step(states, torch.full((256,), 2, dtype=torch.int32, device=device), gen)
+    packed = env.observation_packed(states)
+    torch.cuda.synchronize()
+    assert op.KERNEL_LAUNCHES == before + 3
+    with obs_lib.plain_observations():
+        assert torch.equal(packed, env.observation_packed(states))
+    assert op.KERNEL_LAUNCHES == before + 3
+
+
+def test_the_plain_collector_launches_the_obs_kernel_unless_plain(device):
+    env = mgt.make("MiniGrid-DoorKey-8x8-v0")
+    gen = torch.Generator(device=device).manual_seed(4)
+    _, states = env.reset(256, gen)
+    model = ActorCritic(64, env.num_actions, env.agent_view_size, gen, device)
+    for plain, want in ((False, 8), (True, 0)):
+        before = op.KERNEL_LAUNCHES
+        collect_trajectory(env, model, states, gen, 8, fused_actor=False, plain_obs=plain)
+        torch.cuda.synchronize()
+        assert op.KERNEL_LAUNCHES - before == want, plain
+
+
+def test_plain_references_launch_no_obs_kernel(device):
+    env = mgt.make("MiniGrid-DoorKey-8x8-v0")
+    gen = torch.Generator(device=device).manual_seed(3)
+    _, states = env.reset(256, gen)
+    cache = env.batch_reset_cache(256, 4, gen, device)
+    actions = torch.randint(0, 7, (8, 256), generator=gen, device=device, dtype=torch.int32)
+    weights = _biased_actor(env, gen, device)
+    noise = ar.draw_bits(gen, (8, env.num_actions, 256), device)
+    before = _launches()
+    fr.fused_rollout_reference(env, states, cache, actions, True)
+    final, traj = ar.actor_rollout_reference(env, weights, states, cache, noise)
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj)
+    torch.cuda.synchronize()
+    assert _launches() == before
+    for make, config in (
+        (make_ppo, PPOConfig(rollout_steps=8, num_minibatches=2)),
+        (make_impala, IMPALAConfig(rollout_steps=8, num_minibatches=2)),
+    ):
+        init_fn, train_step = make(env, config, hidden=64, _plain=True)
+        state = init_fn(gen, 256)
+        before = _launches()
+        train_step(state)
+        torch.cuda.synchronize()
+        assert _launches() == before, make.__name__

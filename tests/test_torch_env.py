@@ -174,12 +174,12 @@ def test_step_cached_r2_matches_jax():
     assert int(used.max()) > r  # past the last slot: replays exercised
 
 
-MEASURED_MAX_CORRECTIONS: dict[str, int] = {}
+MEASURED_MAX_CORRECTIONS: dict[str, int] = {"MiniGrid-FourRooms-v0": 6, "BabyAI-GoToLocal-v0": 12}
 MEASURED_MEAN_CORRECTIONS: dict[str, float] = {}
 # JAX rows the port's own measurement on the H100 replaced
-# (minigrid_tpu_torch/tools/measure_reset_budget.py; ROADMAP.md queue 3):
-# the per-env maximum and mean of each.  Every other JAX row must be in the
-# port unchanged.
+# (minigrid_tpu_torch/tools/measure_reset_budget.py --chunks 32; ROADMAP.md
+# queue 3): the per-env maximum and mean of each.  Every other JAX row must
+# be in the port unchanged.
 MEASURED_CORRECTIONS = {"max": MEASURED_MAX_CORRECTIONS, "mean": MEASURED_MEAN_CORRECTIONS}
 
 
@@ -213,22 +213,27 @@ def test_every_cached_id_the_kernels_run_has_a_measured_row():
 @pytest.mark.parametrize(
     "env_id, steps, want",
     [
-        # A learner's chunk takes the 256-step R: JAX's scaled rule would
-        # give GoToLocal 8 at 128 steps from its row 11, Fetch-8x8-N3 8 (it
-        # ended 9 in a 128-step chunk) and GoToDoor-8x8 19 at 32 steps.
-        ("BabyAI-GoToLocal-v0", 128, 14),
-        ("MiniGrid-Fetch-8x8-N3-v0", 128, 14),
+        # A learner's chunk takes the 256-step R: the scaled rule would give
+        # GoToLocal 9 at 128 steps from its row 12, Fetch-8x8-N3 9 from its
+        # row 13 (it ended 9 in a 128-step chunk) and GoToDoor-8x8 19 at 32
+        # steps.
+        ("BabyAI-GoToLocal-v0", 128, 15),
+        ("MiniGrid-Fetch-8x8-N3-v0", 128, 17),
         ("MiniGrid-GoToDoor-8x8-v0", 32, 142),
-        ("BabyAI-GoToLocal-v0", 256, 14),
-        ("BabyAI-GoToLocal-v0", 512, 28),  # longer chunks scale as in JAX
+        ("BabyAI-GoToLocal-v0", 256, 15),
+        ("BabyAI-GoToLocal-v0", 512, 30),  # longer chunks scale as in JAX
+        ("MiniGrid-DoorKey-8x8-v0", 128, 4),
     ],
 )
 def test_learners_take_the_256_step_r(env_id, steps, want):
     env = mgt.make(env_id)
     assert trb.learner_resets(env, steps) == want == trb.resets_for(env, max(steps, 256))
     if env_id in jrb.MEASURED_MAX_EPISODES_256:
-        assert want == jrb.resets_for(mg.make(env_id), max(steps, 256))
-        assert trb.resets_for(env, steps) == jrb.resets_for(mg.make(env_id), steps)
+        # JAX's rule on the port's row (JAX's own where no correction).
+        row = trb.MEASURED_MAX_EPISODES_256[env_id]
+        assert row == MEASURED_MAX_CORRECTIONS.get(env_id, jrb.MEASURED_MAX_EPISODES_256[env_id])
+        assert want == jrb.covering_resets(row, max(steps, 256))
+        assert trb.resets_for(env, steps) == jrb.covering_resets(row, steps)
 
 
 @pytest.mark.parametrize("plain", [False, True])
@@ -252,7 +257,11 @@ def test_resets_for_and_pool_size_match_jax(num_steps):
         deterministic_generation = False
 
     for env_id in list(jrb.MEASURED_MAX_EPISODES_256) + ["MiniGrid-Unmeasured-v0"]:
-        assert trb.resets_for(Dummy(), num_steps, env_id) == jrb.resets_for(Dummy(), num_steps, env_id)
+        if env_id in MEASURED_MAX_CORRECTIONS:  # JAX's rule on the port's measured row
+            want = jrb.covering_resets(MEASURED_MAX_CORRECTIONS[env_id], num_steps)
+        else:
+            want = jrb.resets_for(Dummy(), num_steps, env_id)
+        assert trb.resets_for(Dummy(), num_steps, env_id) == want
         assert trb.pool_size(Dummy(), num_steps, 4096, env_id) == jrb.pool_size(
             Dummy(), num_steps, 4096, env_id
         )
