@@ -7,7 +7,10 @@ Phases, one output line each; any failure raises and exits non-zero:
 
 1. require a CUDA device; print the card (``nvidia-smi``) and versions;
 2. build every kernel from ``minigrid_tpu_torch/ops/csrc`` (one ``nvcc`` per
-   source, side by side);
+   source, side by side); print ptxas' registers and spills per
+   instantiation, the actor kernel's dynamic shared memory and W1 ring
+   stages per ext and hidden size, and the embed + dense-1 backward's
+   registers, spills and shared memory per warpgroup count;
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
    ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
    GoToDoor and GoToObject with their targets) through the port's core
@@ -508,6 +511,35 @@ def counter_slice(env_id: str, device, card: str) -> dict:
         f"fused_rollout[{env_id}]", SOURCE, REPLACES, launches, err, *times[False],
         bound(rollout_bytes(env, states, NUM_STEPS, 0, seeds=True), ops / CUDA_CORE_OPS_PER_S),
     )
+
+
+EXT_NAMES = ("NoExt", "EmptyRandomExt", "CrossingExt", "DynamicObstaclesExt", "GoToTargetExt", "FetchExt", "BabyAIExt")
+
+
+def tensor_core_report() -> str:
+    """The tensor-core kernels' shared memory (dynamic, from their sources'
+    layouts) and, for the embed + dense-1 backward, ptxas' registers and
+    spills per instantiation (warpgroups of 64 hidden columns)."""
+    actor = _build.load_library("actor_rollout")
+    embed = _build.load_library("embed_dense")
+    parts = [
+        f"{ext} hidden {h}: {actor.actor_rollout_smem_bytes(h, i)} bytes, {actor.actor_rollout_stages(h, i)} W1 stages"
+        for i, ext in enumerate(EXT_NAMES)
+        for h in ar.COMPILED_HIDDEN
+    ]
+    bwd = []
+    log = _build.BUILD_INFO.get("embed_dense", (0.0, ""))[1]
+    for block in log.split("Compiling entry function")[1:]:
+        nwg = re.search(r"embed_bwd_partial_kernelILi(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
+        if nwg and regs:
+            w = int(nwg.group(1))
+            bwd.append(
+                f"{w} warpgroup(s): {regs.group(1)} registers, {frame.group(2) if frame else 0} bytes spilled, "
+                f"{embed.embed_dense1_bwd_smem_bytes(64 * w)} bytes"
+            )
+    return "actor_rollout dynamic shared memory: " + "; ".join(parts) + ". embed_dense1 backward: " + "; ".join(bwd)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1388,6 +1420,7 @@ def main() -> None:
     for name in ("fused_rollout", "actor_rollout"):
         if name in _build.BUILD_INFO:
             print(ptxas_report(name, _build.BUILD_INFO[name][1]), flush=True)
+    print(tensor_core_report(), flush=True)
 
     n_files, n_overlays = replay_goldens(device)
     phase(3, f"{n_files} step fixtures, process_vis and {n_overlays} step-overlay fixtures bit-exact on {device}")

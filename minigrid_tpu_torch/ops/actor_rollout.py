@@ -47,16 +47,23 @@ from minigrid_tpu_torch.parallel.vector import MAX_FUSED_CELLS, fused_eligible
 
 # Hidden sizes the CUDA source instantiates: PPO's 256 and the tests' 64.
 COMPILED_HIDDEN = (64, 256)
-# Envs per thread block; the kernel takes N that this divides.
-ENVS_PER_BLOCK = 32
-# The kernel's head rows: num_actions logits + 1 value.
+# The kernel takes N that this divides: its blocks of 64 envs (one
+# tensor-core M tile) mask the empty half of a last block.
+NUM_ENVS_MULTIPLE = 32
+# The most actions the kernel takes; its head rows (logits, value) are
+# padded to MAX_ACTIONS + 1.
 MAX_ACTIONS = 7
+HEAD_ROWS = MAX_ACTIONS + 1
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
+# The row block of ``actor_policy_reference``'s products.
+POLICY_ROWS = 2048
 # The kernel's logp and value against ``actor_policy_reference``: both round
-# at the same points, and their f32 sums of bf16 products, taken in another
-# order, are nearly exact, so they agree far inside the bf16 tolerance (2e-2)
-# that holds the port's actor to the JAX package's.
+# at the same points; layer 1's f32 sums of bf16 rows are exact in any order,
+# layer 2 is the same in-order float32 chain in both (the kernel's CUDA cores,
+# the reference's product at its fixed block shape), and the heads' f32
+# outputs differ by float rounding only; so they agree far inside the bf16
+# tolerance (2e-2) that holds the port's actor to the JAX package's.
 PLAIN_ATOL = 1e-4
 
 _ARGTYPES = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
@@ -88,19 +95,95 @@ def repack_actor_params(model) -> ActorWeights:
     )
 
 
+class ActorTiles(NamedTuple):
+    """The kernel's matrices in its shared-memory layouts: the tensor cores'
+    B layout (``csrc/hopper.cuh``: per K tile of 16 rows, [N/8][2][8][8]
+    bf16) for layer 1 and the heads; W2 as it is, for layer 2 on the CUDA
+    cores."""
+
+    # W1 padded to ``onehot_words`` * 32 rows, as hi and lo (``split_w1``)
+    # per K tile: [words * 2, 2, H/8, 2, 8, 8]
+    w1: torch.Tensor
+    w2: torch.Tensor  # W2 [H, H] bf16, row-major
+    wh: torch.Tensor  # the head rows as B [H, 8] (zero past A + 1), [H/16, 1, 2, 8, 8]
+
+
+def onehot_words(view_size: int) -> int:
+    """32-row words of the one-hot features (V*V*20 + 4 rows, padded)."""
+    return (view_size * view_size * 20 + 4 + 31) // 32
+
+
+def tile_b(b: torch.Tensor) -> torch.Tensor:
+    """[K, N] (K a multiple of 16, N of 8) in the B layout: element (k, n)
+    at [k // 16, n // 8, (k % 16) // 8, n % 8, k % 8]."""
+    k, n = b.shape
+    return b.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2).contiguous()
+
+
+def untile_b(t: torch.Tensor) -> torch.Tensor:
+    """The [K, N] matrix of a tile in the B layout (``tile_b``'s inverse)."""
+    kt, nt = t.shape[:2]
+    return t.permute(0, 2, 4, 1, 3).reshape(kt * 16, nt * 8)
+
+
+def split_w1(w1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """bf16 W1 as hi + lo, both bf16 and exact: hi its bits from 2^-16 up
+    (multiples of 2^-16), lo the rest (below 2^-16).  A sum of 148 hi values
+    and one of 148 lo values are each exact in float32, so their float32 sum
+    is the exact sum rounded once, in any order."""
+    w = w1.float()
+    hi = torch.trunc(w * 2.0**16) / 2.0**16
+    return hi.to(torch.bfloat16), (w - hi).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def tile_actor_weights(weights: ActorWeights, view_size: int) -> ActorTiles:
+    """The kernel's tiled layout of ``weights``, made once per launch: W1's
+    rows padded with zeros to whole one-hot words and split (``split_w1``),
+    the head rows padded to ``HEAD_ROWS``."""
+    bf16 = torch.bfloat16
+    f, hidden = weights.w1.shape
+    w1 = torch.zeros((onehot_words(view_size) * 32, hidden), dtype=bf16, device=weights.w1.device)
+    w1[:f] = weights.w1
+    wh = torch.zeros((HEAD_ROWS, hidden), dtype=bf16, device=weights.wh.device)
+    wh[: weights.wh.shape[0]] = weights.wh
+    hi, lo = split_w1(w1)
+    return ActorTiles(
+        torch.stack([tile_b(hi), tile_b(lo)], dim=1).contiguous(), weights.w2.to(bf16).contiguous(), tile_b(wh.t())
+    )
+
+
 def draw_bits(generator: torch.Generator | None, shape, device) -> torch.Tensor:
     """Uniform int32 random bits (all 32 bits), the sampler's input."""
     return torch.randint(-(2**31), 2**31, shape, generator=generator, device=device, dtype=torch.int32)
 
 
 def actor_policy_reference(weights: ActorWeights, packed: torch.Tensor, direction: torch.Tensor):
-    """The kernel's actor in plain PyTorch: logits f32 [N, A], value f32 [N]."""
+    """The kernel's actor in plain PyTorch: logits f32 [N, A], value f32 [N].
+
+    Layer 1's pre-activation is the exact sum of the selected bf16 rows
+    (float64, exact for them) rounded once to float32, which does not depend
+    on the order of the sum.  Layer 2 is a float32 product; on the card its
+    rows go in blocks of ``POLICY_ROWS`` (the last one padded), because the
+    CUDA library picks the product's kernel, and with it the summation order,
+    by shape, and another order can flip the bf16 rounding of h2: a fixed
+    block shape keeps the reference's rounding the same for every N."""
     from minigrid_tpu_torch.rl.model import embed_obs_packed
 
-    x = embed_obs_packed(packed, direction).float()
-    h1 = torch.relu(x @ weights.w1.float() + weights.b1).to(torch.bfloat16).float()
-    h2 = torch.relu(h1 @ weights.w2.float() + weights.b2).to(torch.bfloat16).float()
-    heads = h2 @ weights.wh.float().t() + weights.bh
+    n = packed.shape[0]
+    pad = -n % POLICY_ROWS if packed.is_cuda else 0
+    if pad:
+        packed = torch.cat([packed, packed.new_zeros((pad, packed.shape[1]))])
+        direction = torch.cat([direction, direction.new_zeros(pad)])
+    out = []
+    rows = POLICY_ROWS if packed.is_cuda else max(n, 1)
+    for pk, dr in zip(packed.split(rows), direction.split(rows)):
+        x = embed_obs_packed(pk, dr)
+        pre1 = (x.double() @ weights.w1.double()).float()  # the exact sum, rounded once
+        h1 = torch.relu(pre1 + weights.b1).to(torch.bfloat16).float()
+        h2 = torch.relu(h1 @ weights.w2.float() + weights.b2).to(torch.bfloat16).float()
+        out.append(h2 @ weights.wh.float().t() + weights.bh)
+    heads = torch.cat(out)[:n]
     return heads[:, :-1], heads[:, -1]
 
 
@@ -118,17 +201,29 @@ def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
     return action.to(torch.int32), logp
 
 
+def shape_refusal(env, num_envs: int, hidden: int) -> str | None:
+    """Why the kernel does not take ``num_envs`` envs of ``env`` at this
+    hidden size, or None: at most ``MAX_FUSED_CELLS`` grid cells, a multiple
+    of ``NUM_ENVS_MULTIPLE`` envs, 1 to ``MAX_ACTIONS`` actions and a
+    compiled hidden size."""
+    cells = env.width * env.height
+    if cells > MAX_FUSED_CELLS:
+        return f"{cells} grid cells; the kernel takes at most {MAX_FUSED_CELLS}"
+    if num_envs % NUM_ENVS_MULTIPLE != 0:
+        return f"num_envs {num_envs} is not a multiple of {NUM_ENVS_MULTIPLE}"
+    if not 1 <= env.num_actions <= MAX_ACTIONS:
+        return f"{env.num_actions} actions; the kernel takes 1 to {MAX_ACTIONS}"
+    if hidden not in COMPILED_HIDDEN:
+        return f"hidden size {hidden} has no compiled instantiation"
+    return None
+
+
 def supports_fused_actor(env, device, num_envs: int, hidden: int) -> bool:
     """Whether the kernel runs this configuration: what ``parallel/vector.
     fused_eligible`` asks of the random-policy kernel (a default-hook family
-    or one with a compiled counter-reset or cached ext), plus a compiled hidden size,
-    at most ``MAX_ACTIONS`` actions and whole blocks of envs."""
-    return (
-        fused_eligible(env, device)
-        and hidden in COMPILED_HIDDEN
-        and 1 <= env.num_actions <= MAX_ACTIONS
-        and num_envs % ENVS_PER_BLOCK == 0
-    )
+    or one with a compiled counter-reset or cached ext), and a shape it takes
+    (``shape_refusal``)."""
+    return fused_eligible(env, device) and shape_refusal(env, num_envs, hidden) is None
 
 
 def fused_actor_rollout(env, model, states: EnvState, generator, num_steps: int, resets_per_chunk: int = 2):
@@ -258,15 +353,12 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     n = states.step_count.shape[0]
     na = env.num_actions
     v2 = env.agent_view_size**2
-    cells = env.width * env.height
-    _require(cells <= MAX_FUSED_CELLS, f"{cells} grid cells; the kernel takes at most {MAX_FUSED_CELLS}")
-    _require(n % ENVS_PER_BLOCK == 0, f"num_envs {n} is not a multiple of {ENVS_PER_BLOCK}")
-    _require(1 <= na <= MAX_ACTIONS, f"{na} actions; the kernel takes 1 to {MAX_ACTIONS}")
+    hidden = weights.w2.shape[0]
+    refusal = shape_refusal(env, n, hidden)
+    _require(refusal is None, refusal)
     t = noise.shape[0]
     _require(noise.shape == (t, na, n), f"noise must be [T, {na}, {n}], got {tuple(noise.shape)}")
     _require(noise.dtype == torch.int32 and noise.device == device, "noise must be int32 on the state's device")
-    hidden = weights.w2.shape[0]
-    _require(hidden in COMPILED_HIDDEN, f"hidden size {hidden} has no compiled instantiation")
     for name, x, shape, dtype in (
         ("w1", weights.w1, (v2 * 20 + 4, hidden), torch.bfloat16),
         ("b1", weights.b1, (hidden,), torch.float32),
@@ -280,7 +372,8 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     ext = ext_buffers(env, states, cache, reset_seeds, "actor_rollout")
 
     grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
-    w = [x.contiguous() for x in weights]
+    tiles = tile_actor_weights(weights, env.agent_view_size)
+    w = (tiles.w1, weights.b1.contiguous(), tiles.w2, weights.b2.contiguous(), tiles.wh, weights.bh.contiguous())
     bits = noise.contiguous()
     traj = {
         "obs": torch.empty((t, n, v2), dtype=torch.int32, device=device),
@@ -293,6 +386,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
     }
 
     lib = load_library("actor_rollout")
+    _require(lib.actor_rollout_words(env.agent_view_size) == onehot_words(env.agent_view_size), "one-hot words")
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int

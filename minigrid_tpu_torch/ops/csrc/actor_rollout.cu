@@ -14,62 +14,86 @@
 // seed and episode ordinal (both at the pre-increment `used`).  It streams obs, direction, the
 // unmapped action, logp, value, reward and done.
 //
-// Design.  A block owns B = 32 envs and has HID threads (one per hidden
-// unit).  Per step:
-//   1. warp 0, one lane per env, builds the view through minigrid_env.cuh
-//      (shared with fused_rollout.cu) into shared memory; the block then
-//      stores the [32, V*V] obs tile to the [T, N, V*V] output, coalesced;
-//   2. layer 1 is a gather-sum, as in embed_dense.cu: thread h adds the
-//      3*V*V + 1 rows of W1 [V*V*20+4, HID] that each env selects (f32),
-//      then, as the TPU kernel does (actor_rollout.py:120-121), adds f32 b1,
-//      applies ReLU and rounds to bf16;
-//   3. layer 2: thread h computes column h for all 32 envs, h2 = bf16(ReLU(
-//      h1 @ W2 + b2)) with W2 [HID, HID] (flax [in, out] layout, bf16) read
-//      through L1 and h1 from shared memory as 16-byte broadcasts;
-//   4. heads: a warp per env, lanes over the hidden units, one shuffle
-//      reduction per head row (NA logits, then the value), + f32 bias;
-//   5. warp 0 samples (u = (bits[31:8] + 0.5) / 2^24, z = lg - log(-log u),
+// Design.  A block owns EB = 64 envs, one wgmma M tile, and has two
+// consumer warpgroups (warps 0-7) and a producer warp (warp 8).  Per step
+//   1. warps 0-1, one lane per env, build the view through minigrid_env.cuh
+//      (shared with fused_rollout.cu) into the block's obs tile in shared
+//      memory, which the block then stores coalesced, and turn the view into
+//      one-hot bits, one 32-bit word per 32 feature rows of W1
+//      [V*V*20+4, HID] (a field outside its range sets no bit, as cell_rows
+//      says);
+//   2. layer 1 is the one-hot product on the tensor cores (hopper.cuh),
+//      each warpgroup half the columns: the A fragments (bf16 0/1) come
+//      straight from the bits in registers, W1's K tiles stream by TMA
+//      (one-dimensional bulk copies) through a ring of STAGES stages that
+//      the producer warp keeps full, across steps, and wgmma accumulates in
+//      f32.  W1 comes split as hi + lo (its bits from 2^-16 up, and the
+//      rest), each product with its own accumulator: both sums are exact,
+//      so their f32 sum is the exact sum rounded once, as the plain
+//      version's is, in any order (in one accumulator a tiny weight's low
+//      bits are cut against the running sum).  Then, as the TPU kernel does
+//      (actor_rollout.py:120-121), f32 b1 is added, ReLU applied and h1
+//      rounded to bf16 into shared memory;
+//   3. layer 2, h2 = bf16(ReLU(h1 @ W2 + b2)) with W2 [HID, HID] (flax [in,
+//      out]) resident in shared memory, runs on the CUDA cores of both
+//      warpgroups as f32 FMA chains over k in order, a warp 8 envs, a lane
+//      HID/32 columns: the plain version's product to the bit.  On the
+//      tensor cores (measured on the H100) the other summation order flips
+//      the bf16 rounding of some h2 and moves logp and value by up to 1e-3,
+//      past the contract's 1e-4;
+//   4. heads on the tensor cores (warpgroup 0): h2 @ the NA + 1 head rows
+//      (NA logits, then the value, padded to 8 rows, resident), + f32 bias,
+//      into shared memory (f32 outputs: no rounding for the order to flip);
+//   5. warps 0-1 sample (u = (bits[31:8] + 0.5) / 2^24, z = lg - log(-log u),
 //      first maximum wins; logp = lg[a] - logsumexp(lg), with accurate
-//      logf/expf), then steps and resets its env through the family's Ext
+//      logf/expf), then step and reset their envs through the family's Ext
 //      struct (fused_ext.cuh and ext/*.cuh, the same structs as the
 //      random-policy kernel; ext_id picks the instantiation).
-// Activations live in shared memory env-major ([32][HID] f32 holding bf16
-// values), so the layer-1 and layer-2 stores and the head reads are free
-// of bank conflicts.  The family's extra state (Ext::Extra, up to 19 ints
-// for Dynamic-Obstacles) also lives in shared memory, one slot per env:
-// only warp 0 touches it, and in registers it would be allocated to all
-// HID threads, against __launch_bounds__(HID, 2)'s cap of 128 registers at
-// HID = 256 that layer 2's 32 accumulators already press on.  The seeds,
-// and a cached ext's scalars of the cache slot, are read from device memory
-// at each reset straight into that slot, so no register holds them across
-// the loop.  An ext's extra planes (BabyAI's verifier: two planes of W*H
-// bytes per env, 968 bytes at 22x22) stay in device memory, env-minor as
-// the grid is ([P, W*H, N]): in shared memory they would take 31 KB per
-// block at 22x22, against the two blocks per SM that __launch_bounds__
-// asks for.
+// The weights come in the layouts of ops/actor_rollout.tile_actor_weights,
+// made once per call in Python: W1 split, in the B layout, padded to
+// WORDS*32 rows; the heads in the B layout padded to 8 rows; W2 as it is.
+// The family's extra state (Ext::Extra, up to 19 ints for
+// Dynamic-Obstacles) lives in shared memory, one slot per env: in
+// registers it would be allocated to every thread.  The seeds, and a cached
+// ext's scalars of the cache slot, are read from device memory at each
+// reset straight into that slot.  An ext's extra planes (BabyAI's verifier:
+// two planes of W*H bytes per env) stay in device memory, env-minor as the
+// grid is ([P, W*H, N]).  A block whose last 32 envs lie past N (N a
+// multiple of 32, not of 64) runs them as rows of zeros and writes nothing
+// of them.
 //
-// What bounds it on this card.  Layer 2 is 32 x HID x HID FMAs per block
-// step on the CUDA cores (67 Mi FMA per step of 8192 envs at HID = 256);
-// layer 1 is 148 two-byte L1/L2 loads per env per thread.  Both are far
-// from the tensor cores' rate: mma.sync or wgmma on [32, HID] x [HID, HID]
-// tiles, and a wider load per thread in layer 1, are the next steps.  The
-// env phase runs on one warp of the block while the others wait; a
-// counter reset (Dynamic-Obstacles scans the grid twice per ball) holds
-// the whole block at the next barrier.
+// What bounds it on this card.  W1 is read once per block-step instead of
+// once per env-step: 128 blocks x 2 x 496 KB (hi and lo) per step at 8192
+// envs, from L2, against the one-hot product's 2 x 992 x HID multiply-adds
+// per env on the tensor cores.  Layer 2's HID x HID FMAs per env on the
+// CUDA cores (16K a thread a step at HID = 256, 8 warps) are the larger
+// share: the price of matching the plain version's rounding.  The env phase
+// runs on two warps while the others wait, and a counter reset
+// (Dynamic-Obstacles scans the grid twice per ball) holds the block.
+// Next: layer 2 on the tensor cores with the CUDA cores recomputing only
+// the outputs that land near a bf16 rounding boundary; a 2-CTA cluster
+// sharing W1's tiles by TMA multicast; the env phase overlapping the MLP
+// of the other half of the block (ping-pong).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "exts.cuh"
+#include "hopper.cuh"
 #include "minigrid_env.cuh"
 
 namespace {
 
 using namespace minigrid;
+using namespace hopper;
 
-constexpr int B = 32;          // envs per block (one per lane of warp 0)
-constexpr int MAX_HEADS = 8;   // NA logits + 1 value, NA <= 7
+constexpr int EB = 64;                 // envs per block: one wgmma M tile
+constexpr int MMA_WARPS = 4;           // warpgroup 0: the heads; its first EB threads run the envs
+constexpr int CONSUMERS = 256;         // warpgroups 0 and 1: layer 1 (half the columns each) and layer 2
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int MAX_HEADS = 8;           // NA logits + 1 value, NA <= 7: the heads' N
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may opt into
 
 struct Args {
   const int* noise;          // [T, NA, N] random bits
@@ -86,11 +110,11 @@ struct Args {
   uint8_t* planes;           // [P, W*H, N] the ext's extra planes, in and out
   const uint8_t* cplanes;    // [R, P, W*H, N] (cached exts with planes)
   const int* seeds;          // [2, N] counter-reset seeds (COUNTER_RESET exts)
-  const __nv_bfloat16* w1;   // [V*V*20 + 4, HID]
+  const __nv_bfloat16* w1;   // W1 [WORDS*32, HID] as hi and lo, per K tile, in the B layout
   const float* b1;           // [HID]
-  const __nv_bfloat16* w2;   // [HID, HID]
+  const __nv_bfloat16* w2;   // W2 [HID, HID] in the tiled B layout
   const float* b2;           // [HID]
-  const __nv_bfloat16* wh;   // [NA + 1, HID]: logit rows, then the value row
+  const __nv_bfloat16* wh;   // the head rows as B [HID, 8] (logits, value, 0), tiled
   const float* bh;           // [NA + 1]
   int* obs;                  // [T, N, V*V]
   int* dir;                  // [T, N]
@@ -102,28 +126,170 @@ struct Args {
   int W, H, R, M, T, N, K, P, NA;
 };
 
-__device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_bf16(float x) { return bf(__float2bfloat16_rn(x)); }
+// One-hot words per env: W1's rows padded to a multiple of 32.
+constexpr int words_for(int V) { return (V * V * FEATURES_PER_CELL + 4 + 31) / 32; }
+
+// The dynamic shared memory of one instantiation, in bytes from the base.
+template <int V, int HID, class Ext>
+struct Smem {
+  static constexpr int WORDS = words_for(V);
+  static constexpr int STAGE = 2 * HID * 32;  // a K tile of W1: its hi and lo parts
+  static constexpr int HW = HID / 2 + 1;      // 32-bit words per activation row (odd: no bank conflicts)
+  static constexpr int W2 = 0;                // [HID][HID] bf16, row-major
+  static constexpr int WH = W2 + HID * HID * 2;
+  static constexpr int RING = WH + HID * MAX_HEADS * 2;
+  // The activations [EB][HW] (bf16 pairs); before layer 1's end the same
+  // space holds the one-hot bits [EB][WORDS] and the obs tile [EB][V*V].
+  static constexpr int ACT_BYTES = EB * HW * 4 > EB * (WORDS + V * V) * 4 ? EB * HW * 4 : EB * (WORDS + V * V) * 4;
+  static constexpr int FIXED = RING + ACT_BYTES + 2 * HID * 4 + EB * MAX_HEADS * 4 +
+                               EB * (int)sizeof(typename Ext::Extra) + 16;
+  // As many stages as fit, at most 8.
+  static constexpr int FIT = (SMEM_LIMIT - FIXED - 16 * 17) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int ACT = RING + STAGES * STAGE;
+  static constexpr int B1 = ACT + ACT_BYTES;
+  static constexpr int B2 = B1 + HID * 4;
+  static constexpr int HEAD = B2 + HID * 4;
+  static constexpr int X = HEAD + EB * MAX_HEADS * 4;
+  static constexpr int BARS = (X + EB * (int)sizeof(typename Ext::Extra) + 15) / 16 * 16;
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8;
+  static_assert(STAGES >= 2, "the W1 ring needs two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+// The env's one-hot words from its view and direction: word w holds
+// feature rows 32w..32w+31, from the cells (and the direction, after the V2
+// cells) whose 20 rows overlap it.
+template <int V, int WORDS>
+__device__ __forceinline__ void onehot_words(const int (&view)[V][V], int d, uint32_t* out) {
+  constexpr int V2 = V * V, F = FEATURES_PER_CELL;
+  uint32_t cb[V2 + 1];
+#pragma unroll
+  for (int s = 0; s < V2; ++s) cb[s] = cell_bits(view[s / V][s % V]);
+  cb[V2] = d >= 0 && d < 4 ? 1u << d : 0u;
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int s = (32 * w) / F; s <= V2 && s <= (32 * w + 31) / F; ++s) {
+      const int shift = F * s - 32 * w;
+      word |= shift >= 0 ? cb[s] << shift : cb[s] >> -shift;
+    }
+    out[w] = word;
+  }
+}
+
+// One warpgroup's half of layer 1's N = HID columns.
+template <int HID>
+__device__ __forceinline__ void mma_half(float (&d)[HID / 4], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (HID == 256) {
+    wgmma_m64n128k16_rs(d, a, desc);
+  } else {
+    wgmma_m64n32k16_rs(d, a, desc);
+  }
+}
+
+// Layer 2's share of a consumer thread of W2's row: HID/32 columns (8 at
+// HID = 256: one 16-byte load; a warp reads the whole row, conflict-free).
+template <int HID>
+__device__ __forceinline__ void w2_row(const __nv_bfloat16* row, int cg, float (&w)[HID / 32]) {
+  if constexpr (HID == 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + 8 * cg);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[2 * q] = __uint_as_float(u[q] << 16);
+      w[2 * q + 1] = __uint_as_float(u[q] & 0xFFFF0000u);
+    }
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(row + 2 * cg);
+    w[0] = __uint_as_float(v << 16);
+    w[1] = __uint_as_float(v & 0xFFFF0000u);
+  }
+}
 
 template <int V, int HID, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH>
-__global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtParams p) {
+__global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const ExtParams p) {
   static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
                 "a counter reset writes neither contents nor mission");
+  using L = Smem<V, HID, Ext>;
   constexpr int V2 = V * V;
-  constexpr int NWARPS = HID / 32;
-  __shared__ int obs_s[B * V2];
-  __shared__ int dir_s[B];
-  __shared__ __align__(16) float h_s[B * HID];  // [env][hidden]
-  __shared__ float head_s[B * MAX_HEADS];
-  __shared__ typename Ext::Extra x_s[B];        // warp 0's envs' extra state
+  constexpr int WORDS = L::WORDS;
+  constexpr int STAGES = L::STAGES;
+  constexpr int HW = L::HW;
+  constexpr int KT2 = HID / 16;  // K tiles of the heads
+  constexpr int CPT = HID / 32;  // layer 2: columns per thread (8 envs each)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const __nv_bfloat16* w2_s = reinterpret_cast<const __nv_bfloat16*>(smem + L::W2);
+  const __nv_bfloat16* wh_s = reinterpret_cast<const __nv_bfloat16*>(smem + L::WH);
+  unsigned char* ring = smem + L::RING;
+  uint32_t* act_s = reinterpret_cast<uint32_t*>(smem + L::ACT);  // [EB][HW] bf16 pairs
+  uint32_t* bits_s = act_s;                                         // [EB][WORDS], before layer 1's end
+  int* obs_s = reinterpret_cast<int*>(act_s + EB * WORDS);          // [EB][V2], likewise
+  float* b1_s = reinterpret_cast<float*>(smem + L::B1);
+  float* b2_s = reinterpret_cast<float*>(smem + L::B2);
+  float* head_s = reinterpret_cast<float*>(smem + L::HEAD);         // [EB][MAX_HEADS]
+  typename Ext::Extra* x_s = reinterpret_cast<typename Ext::Extra*>(smem + L::X);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t N = (size_t)a.N;
-  const int n0 = blockIdx.x * B;
-  const bool env_thread = warp == 0;  // lane owns env n0 + lane
-  const int n = n0 + lane;
+  const int n0 = blockIdx.x * EB;
+  const int valid = min(EB, a.N - n0);
+
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    mbar_init(resident, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // The producer: W2 and the heads once, then W1's K tiles (hi and lo),
+    // a tile a stage, for every step, as fast as the ring frees.
+    if (lane == 0) {
+      constexpr uint32_t W2_BYTES = HID * HID * 2, WH_BYTES = HID * MAX_HEADS * 2;
+      mbar_arrive_expect_tx(resident, W2_BYTES + WH_BYTES);
+      bulk_g2s(smem + L::W2, a.w2, W2_BYTES, resident);
+      bulk_g2s(smem + L::WH, a.wh, WH_BYTES, resident);
+      int stage = 0;
+      uint32_t phase = 0;
+      const unsigned char* w1 = reinterpret_cast<const unsigned char*>(a.w1);
+      for (int t = 0; t < a.T; ++t) {
+        for (int kt = 0; kt < 2 * WORDS; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], L::STAGE);
+          bulk_g2s(ring + stage * L::STAGE, w1 + (size_t)kt * L::STAGE, L::STAGE, &full[stage]);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers.  Rows of the MMA tiles: warp w of a warpgroup holds envs
+  // 16w + g and 16w + g + 8 of the block; warpgroup wg takes layer 1's
+  // columns HID/2*wg.., warpgroup 0 the heads.  Layer 2: warp eg takes envs
+  // 8eg.., lane cg columns CPT*cg...
+  const bool head_warp = warp < MMA_WARPS;
+  const int wg = warp / MMA_WARPS;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int r0 = 16 * (warp % MMA_WARPS) + g;
+  const int eg = warp;
+  const int cg = lane;
+  const bool env_thread = tid < valid;  // thread e runs env n0 + e
+  const int n = n0 + tid;
   const int WH = a.W * a.H;
   const int na = a.NA;
   const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.cplanes, a.R, a.K, a.P};
@@ -132,107 +298,188 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
   int* mis = a.mis + n;
   uint8_t* planes = Ext::NUM_PLANES > 0 ? a.planes + n : nullptr;
 
+  for (int i = tid; i < HID; i += CONSUMERS) {
+    b1_s[i] = a.b1[i];
+    b2_s[i] = a.b2[i];
+  }
   Scalars s{};
   int used = 0;
   if (env_thread) {
     s = load_scalars(a.sc + n, N);
-    x_s[lane] = Ext::load(a.scal, n, N, p);
+    x_s[tid] = Ext::load(a.scal, n, N, p);
   }
-  const int h = tid;
-  const float b1h = a.b1[h];
-  const float b2h = a.b2[h];
+  mbar_wait(resident, 0);
 
+  int stage = 0;
+  uint32_t phase = 0;
   for (int t = 0; t < a.T; ++t) {
     const size_t tn = (size_t)t * N;
 
-    // 1. Observe the current state.
-    if (env_thread) {
-      int view[V][V];
-      view_cells<V>(grid, N, a.W, a.H, s, view);
-      hide_unseen<V, SEE_THROUGH>(view);
+    // 1. Observe the current state: the obs tile (stored coalesced below)
+    // and the direction out, the one-hot words in.  A row past N is all
+    // zero bits.
+    if (tid < EB) {
+      if (env_thread) {
+        int view[V][V];
+        view_cells<V>(grid, N, a.W, a.H, s, view);
+        hide_unseen<V, SEE_THROUGH>(view);
 #pragma unroll
-      for (int i = 0; i < V; ++i)
+        for (int i = 0; i < V; ++i)
 #pragma unroll
-        for (int j = 0; j < V; ++j) obs_s[lane * V2 + i * V + j] = view[i][j];
-      dir_s[lane] = s.d;
-      a.dir[tn + n] = s.d;
+          for (int j = 0; j < V; ++j) obs_s[tid * V2 + i * V + j] = view[i][j];
+        a.dir[tn + n] = s.d;
+        onehot_words<V, WORDS>(view, s.d, bits_s + tid * WORDS);
+      } else {
+        for (int w = 0; w < WORDS; ++w) bits_s[tid * WORDS + w] = 0;
+      }
     }
-    __syncthreads();
+    named_sync(1, CONSUMERS);
     int* obs_dst = a.obs + (tn + n0) * V2;
-    for (int k = tid; k < B * V2; k += HID) obs_dst[k] = obs_s[k];
+    for (int k = tid; k < valid * V2; k += CONSUMERS) obs_dst[k] = obs_s[k];
 
-    // 2. Layer 1: gather-sum of the selected W1 rows, + b1, ReLU, bf16.
-    for (int e = 0; e < B; ++e) {
-      float acc = 0.f;
-      const int* pe = obs_s + e * V2;
-#pragma unroll 7
-      for (int slot = 0; slot < V2; ++slot) {
-        const CellRows r = cell_rows(pe[slot], slot);
-        if (r.type >= 0) acc += bf(a.w1[(size_t)r.type * HID + h]);
-        if (r.color >= 0) acc += bf(a.w1[(size_t)r.color * HID + h]);
-        acc += bf(a.w1[(size_t)r.state * HID + h]);
+    // 2. Layer 1: one-hot @ W1 on the tensor cores, a K tile per ring stage,
+    // each warpgroup half the columns.  W1 comes split as hi + lo (its bits
+    // from 2^-16 up, and the rest), so that each sum is exact in the f32
+    // accumulators and their f32 sum is the exact sum rounded once, whatever
+    // the order (a tiny weight's low bits would otherwise be truncated against
+    // a large running sum).  The A fragments of consecutive tiles alternate
+    // between two register sets, so a tile's fragments are built while the
+    // previous tile's wgmmas run.
+    {
+      float acc[HID / 4], acc_lo[HID / 4];
+#pragma unroll
+      for (int i = 0; i < HID / 4; ++i) acc[i] = acc_lo[i] = 0.f;
+      uint32_t frag[2][4];
+      int prev_stage = 0;
+      auto layer1_tile = [&](int kt, uint32_t(&cur)[4], uint32_t(&prev)[4]) {
+        const int shift = 16 * (kt & 1) + 2 * c;
+        const uint32_t w0 = bits_s[r0 * WORDS + kt / 2] >> shift;
+        const uint32_t w1 = bits_s[(r0 + 8) * WORDS + kt / 2] >> shift;
+        cur[0] = onehot_pair(w0);
+        cur[1] = onehot_pair(w1);
+        cur[2] = onehot_pair(w0 >> 8);
+        cur[3] = onehot_pair(w1 >> 8);
+        mbar_wait(&full[stage], phase);
+        const unsigned char* tile = ring + stage * L::STAGE + wg * HID * 16;  // this half's n groups
+        wgmma_fence();
+        mma_half<HID>(acc, cur, b_desc(tile));
+        mma_half<HID>(acc_lo, cur, b_desc(tile + HID * 32));
+        wgmma_commit();
+        // The previous tile's wgmmas are done: its stage and registers free.
+        wgmma_wait<1>();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_operand(prev[i]);
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev_stage]);
+        prev_stage = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      for (int kt = 0; kt < 2 * WORDS; kt += 2) {
+        layer1_tile(kt, frag[0], frag[1]);
+        layer1_tile(kt + 1, frag[1], frag[0]);
       }
-      const int d = direction_row(dir_s[e], V2);
-      if (d >= 0) acc += bf(a.w1[(size_t)d * HID + h]);
-      h_s[e * HID + h] = round_bf16(fmaxf(acc + b1h, 0.f));
-    }
-    __syncthreads();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < HID / 4; ++i) {
+        fence_operand(acc[i]);
+        fence_operand(acc_lo[i]);
+        acc[i] += acc_lo[i];
+      }
+      if (lane == 0) mbar_arrive(&empty[prev_stage]);
+      named_sync(1, CONSUMERS);  // every thread is done with the bits
 
-    // 3. Layer 2: column h for every env.
-    float acc2[B];
+      // h1 = bf16(ReLU(acc + b1)) into the activation rows.
 #pragma unroll
-    for (int e = 0; e < B; ++e) acc2[e] = 0.f;
-    for (int k = 0; k < HID; k += 4) {
-      const float w0 = bf(a.w2[(size_t)(k + 0) * HID + h]);
-      const float w1 = bf(a.w2[(size_t)(k + 1) * HID + h]);
-      const float w2 = bf(a.w2[(size_t)(k + 2) * HID + h]);
-      const float w3 = bf(a.w2[(size_t)(k + 3) * HID + h]);
-#pragma unroll
-      for (int e = 0; e < B; ++e) {
-        const float4 x = *reinterpret_cast<const float4*>(h_s + e * HID + k);
-        acc2[e] = fmaf(x.x, w0, acc2[e]);
-        acc2[e] = fmaf(x.y, w1, acc2[e]);
-        acc2[e] = fmaf(x.z, w2, acc2[e]);
-        acc2[e] = fmaf(x.w, w3, acc2[e]);
+      for (int j = 0; j < HID / 16; ++j) {
+        const int col = HID / 2 * wg + 8 * j + 2 * c;
+        const float2 b = *reinterpret_cast<const float2*>(b1_s + col);
+        act_s[r0 * HW + col / 2] = pack_bf16(fmaxf(acc[4 * j] + b.x, 0.f), fmaxf(acc[4 * j + 1] + b.y, 0.f));
+        act_s[(r0 + 8) * HW + col / 2] =
+            pack_bf16(fmaxf(acc[4 * j + 2] + b.x, 0.f), fmaxf(acc[4 * j + 3] + b.y, 0.f));
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < B; ++e) h_s[e * HID + h] = round_bf16(fmaxf(acc2[e] + b2h, 0.f));
-    __syncthreads();
+    named_sync(1, CONSUMERS);
 
-    // 4. Heads: warp per env, lanes over the hidden units.
-    for (int e = warp; e < B; e += NWARPS) {
-      float part[MAX_HEADS];
+    // 3. Layer 2 on the CUDA cores: each output an f32 FMA chain over k in
+    // order, the plain version's product (a tensor-core sum, in another
+    // order, flips the bf16 rounding of h2 often enough to move the value
+    // past PLAIN_ATOL); then + b2, ReLU, bf16.
+    float acc2[8 * CPT];
 #pragma unroll
-      for (int r = 0; r < MAX_HEADS; ++r) part[r] = 0.f;
-      for (int k = lane; k < HID; k += 32) {
-        const float x = h_s[e * HID + k];
+    for (int i = 0; i < 8 * CPT; ++i) acc2[i] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < HID; k += 2) {
+      float x0[8], x1[8];
 #pragma unroll
-        for (int r = 0; r < MAX_HEADS; ++r) {
-          if (r <= na) part[r] = fmaf(x, bf(a.wh[(size_t)r * HID + k]), part[r]);
+      for (int e = 0; e < 8; ++e) {
+        const uint32_t v = act_s[(8 * eg + e) * HW + k / 2];
+        x0[e] = __uint_as_float(v << 16);
+        x1[e] = __uint_as_float(v & 0xFFFF0000u);
+      }
+      float w0[CPT], w1[CPT];
+      w2_row<HID>(w2_s + (size_t)k * HID, cg, w0);
+      w2_row<HID>(w2_s + (size_t)(k + 1) * HID, cg, w1);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x0[e], w0[q], acc2[e * CPT + q]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x1[e], w1[q], acc2[e * CPT + q]);
+    }
+    named_sync(1, CONSUMERS);  // every thread is done with h1
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int q = 0; q < CPT; q += 2) {
+        const int col = CPT * cg + q;
+        act_s[(8 * eg + e) * HW + col / 2] = pack_bf16(fmaxf(acc2[e * CPT + q] + b2_s[col], 0.f),
+                                                     fmaxf(acc2[e * CPT + q + 1] + b2_s[col + 1], 0.f));
+      }
+    named_sync(1, CONSUMERS);
+
+    // 4. Heads on the tensor cores: h2 @ the head rows, + f32 bias.
+    if (head_warp) {
+      uint32_t h[KT2][4];
+#pragma unroll
+      for (int kk = 0; kk < KT2; ++kk) {
+        h[kk][0] = act_s[r0 * HW + 8 * kk + c];
+        h[kk][1] = act_s[(r0 + 8) * HW + 8 * kk + c];
+        h[kk][2] = act_s[r0 * HW + 8 * kk + 4 + c];
+        h[kk][3] = act_s[(r0 + 8) * HW + 8 * kk + 4 + c];
+      }
+      float hd[4] = {0.f, 0.f, 0.f, 0.f};
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT2; ++kk) wgmma_m64n8k16_rs(hd, h[kk], b_desc(wh_s + kk * MAX_HEADS * 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_operand(hd[i]);
+#pragma unroll
+      for (int kk = 0; kk < KT2; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_operand(h[kk][i]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = 2 * c + u;
+        if (col <= na) {
+          head_s[r0 * MAX_HEADS + col] = hd[u] + a.bh[col];
+          head_s[(r0 + 8) * MAX_HEADS + col] = hd[2 + u] + a.bh[col];
         }
       }
-#pragma unroll
-      for (int r = 0; r < MAX_HEADS; ++r) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) part[r] += __shfl_xor_sync(0xffffffffu, part[r], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < MAX_HEADS; ++r) {
-          if (r <= na) head_s[e * MAX_HEADS + r] = part[r] + a.bh[r];
-        }
-      }
     }
-    __syncthreads();
+    named_sync(1, CONSUMERS);
 
     // 5. Sample, then step and auto-reset.
     if (env_thread) {
       float lg[MAX_HEADS - 1];
 #pragma unroll
-      for (int k = 0; k < MAX_HEADS - 1; ++k) lg[k] = k < na ? head_s[lane * MAX_HEADS + k] : 0.f;
-      const float value = head_s[lane * MAX_HEADS + na];
+      for (int k = 0; k < MAX_HEADS - 1; ++k) lg[k] = k < na ? head_s[tid * MAX_HEADS + k] : 0.f;
+      const float value = head_s[tid * MAX_HEADS + na];
       int action = 0;
       float best = 0.f;
       float m = lg[0];
@@ -260,7 +507,7 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
       a.logp[tn + n] = chosen - (m + logf(se));
       a.value[tn + n] = value;
 
-      typename Ext::Extra& x = x_s[lane];
+      typename Ext::Extra& x = x_s[tid];
       if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, planes, N, a.W, a.H, s, x);
       const Scalars prev = s;
       const Cell f = front_cell(prev, a.W, a.H);
@@ -285,7 +532,7 @@ __global__ void __launch_bounds__(HID, 2) actor_kernel(const Args a, const ExtPa
   }
   if (env_thread) {
     store_scalars(a.sc + n, N, s);
-    Ext::store(a.scal, n, N, p, x_s[lane]);
+    Ext::store(a.scal, n, N, p, x_s[tid]);
   }
 }
 
@@ -297,7 +544,10 @@ template <int V, int HID, class Ext, bool... Fixed>
 void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t stream) {
   constexpr int i = sizeof...(Fixed);
   if constexpr (i == 3) {
-    actor_kernel<V, HID, Ext, Fixed...><<<a.N / B, HID, 0, stream>>>(a, p);
+    auto kernel = actor_kernel<V, HID, Ext, Fixed...>;
+    constexpr int bytes = Smem<V, HID, Ext>::BYTES;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess) return;
+    kernel<<<(a.N + EB - 1) / EB, THREADS, bytes, stream>>>(a, p);
   } else if constexpr (ext_switch<Ext>(i) != SWITCH_ANY) {
     dispatch<V, HID, Ext, Fixed..., ext_switch<Ext>(i) == 1>(a, p, flags, stream);
   } else {
@@ -315,12 +565,35 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 // narrow 64 of the tests.
 extern "C" int actor_rollout_supports_hidden(int hidden) { return hidden == 256 || hidden == 64; }
 
+// One-hot words per env at view size V: W1 comes padded to 32 rows per word.
+extern "C" int actor_rollout_words(int V) { return words_for(V); }
+
+// Dynamic shared memory (bytes) and W1 ring stages of the instantiations of
+// `ext_id` at `hidden` (V = 7), for reports; 0 for an unknown id or size.
+extern "C" int actor_rollout_smem_bytes(int hidden, int ext_id) {
+  int bytes = 0;
+  with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+    bytes = hidden == 256 ? Smem<7, 256, Ext>::BYTES : hidden == 64 ? Smem<7, 64, Ext>::BYTES : 0;
+  });
+  return bytes;
+}
+
+extern "C" int actor_rollout_stages(int hidden, int ext_id) {
+  int stages = 0;
+  with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+    stages = hidden == 256 ? Smem<7, 256, Ext>::STAGES : hidden == 64 ? Smem<7, 64, Ext>::STAGES : 0;
+  });
+  return stages;
+}
+
 // Launches the collection on `stream`; returns a cudaError_t (0 on success).
 // ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal, planes,
 // cplanes and seeds unused); a cached ext takes the cache with its K extra
 // scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
 // planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
-// cache).
+// cache).  w1, w2 and wh are in the tiled layout of hopper.cuh.
 extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
                                     const int* cmis, const int* cscal, int* scal, uint8_t* planes,
@@ -334,7 +607,7 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
                                     int see_through, int ext_id, int max_steps, int n_obstacles,
                                     int num_crossings, int obstacle_cell, int start_x, int start_y,
                                     int start_dir, void* stream) {
-  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % B != 0 || K < 0 || P < 0 || NA < 1 ||
+  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % 32 != 0 || K < 0 || P < 0 || NA < 1 ||
       NA > MAX_HEADS - 1 || !actor_rollout_supports_hidden(hidden)) {
     return (int)cudaErrorInvalidValue;
   }

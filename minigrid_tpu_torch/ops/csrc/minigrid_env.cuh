@@ -306,6 +306,13 @@ __device__ __forceinline__ CellRows cell_rows(int p, int slot) {
                   base + NUM_OBJECTS + NUM_COLORS + s};
 }
 
+// The feature rows of W1 that a view cell holding packed cell `p` selects,
+// as bits from the cell's first row (cell_rows at slot 0).
+__device__ __forceinline__ uint32_t cell_bits(int p) {
+  const CellRows r = cell_rows(p, 0);
+  return (r.type >= 0 ? 1u << r.type : 0u) | (r.color >= 0 ? 1u << r.color : 0u) | (1u << r.state);
+}
+
 // The direction's feature row after the V2 cells' rows, or -1 outside [0, 4).
 __device__ __forceinline__ int direction_row(int d, int V2) {
   return d >= 0 && d < 4 ? V2 * FEATURES_PER_CELL + d : -1;

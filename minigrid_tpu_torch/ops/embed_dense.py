@@ -85,9 +85,28 @@ def _check_inputs(packed, direction) -> tuple[int, int]:
 
 
 def _hidden_ok(hidden: int) -> bool:
-    # What the source takes: 4 hidden units per thread, 256 threads per block
-    # in whole samples, a [20, H] f32 backward tile within 48 KB.
+    # What the source takes: the forward's 4 hidden units per thread, 256
+    # threads per block in whole samples; the backward takes the same sizes
+    # (``backward_width``).
     return 4 <= hidden <= 512 and hidden % 4 == 0 and 256 % (hidden // 4) == 0
+
+
+# The backward kernel's narrowest width: one warpgroup's 64 hidden columns.
+BWD_MIN_WIDTH = 64
+# Samples per backward chunk (``CHUNK`` of ``csrc/embed_dense.cu``).
+BWD_CHUNK = 7296
+
+
+def backward_width(hidden: int) -> int:
+    """The hidden width the backward kernel runs at: ``hidden``, or 64 for a
+    narrower dy, padded with zero columns (their gradients are dropped)."""
+    return max(hidden, BWD_MIN_WIDTH)
+
+
+def backward_scratch_shape(m: int, v2: int, hidden: int) -> tuple[int, int, int]:
+    """[chunks, V*V*20 + 5, width] f32: the backward's per-chunk partials of
+    dW1 and db1 for ``m`` samples, the last chunk ragged."""
+    return -(-m // BWD_CHUNK), v2 * 20 + 5, backward_width(hidden)
 
 
 def _forward(w1, b1, packed, direction) -> torch.Tensor:
@@ -123,15 +142,17 @@ def _backward(packed, direction, dy) -> tuple[torch.Tensor, torch.Tensor]:
     _require(_hidden_ok(hidden), f"hidden size {hidden} is not one the kernel takes")
     _require(dy.dtype == torch.bfloat16, f"dy must be bf16, got {dy.dtype}")
     _require(dy.device == packed.device, "dy and packed on different devices")
-    pk, dr, g = packed.contiguous(), direction.contiguous(), dy.contiguous()
+    width = backward_width(hidden)
+    pk, dr = packed.contiguous(), direction.contiguous()
+    g = dy.contiguous() if width == hidden else torch.nn.functional.pad(dy, (0, width - hidden))
     lib = load_library("embed_dense")
     lib.embed_dense1_bwd_chunks.argtypes = [ctypes.c_int]
     lib.embed_dense1_bwd_chunks.restype = ctypes.c_int
-    chunks = lib.embed_dense1_bwd_chunks(m)
-    rows = v2 * 20 + 4
-    part = torch.empty((chunks, rows + 1, hidden), dtype=torch.float32, device=packed.device)
-    dw1 = torch.empty((rows, hidden), dtype=torch.float32, device=packed.device)
-    db1 = torch.empty((hidden,), dtype=torch.float32, device=packed.device)
+    shape = backward_scratch_shape(m, v2, hidden)
+    _require(lib.embed_dense1_bwd_chunks(m) == shape[0], "the source's chunk size is not BWD_CHUNK")
+    part = torch.empty(shape, dtype=torch.float32, device=packed.device)
+    dw1 = torch.empty((shape[1] - 1, width), dtype=torch.float32, device=packed.device)
+    db1 = torch.empty((width,), dtype=torch.float32, device=packed.device)
     fn = lib.embed_dense1_bwd_launch
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
@@ -139,9 +160,11 @@ def _backward(packed, direction, dy) -> tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         err = fn(
             pk.data_ptr(), dr.data_ptr(), g.data_ptr(), part.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            m, v2, hidden, stream,
+            m, v2, width, stream,
         )
     if err != 0:
         raise RuntimeError(f"embed_dense1 backward kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES["bwd"] += 1
+    if width != hidden:
+        return dw1[:, :hidden].contiguous(), db1[:hidden].contiguous()
     return dw1, db1

@@ -127,3 +127,101 @@ def test_fused_actor_rollout_draws_cache_then_bits(case):
 def test_cpu_is_not_eligible():
     env = mgt.make(ENV_ID)
     assert not ar.supports_fused_actor(env, "cpu", 1024, 256)
+
+
+def test_tiled_weights_give_the_plain_and_jax_policy(case):
+    # The kernel's layouts (W1 padded to whole one-hot words and split hi +
+    # lo, the heads padded to 8 rows) hold the weights exactly: the padded
+    # product equals the unpadded one, and the weights read back give the
+    # plain actor's logits and value, and JAX's logp and value on JAX's
+    # trajectory.
+    weights, traj = case["weights"], case["traj"]
+    tiles = ar.tile_actor_weights(weights, 7)
+    assert ar.onehot_words(7) == 31
+    assert tiles.w1.shape == (62, 2, 8, 2, 8, 8) and tiles.w2.shape == weights.w2.shape
+    assert tiles.wh.shape == (4, 1, 2, 8, 8)
+    hi, lo = ar.untile_b(tiles.w1[:, 0]), ar.untile_b(tiles.w1[:, 1])
+    w1 = hi.double() + lo.double()
+    assert torch.equal(w1[:984], weights.w1.double()) and not w1[984:].any()
+    assert not (hi.double() * 2.0**16).frac().any() and bool((lo.double().abs() < 2.0**-16).all())
+    assert torch.equal(tiles.w2, weights.w2)
+    wh = ar.untile_b(tiles.wh).t()
+    assert torch.equal(wh[: weights.wh.shape[0]], weights.wh) and not wh[weights.wh.shape[0] :].any()
+    from minigrid_tpu_torch.rl.model import embed_obs_packed
+
+    obs, direction, action = traj["obs"].reshape(-1, 49), traj["direction"].reshape(-1), traj["action"].reshape(-1)
+    x = embed_obs_packed(obs, direction).double()
+    padded = torch.nn.functional.pad(x, (0, w1.shape[0] - x.shape[1])) @ w1
+    assert torch.equal(padded, x @ weights.w1.double())
+    read_back = weights._replace(w1=w1[:984].to(torch.bfloat16), wh=wh[: weights.wh.shape[0]])
+    with torch.no_grad():
+        logits, value = ar.actor_policy_reference(read_back, obs, direction)
+        want_logits, want_value = ar.actor_policy_reference(weights, obs, direction)
+    assert torch.equal(logits, want_logits) and torch.equal(value, want_value)
+    logp = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
+    np.testing.assert_allclose(logp.numpy(), traj["logp"].reshape(-1).numpy(), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(value.numpy(), traj["value"].reshape(-1).numpy(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(16, 8), (32, 64), (992, 256), (256, 8)])
+def test_tile_b_puts_each_element_in_its_core_matrix(shape):
+    k, n = shape
+    b = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    flat = ar.tile_b(b).reshape(-1)
+    kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+    # hopper.cuh: (k, n) at tile k/16, ((n/8)*2 + (k%16)/8)*64 + (n%8)*8 + k%8.
+    at = (kk // 16) * (16 * n) + ((nn // 8) * 2 + (kk % 16) // 8) * 64 + (nn % 8) * 8 + kk % 8
+    assert torch.equal(flat[at.reshape(-1)], b.reshape(-1))
+    assert torch.equal(ar.untile_b(ar.tile_b(b)), b)
+
+
+def test_split_w1_sums_are_exact_in_float32():
+    # hi + lo is W1 exactly; sums of up to 148 hi values or of 148 lo values
+    # (as a one-hot row selects) are exact in float32, so hi-sum + lo-sum
+    # rounded once is the exact sum rounded once, as the plain actor's
+    # float64 layer 1 gives it, tiny weights included.
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 0.032, (984, 64))
+    w[rng.random(w.shape) < 0.01] *= 1e-4  # tiny weights, as training leaves some
+    w1 = torch.from_numpy(w).to(torch.bfloat16)
+    hi, lo = ar.split_w1(w1)
+    assert torch.equal(hi.double() + lo.double(), w1.double())
+    rows = torch.from_numpy(rng.integers(0, 984, (512, 148)))
+    exact = w1.double()[rows].sum(dim=1)
+    hi_sum = hi.float()[rows].sum(dim=1)
+    lo_sum = lo.float()[rows].sum(dim=1)
+    assert torch.equal(hi_sum.double(), hi.double()[rows].sum(dim=1))
+    assert torch.equal(lo_sum.double(), lo.double()[rows].sum(dim=1))
+    assert torch.equal(hi_sum + lo_sum, exact.float())
+
+
+class _Shape:
+    def __init__(self, width=8, height=8, num_actions=7):
+        self.width, self.height, self.num_actions = width, height, num_actions
+
+
+@pytest.mark.parametrize(
+    "n, hidden, env, accepted",
+    [
+        (32, 64, _Shape(), True),
+        (96, 256, _Shape(), True),
+        (8192, 256, _Shape(), True),
+        (8224, 64, _Shape(), True),
+        (0, 256, _Shape(), True),
+        (48, 256, _Shape(), False),
+        (8200, 256, _Shape(), False),
+        (64, 128, _Shape(), False),
+        (64, 96, _Shape(), False),
+        (64, 256, _Shape(25, 25), True),
+        (64, 256, _Shape(26, 25), False),
+        (64, 256, _Shape(num_actions=1), True),
+        (64, 256, _Shape(num_actions=8), False),
+    ],
+)
+def test_actor_kernel_takes_the_same_shapes(monkeypatch, n, hidden, env, accepted):
+    # N any multiple of 32 (a last block of 64 half empty), hidden 64 or
+    # 256, 1 to 7 actions, at most 625 cells: the shapes the kernel took
+    # before its blocks grew to 64 envs.
+    assert (ar.shape_refusal(env, n, hidden) is None) == accepted
+    monkeypatch.setattr(ar, "fused_eligible", lambda env, device: True)
+    assert ar.supports_fused_actor(env, "cuda", n, hidden) == accepted

@@ -544,3 +544,56 @@ def test_plain_references_launch_no_obs_kernel(device):
         train_step(state)
         torch.cuda.synchronize()
         assert _launches() == before, make.__name__
+
+
+# The tensor-core actor kernel on every instantiation kind: NoExt with a
+# cache (DoorKey), a counter-reset ext with seeds (Dynamic-Obstacles), a
+# cached ext's scalars (GoToDoor), BabyAI's planes (GoToLocal).
+ACTOR_KINDS = {
+    "cache": "MiniGrid-DoorKey-8x8-v0",
+    "counter": "MiniGrid-Dynamic-Obstacles-8x8-v0",
+    "cached_ext": "MiniGrid-GoToDoor-8x8-v0",
+    "babyai": "BabyAI-GoToLocal-v0",
+}
+ACTOR_MAX_STEPS = 6  # short episodes: resets inside every run
+
+
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("n", [32, 96, 8224])  # a block, one and a half, and 128.5 blocks of 64 envs
+@pytest.mark.parametrize("kind", list(ACTOR_KINDS))
+def test_actor_kernel_takes_every_block_shape(device, kind, n, hidden):
+    env = mgt.make(ACTOR_KINDS[kind], max_steps=ACTOR_MAX_STEPS)
+    t = max(16, -(-16384 // n))  # at least 16384 positions for the near-tie share
+    gen = torch.Generator(device=device).manual_seed(9)
+    _, states = env.reset(n, gen)
+    weights = _biased_actor(env, gen, device, hidden)
+    cache = seeds = None
+    if ar.counter_reset(env):
+        seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, device=device, dtype=torch.int32)
+    else:
+        cache = env.batch_reset_cache(n, t // ACTOR_MAX_STEPS + 2, gen)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise, seeds)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert traj["obs"].shape == (t, n, 49) and int(traj["done"].sum()) >= n
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, reset_seeds=seeds)
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 256])  # 32: dy padded to the kernel's 64 columns
+@pytest.mark.parametrize("m", [1, 4097, 131072 + 17])
+def test_embed_backward_matches_autograd_and_repeats(device, m, hidden):
+    packed, direction, w1, b1, dy = _embed_inputs(device, m, hidden, 4)
+    before = ed.KERNEL_LAUNCHES["bwd"]
+    dw, db = ed._backward(packed, direction, dy)
+    torch.cuda.synchronize()
+    assert ed.KERNEL_LAUNCHES["bwd"] == before + 1
+    assert dw.shape == (49 * 20 + 4, hidden) and db.shape == (hidden,) and dw.dtype == torch.float32
+    w1p, b1p = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+    want = torch.autograd.grad(ed.embed_dense1_reference(w1p, b1p, packed, direction), (w1p, b1p), dy)
+    for got, ref in zip((dw, db), want):
+        scale = max(1.0, float(ref.abs().max()))
+        torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2 * scale)
+    dw2, db2 = ed._backward(packed, direction, dy)
+    assert torch.equal(dw2, dw) and torch.equal(db2, db)  # bit-identical twice

@@ -97,3 +97,46 @@ def test_reference_fields_out_of_range_select_no_row():
     out = ed.embed_dense1_reference(w1, b1, packed, direction)
     assert out[0].tolist() == [19.0] * 4  # the clipped state row only
     assert out[1].tolist() == [3.0 + 13.0 + 18.0 + 21.0] * 4
+
+
+@pytest.mark.parametrize("m", [1, 4097, ed.BWD_CHUNK, ed.BWD_CHUNK + 1, 131072 + 17])
+@pytest.mark.parametrize("hidden", [32, 256])
+def test_backward_scratch_covers_ragged_m(m, hidden):
+    chunks, rows, width = ed.backward_scratch_shape(m, 49, hidden)
+    assert (chunks - 1) * ed.BWD_CHUNK < m <= chunks * ed.BWD_CHUNK
+    assert rows == 49 * 20 + 5  # dW1's rows and db1's
+    assert width == max(hidden, 64) and width % 64 == 0
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_padded_backward_width_gives_the_plain_and_jax_gradient(case, hidden):
+    # The backward kernel runs at least 64 columns wide: a narrower dy is
+    # padded with zero columns and their gradients dropped.  The padded
+    # problem's plain gradient, sliced, is the unpadded one and JAX's.
+    packed, direction, _ = case
+    rng = np.random.default_rng(hidden)
+    m = packed.shape[0]
+    w1 = torch.from_numpy(rng.normal(0, 0.03, (49 * 20 + 4, hidden)).astype(np.float32))
+    b1 = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1e-2, (m, hidden)).astype(np.float32)).to(torch.bfloat16)
+    pk, dr = torch.from_numpy(packed), torch.from_numpy(direction)
+    pad = ed.backward_width(hidden) - hidden
+
+    def grads(w, b, g):
+        w, b = w.clone().requires_grad_(), b.clone().requires_grad_()
+        return torch.autograd.grad(ed.embed_dense1_reference(w, b, pk, dr), (w, b), g)
+
+    f = torch.nn.functional.pad
+    dw_p, db_p = grads(f(w1, (0, pad)), f(b1, (0, pad)), f(dy, (0, pad)))
+    dw, db = grads(w1, b1, dy)
+    _, vjp = jax.vjp(
+        lambda w, b: j_embed_dense1(w, b, jnp.asarray(packed), jnp.asarray(direction), 7, interpret=True),
+        jnp.asarray(w1.numpy()), jnp.asarray(b1.numpy()),
+    )
+    j_dw, j_db = vjp(jnp.asarray(dy.float().numpy()).astype(jnp.bfloat16))
+    for got_p, got, want in ((dw_p, dw, j_dw), (db_p, db, j_db)):
+        want = np.asarray(want, np.float32)
+        scale = max(1.0, float(np.abs(want).max()))
+        assert not got_p[..., hidden:].any()
+        torch.testing.assert_close(got_p[..., :hidden].float(), got.float(), rtol=0, atol=2e-2 * scale)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-2 * scale)
