@@ -9,8 +9,10 @@ Phases, one output line each; any failure raises and exits non-zero:
 2. build every kernel from ``minigrid_tpu_torch/ops/csrc`` (one ``nvcc`` per
    source, side by side); print ptxas' registers and spills per
    instantiation, the actor kernel's dynamic shared memory and W1 ring
-   stages per ext and hidden size, and the embed + dense-1 backward's
-   registers, spills and shared memory per warpgroup count;
+   stages per ext and hidden size, the embed + dense-1 backward's
+   registers, spills and shared memory per warpgroup count, and its
+   forward's registers and spills per slab width with the slab and
+   warpgroups it runs at a PPO minibatch;
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
    ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
    GoToDoor and GoToObject with their targets) through the port's core
@@ -28,7 +30,7 @@ Phases, one output line each; any failure raises and exits non-zero:
    both timed against the plain version;
 6. the fused embed + dense-1 kernels at a PPO minibatch (131072 samples,
    hidden 256): forward against the plain version to atol 2e-2, backward
-   against plain autograd to atol 2e-2 x max(1, |g|max), the backward twice
+   against plain autograd to atol 2e-2 x max(1, |g|max), each twice
    bit-identical, each timed against the plain version;
 7. the learner slice: ``make_ppo`` on ``MiniGrid-Empty-8x8-v0`` at 8192 envs x
    128 steps, hidden 256, three train steps through the kernels (the actor
@@ -99,7 +101,8 @@ Phases, one output line each; any failure raises and exits non-zero:
    rollout/update split);
 15. the stepwise API with observations through the observation kernel: the
    kernel bit-exact with its plain version on object-rich random states
-   (65536 on an 8x8 grid, 16384 on a 22x22 grid) at every built view size
+   (65536 on an 8x8 grid, which its staged instantiation takes, 16384 on a
+   22x22 and 4096 on a 25x25 grid, read in place) at every built view size
    and both values of ``see_through_walls``; then bench.py's
    ``obs_consumed_xla_steps_per_sec`` loop through the port's entry points,
    ``make("MiniGrid-Empty-8x8-v0")``, ``env.reset`` of 65536 envs and 256
@@ -142,6 +145,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import copy
 import json
 import re
@@ -230,9 +234,10 @@ BABYAI_IDS = ("BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0")
 BABYAI_ENVS = 16384
 GOTOLOCAL_ID = BABYAI_IDS[0]
 # The stepwise API with observations (bench.py's obs_consumed_xla loop) and
-# the wrappers: object-rich states for the observation kernel on an 8x8 and
-# a 22x22 grid, the wrapped DoorKey-8x8 loop, and the RGB frames' size.
-OBS_CHECK_SIZES = ((NUM_ENVS, 8, 8), (16384, 22, 22))
+# the wrappers: object-rich states for the observation kernel on an 8x8 grid
+# (staged in shared memory) and on a 22x22 and a 25x25 one (read in place),
+# the wrapped DoorKey-8x8 loop, and the RGB frames' size.
+OBS_CHECK_SIZES = ((NUM_ENVS, 8, 8), (16384, 22, 22), (4096, 25, 25))
 WRAPPED_STEPS = 64
 RGB_ENVS = 4096
 RGB_STEPS = 8
@@ -244,6 +249,9 @@ ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+# The spin that device_ms puts before its calls: 100M cycles, 50 ms or more
+# at the H100's clocks of at most 1.98 GHz.
+SPIN_CYCLES = 100_000_000
 # Integer operations of one threefry2x32-20 evaluation: 20 rounds of add,
 # rotate and xor, 5 key injections of 3 adds, 2 initial adds, 2 xors.
 THREEFRY_OPS = 79
@@ -527,19 +535,32 @@ def tensor_core_report() -> str:
         for i, ext in enumerate(EXT_NAMES)
         for h in ar.COMPILED_HIDDEN
     ]
-    bwd = []
+    bwd, fwd = [], []
     log = _build.BUILD_INFO.get("embed_dense", (0.0, ""))[1]
     for block in log.split("Compiling entry function")[1:]:
         nwg = re.search(r"embed_bwd_partial_kernelILi(\d+)E", block)
+        slab = re.search(r"embed_fwd_kernelILi(\d+)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
+        if slab and regs:
+            fwd.append(f"slabs of {slab.group(1)}: {regs.group(1)} registers, {frame.group(2) if frame else 0} bytes spilled")
         if nwg and regs:
             w = int(nwg.group(1))
             bwd.append(
                 f"{w} warpgroup(s): {regs.group(1)} registers, {frame.group(2) if frame else 0} bytes spilled, "
                 f"{embed.embed_dense1_bwd_smem_bytes(64 * w)} bytes"
             )
-    return "actor_rollout dynamic shared memory: " + "; ".join(parts) + ". embed_dense1 backward: " + "; ".join(bwd)
+    for fn in (embed.embed_dense1_fwd_slab_width, embed.embed_dense1_fwd_warpgroups):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    v2 = 49
+    fwd.append(
+        f"at V*V={v2}, H={PPO_HIDDEN}: slabs of {embed.embed_dense1_fwd_slab_width(v2, PPO_HIDDEN)} columns, "
+        f"{embed.embed_dense1_fwd_warpgroups(v2, PPO_HIDDEN)} warpgroups a CTA"
+    )
+    return (
+        "actor_rollout dynamic shared memory: " + "; ".join(parts) + ". embed_dense1 backward: " + "; ".join(bwd)
+        + ". embed_dense1 forward: " + "; ".join(fwd)
+    )
 
 
 def time_ms(fn, reps: int) -> float:
@@ -552,6 +573,40 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: a spin kernel holds the
+    stream while the host enqueues ``reps`` calls, so that the events
+    bracket the device's work and not the wrapper's host time (K4's wrapper
+    takes longer on the host than its kernel on the card).  Fails if the
+    host took more than half the spin to enqueue them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(host_s < 0.5 * SPIN_CYCLES / 2.0e9, f"enqueueing {reps} calls took {host_s:.4f} s, past the spin")
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn``: the wrapper's checks,
+    allocations and launch, without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e6
 
 
 def event_ms(fn) -> float:
@@ -585,6 +640,7 @@ def embed_dense_check(device, card: str) -> list[dict]:
     check(out_k.dtype == torch.bfloat16 and out_k.shape == (EMBED_SAMPLES, PPO_HIDDEN), "forward output")
     fwd_err = float((out_k.float() - out_p.float()).abs().max())
     check(fwd_err <= BF16_ATOL, f"embed_dense1 forward differs from the plain version by {fwd_err}")
+    check(torch.equal(out_k, ed.embed_dense1(w1, b1, packed, direction)), "the forward is not deterministic")
 
     w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
     dw_k, db_k = torch.autograd.grad(ed.embed_dense1(w1g, b1g, packed, direction), (w1g, b1g), dy)
@@ -607,11 +663,11 @@ def embed_dense_check(device, card: str) -> list[dict]:
     bwd_p = partial(torch.autograd.grad, plain_out, (w1g, b1g), dy, retain_graph=True)
     times = {}
     for name, k, p in (("fwd", fwd_k, fwd_p), ("bwd", bwd_k, bwd_p)):
-        tp1, tk1, tk2, tp2 = time_ms(p, 10), time_ms(k, 10), time_ms(k, 10), time_ms(p, 10)
+        tp1, tk1, tk2, tp2 = time_ms(p, 10), device_ms(k, 10), device_ms(k, 10), time_ms(p, 10)
         times[name] = (min(tk1, tk2), min(tp1, tp2))
         print(
             f"embed_dense1 {name} ({card}) M={EMBED_SAMPLES} H={PPO_HIDDEN}: kernel {times[name][0]:.4f} ms, "
-            f"plain {times[name][1]:.4f} ms",
+            f"plain {times[name][1]:.4f} ms, the wrapper's host time {host_us(k, 20):.1f} us a call",
             flush=True,
         )
     # The library yardstick: one embedding_bag over the 148 rows each sample
@@ -640,7 +696,7 @@ def embed_dense_check(device, card: str) -> list[dict]:
     phase(
         6,
         f"embed_dense1 at M={EMBED_SAMPLES}, H={PPO_HIDDEN}: forward max abs err {fwd_err}, "
-        f"backward max abs err {bwd_err}, backward bit-identical across calls",
+        f"backward max abs err {bwd_err}, forward and backward bit-identical across calls",
     )
 
     def entry(name, line, err):
@@ -1168,6 +1224,9 @@ def obs_kernel_check(device) -> tuple[int, int]:
     difference of kernel and plain version over them."""
     rng = np.random.default_rng(15)
     cases, err = 0, 0
+    staged = _build.load_library("obs_packed").obs_packed_staged
+    staged.argtypes, staged.restype = [ctypes.c_int] * 2, ctypes.c_int
+    check([bool(staged(w, h)) for _, w, h in OBS_CHECK_SIZES] == [True, False, False], "K4's grid instantiations")
     for n, w, h in OBS_CHECK_SIZES:
         states = state_from_numpy(random_states(rng, (n,), w, h), device)
         for v in op.BUILT_VIEW_SIZES:
@@ -1232,7 +1291,7 @@ def obs_slice(device, card: str) -> dict:
     phase(
         15,
         f"observation kernel == plain version (max abs err {err}) on {cases} cases (sizes {OBS_CHECK_SIZES}, v {op.BUILT_VIEW_SIZES}, "
-        "see_through_walls both), nonzero == visible",
+        "see_through_walls both; the 8x8 grid staged, the others read in place), nonzero == visible",
     )
 
     env = mgt.make(ENV_ID)
@@ -1272,7 +1331,7 @@ def obs_slice(device, card: str) -> dict:
     args = (*obs_args(final), env.agent_view_size, env.see_through_walls)
     k = partial(op.fused_obs_packed, *args)
     p = partial(op.fused_obs_packed_reference, *args)
-    zp1, zk1, zk2, zp2 = time_ms(p, 5), time_ms(k, 50), time_ms(k, 50), time_ms(p, 5)
+    zp1, zk1, zk2, zp2 = time_ms(p, 5), device_ms(k, 50), device_ms(k, 50), time_ms(p, 5)
     k_ms, p_ms = min(zk1, zk2), min(zp1, zp2)
     err = max(err, int((k() - p()).abs().max()))
     steps = NUM_ENVS * NUM_STEPS
@@ -1285,7 +1344,7 @@ def obs_slice(device, card: str) -> dict:
     )
     print(
         f"obs_packed ({card}) {NUM_ENVS} envs, v={env.agent_view_size}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-        f"per call",
+        f"per call, the wrapper's host time {host_us(k, 50):.1f} us a call",
         flush=True,
     )
     for label, plain_obs in (("observation kernel", False), ("plain observation", True)):

@@ -8,13 +8,22 @@
 // W1 [F, H].  A field outside its range selects no row, as the one-hot
 // comparison does.
 //
-// Forward: out[m] = bf16(bf16(onehot(m) @ bf16(W1)) + bf16(b1)).  One-hot @ W1
-// is a gather-sum: the f32 sum of the 3*V*V + 1 rows of W1 the sample
-// selects (148 for V = 7), so the one-hot matrix exists nowhere.  A group of
-// H/4 threads owns a sample, each thread 4 hidden units read as one 8-byte
-// load, so a group reads whole 2*H-byte rows, coalesced.  Rounding follows
-// the TPU kernel (embed_dense.py:112): the sum is rounded to bf16 first,
-// then bf16(b1) is added and the result rounded again.
+// Forward: out[m] = bf16(bf16(onehot(m) @ bf16(W1)) + bf16(b1)), the
+// one-hot product on the tensor cores, as the TPU kernel runs it on the MXU
+// (embed_dense.py:103-112).  A first kernel turns each sample's cells into
+// its one-hot words (32 feature rows a word), once.  In the second, each
+// CTA holds a slab of 64 hidden columns of bf16(W1) (992 rows at V = 7,
+// 127 KB; narrower slabs for larger views, a narrower H padded with zero
+// columns) resident in shared memory for the whole call, cast from f32 as
+// it loads; 33 CTAs a slab at H = 256 cover the 132 SMs.  Each of a CTA's
+// four warpgroups walks its own 64-sample M tiles: the tile's words arrive
+// by cp.async while the previous tile's products run; the A fragments
+// (bf16 0/1) come from the words in registers, a shift, two prmt and two
+// ands a row and K tile, because the slab's K order puts each lane's bits
+// at the top of a byte (fwd_row); wgmma m64nNSk16 accumulates in f32 over
+// the K tiles in order, so two calls give the same bits.  The epilogue
+// rounds as the TPU kernel does (the sum to bf16, then + bf16(b1), rounded
+// again) into shared memory, and the tile's rows leave as 16-byte stores.
 //
 // Backward: dW1 = onehot^T @ dy and db1 = sum_m dy, accumulated in f32, and
 // deterministic as the TPU kernel's sequential grid is.  Pass 1 is a
@@ -28,19 +37,25 @@
 // partial; pass 2 adds the partials over the chunks in chunk order.  Two
 // calls on the same inputs give the same bits.
 //
-// What bounds it on this card.  Forward: loads from L2 (W1 in bf16 is
-// 504 KB at H = 256 and stays resident): 148 rows of 512 bytes per sample,
-// against the one-hot product's 984 x 256 MACs per sample on the tensor
-// cores.  The gather does 1/6.6 of the product's reads but runs on the
-// load path, not the tensor cores.  Backward: the product is 1120 x H
-// multiply-adds per sample at the tensor cores' rate (7 tiles of 160 rows
-// at V = 7), and each of a chunk's 7 CTAs reads the chunk's dy rows, from
-// L2 after the first: 7 x 2 H bytes per sample through an SM's share of the
-// L2 bandwidth, about as long as the product.  At M = 131072 the 7 x 18
-// CTAs are one wave on the 132 SMs.  The partials (a [985, H] f32 tile per
-// chunk) are a write and a read of 4 bytes per row and column per chunk.
-// A cluster multicasting each dy stage to a chunk's tiles would cut the L2
-// traffic 7-fold.
+// What bounds it on this card.  Forward: the operations of the padded
+// product, 992 x 256 multiply-adds per sample (66.6 GFLOP at M = 131072,
+// 0.067 ms on the tensor cores), and the bytes it must move (26 MB of
+// packed cells in, 67 MB out, 0.028 ms).  The tensor cores run
+// m64n64k16 at their full rate, but the warps that issue the wgmmas also
+// build the A fragments (~12 instructions a K tile per thread) and pass
+// the warpgroup's fence, commit and wait: on the H100 (700 W) the builds
+// and the wgmmas alone take about as long, and four warpgroups a SM overlap
+// them only in part, so the call runs at ~3x the tensor cores' floor
+// (tools/embed_forward_split.py).  The words kernel reads the packed cells
+// once (the second kernel reads 16 MB of words once per slab, from L2).
+// Backward: the product is 1120 x H multiply-adds per sample at the tensor
+// cores' rate (7 tiles of 160 rows at V = 7), and each of a chunk's 7 CTAs
+// reads the chunk's dy rows, from L2 after the first: 7 x 2 H bytes per
+// sample through an SM's share of the L2 bandwidth, about as long as the
+// product.  At M = 131072 the 7 x 18 CTAs are one wave on the 132 SMs.
+// The partials (a [985, H] f32 tile per chunk) are a write and a read of 4
+// bytes per row and column per chunk.  A cluster multicasting each dy
+// stage to a chunk's tiles would cut the L2 traffic 7-fold.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -56,7 +71,6 @@ using namespace minigrid;
 using namespace hopper;
 
 constexpr int PER_CELL = FEATURES_PER_CELL;  // 20
-constexpr int FWD_THREADS = 256;
 constexpr int KC = 64;             // samples per ring stage
 constexpr int CHUNK = 114 * KC;    // samples per backward CTA: 18 chunks x 7 tiles at M = 131072, one wave
 constexpr int CELLS_PER_TILE = 8;  // view cells per backward row tile
@@ -65,45 +79,288 @@ constexpr int STAGES = 4;          // the dy ring
 
 __device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Adds 4 bf16 values at `row` (8-byte aligned) into acc.
-__device__ __forceinline__ void add_row4(float acc[4], const __nv_bfloat16* row) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(row);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  acc[0] += __low2float(lo);
-  acc[1] += __high2float(lo);
-  acc[2] += __low2float(hi);
-  acc[3] += __high2float(hi);
+// The forward, in two kernels.  The first turns each sample's packed cells
+// and direction into its one-hot words (feature row f is bit f % 32 of word
+// f / 32), once, into a scratch [M, words].  In the second, a CTA holds one
+// slab of NS hidden columns of bf16(W1) (blockIdx.y) in shared memory for
+// the whole call and has up to FWD_MAX_WG consumer warpgroups, each walking
+// its own M tiles of 64 samples (a stride of gridDim.x * warpgroups tiles).
+constexpr int FWD_MAX_WG = 4;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may opt into
+constexpr int FWD_TILE = 64;        // samples per M tile: one wgmma M
+constexpr int WORDS_THREADS = 256;  // threads of a words block
+constexpr int WORDS_ROWS = 8;       // samples per warp of the words kernel
+
+__host__ __device__ constexpr int fwd_words(int V2) { return (V2 * PER_CELL + 4 + 31) / 32; }
+// Words in the products: an even number, W1's rows padded with zeros to
+// 64 of them a pair of words.
+__host__ __device__ constexpr int fwd_words_even(int V2) { return (fwd_words(V2) + 1) & ~1; }
+// A tile's row of words in shared memory: at least the words, 2 mod 4.
+__host__ __device__ constexpr int fwd_row_stride(int V2) { return fwd_words(V2) + ((2 - fwd_words(V2)) & 3); }
+
+// The second kernel's dynamic shared memory, in bytes from the base: the
+// slab (2 * words_even K tiles of NS x 16 bf16 in the B layout), bf16(b1)
+// of the slab's columns as floats, then per warpgroup two buffers, one for
+// the tile in the products and one for the next tile's words, arriving.  A
+// buffer holds first a tile's words ([64][ws], ws = 2 mod 4, so that the 8
+// rows whose word pairs a warp's lanes read as 8 bytes fall in distinct
+// banks) and then its bf16 output ([64] rows of 2 * NS + 16 bytes: the
+// epilogue's lanes write distinct banks).
+struct FwdLayout {
+  int words, pairs, ws, bias, wg0, stage_row, buf;
+  __host__ __device__ FwdLayout(int V2, int NS)
+      : words(fwd_words(V2)),
+        pairs(fwd_words_even(V2) / 2),
+        ws(fwd_row_stride(V2)),
+        bias(64 * fwd_words_even(V2) * NS),
+        wg0(64 * fwd_words_even(V2) * NS + NS * 4),
+        stage_row(2 * NS + 16),
+        buf((max(FWD_TILE * fwd_row_stride(V2) * 4, FWD_TILE * (2 * NS + 16)) + 15) / 16 * 16) {}
+  __host__ __device__ int bytes(int nwg) const { return wg0 + nwg * 2 * buf; }
+};
+
+// The one-hot words, a warp per WORDS_ROWS samples: their packed cells,
+// read coalesced, 8 loads in flight a lane, turned into the feature bits
+// each selects (cell_bits; the direction as one more cell of 4 rows, none
+// outside [0, 4)) in shared memory, then a lane per word, the OR of the
+// cells whose 20 rows overlap it, written out coalesced.
+__global__ void __launch_bounds__(WORDS_THREADS)
+    embed_fwd_words_kernel(const int* __restrict__ packed, const int* __restrict__ dir,
+                           uint32_t* __restrict__ words, int M, int V2) {
+  extern __shared__ uint32_t cb[];  // [warps][WORDS_ROWS][V2 + 1]
+  const int lane = threadIdx.x & 31;
+  const int m0 = (blockIdx.x * (WORDS_THREADS / 32) + (threadIdx.x >> 5)) * WORDS_ROWS;
+  if (m0 >= M) return;
+  const int rows = min(WORDS_ROWS, M - m0);
+  const int cells = V2 + 1;
+  uint32_t* tile = cb + (threadIdx.x >> 5) * WORDS_ROWS * cells;
+  const int* pk = packed + (size_t)m0 * V2;
+  for (int s0 = 0; s0 < V2; s0 += 32) {
+    const int s = s0 + lane;
+    int v[WORDS_ROWS];
+#pragma unroll
+    for (int r = 0; r < WORDS_ROWS; ++r) v[r] = s < V2 && r < rows ? pk[r * V2 + s] : 0;
+#pragma unroll
+    for (int r = 0; r < WORDS_ROWS; ++r) {
+      if (s < V2) tile[r * cells + s] = cell_bits(v[r]);
+    }
+  }
+  if (lane < rows) {
+    const int d = dir[m0 + lane];
+    tile[lane * cells + V2] = d >= 0 && d < 4 ? 1u << d : 0u;
+  }
+  __syncwarp();
+  const int nw = fwd_words(V2);
+  for (int r = 0; r < rows; ++r) {
+    const uint32_t* row = tile + r * cells;
+    for (int w = lane; w < nw; w += 32) {
+      const int s1 = min((32 * w + 31) / PER_CELL, V2);
+      uint32_t word = 0;
+      for (int s = (32 * w) / PER_CELL; s <= s1; ++s) {
+        const int sh = PER_CELL * s - 32 * w;
+        word |= sh >= 0 ? row[s] << sh : row[s] >> -sh;
+      }
+      words[(size_t)(m0 + r) * nw + w] = word;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(FWD_THREADS)
-    embed_fwd_kernel(const int* __restrict__ packed, const int* __restrict__ dir,
-                     const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+// D[64, NS] += A[64, 16] x B[16, NS].
+template <int NS>
+__device__ __forceinline__ void fwd_mma(float (&d)[NS / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (NS == 64) {
+    wgmma_m64n64k16_rs(d, a, desc);
+  } else if constexpr (NS == 32) {
+    wgmma_m64n32k16_rs(d, a, desc);
+  } else if constexpr (NS == 16) {
+    wgmma_m64n16k16_rs(d, a, desc);
+  } else {
+    wgmma_m64n8k16_rs(d, a, desc);
+  }
+}
+
+// The K order of the slab.  Lane l of a warp (c = l % 4) needs, for K
+// tile 2w + p of a row, the one-hot bits of K columns 8h + 2c + e (h, e
+// in {0, 1}) as the bf16 pairs a[h] (e = 0 in the low half).  The slab's K
+// column 8h + 2c + e of tile 2w + p holds W1's row 32w + i with
+// i = 8 * (2h + e) + 7 - c - 4p, so that after the word is shifted left by
+// c + 4p those bits are the top bits of its bytes 2h + e, which prmt
+// spreads into the pair (onehot_sign_pair): one shift, two prmt and two
+// ands give a row's two fragment registers.  The sum over K is the same
+// in any order.
+__device__ __forceinline__ int fwd_row(int kt, int kk) {
+  const int p = kt & 1, h = kk >> 3, c = (kk >> 1) & 3, e = kk & 1;
+  return 32 * (kt >> 1) + 8 * (2 * h + e) + 7 - c - 4 * p;
+}
+
+template <int NS>
+__global__ void __launch_bounds__(FWD_MAX_WG * 128)
+    embed_fwd_kernel(const uint32_t* __restrict__ words, const float* __restrict__ w1, const float* __restrict__ b1,
                      __nv_bfloat16* __restrict__ out, int M, int V2, int H) {
-  const int tps = H / 4;  // threads per sample
-  const int spb = FWD_THREADS / tps;
-  const int g = threadIdx.x / tps;
-  const int h0 = 4 * (threadIdx.x % tps);
-  for (int m = blockIdx.x * spb + g; m < M; m += gridDim.x * spb) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const int* pk = packed + (size_t)m * V2;
-    for (int slot = 0; slot < V2; ++slot) {
-      const CellRows r = cell_rows(pk[slot], slot);
-      if (r.type >= 0) add_row4(acc, w1 + (size_t)r.type * H + h0);
-      if (r.color >= 0) add_row4(acc, w1 + (size_t)r.color * H + h0);
-      add_row4(acc, w1 + (size_t)r.state * H + h0);
-    }
-    const int d = direction_row(dir[m], V2);
-    if (d >= 0) add_row4(acc, w1 + (size_t)d * H + h0);
-    float o[4];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdLayout L(V2, NS);
+  const int tid = threadIdx.x;
+  const int nwg = blockDim.x >> 7;
+  const int h0 = blockIdx.y * NS;
+  const int vc = min(NS, H - h0);  // the slab's columns inside H (H < NS: the rest are zeros)
+  const int F = V2 * PER_CELL + 4;
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+
+  // The slab: per thread and step 8 K columns of 4 hidden columns, from 8
+  // rows of W1 read 16 bytes a lane (coalesced across the warp), stored as
+  // 16 bytes (8 K columns) per hidden column.
+  for (int u = tid; u < 2 * L.pairs * NS; u += blockDim.x) {
+    const int n = 4 * (u % (NS / 4));
+    const int g8 = u / (NS / 4);  // K tile g8 / 2, half g8 % 2
+    const int kt = g8 >> 1, h = g8 & 1;
+    float4 x[8];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) o[u] = bf(__float2bfloat16_rn(acc[u])) + bf(b1[h0 + u]);
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(out + (size_t)m * H + h0) = raw;
+    for (int j = 0; j < 8; ++j) {
+      const int f = fwd_row(kt, 8 * h + j);
+      x[j] = f < F && n < vc ? *reinterpret_cast<const float4*>(w1 + (size_t)f * H + h0 + n)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    unsigned char* dst = smem + kt * NS * 32 + ((n >> 3) * 2 + h) * 128 + (n & 7) * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(x[0].x, x[1].x), pack_bf16(x[2].x, x[3].x),
+                                                pack_bf16(x[4].x, x[5].x), pack_bf16(x[6].x, x[7].x));
+    *reinterpret_cast<uint4*>(dst + 16) = make_uint4(pack_bf16(x[0].y, x[1].y), pack_bf16(x[2].y, x[3].y),
+                                                     pack_bf16(x[4].y, x[5].y), pack_bf16(x[6].y, x[7].y));
+    *reinterpret_cast<uint4*>(dst + 32) = make_uint4(pack_bf16(x[0].z, x[1].z), pack_bf16(x[2].z, x[3].z),
+                                                     pack_bf16(x[4].z, x[5].z), pack_bf16(x[6].z, x[7].z));
+    *reinterpret_cast<uint4*>(dst + 48) = make_uint4(pack_bf16(x[0].w, x[1].w), pack_bf16(x[2].w, x[3].w),
+                                                     pack_bf16(x[4].w, x[5].w), pack_bf16(x[6].w, x[7].w));
+  }
+  for (int n = tid; n < NS; n += blockDim.x) bias_s[n] = n < vc ? bf(__float2bfloat16_rn(b1[h0 + n])) : 0.f;
+  fence_proxy_async();  // the slab, written by the generic proxy, is read by wgmma
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int lane = tid & 31;
+  const int wl = wt >> 5;  // the warp within its warpgroup: rows 16 wl..16 wl + 15 of a tile
+  const int c = lane & 3;
+  const int bar = 1 + wg;
+  unsigned char* bufs = smem + L.wg0 + wg * 2 * L.buf;
+  const int tiles = (M + FWD_TILE - 1) / FWD_TILE;
+  const int stride = gridDim.x * nwg;
+
+  // Tile t's words into buffer `b`, copied asynchronously while the
+  // previous tile's products run, a warp per row; a row past M and the pad
+  // word of an odd count are zeros.
+  auto fetch = [&](int t, int b) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(bufs + b * L.buf);
+    const int m0 = t * FWD_TILE;
+    for (int r = wl; r < FWD_TILE; r += 4) {
+      for (int w = lane; w < 2 * L.pairs; w += 32) {
+        if (m0 + r < M && w < L.words) {
+          cp_async4(dst + r * L.ws + w, words + (size_t)(m0 + r) * L.words + w);
+        } else {
+          dst[r * L.ws + w] = 0u;
+        }
+      }
+    }
+  };
+
+  int t = blockIdx.x * nwg + wg;
+  int b = 0;
+  if (t < tiles) fetch(t, 0);
+  for (; t < tiles; t += stride, b ^= 1) {
+    const int m0 = t * FWD_TILE;
+    const int rows = min(FWD_TILE, M - m0);
+    cp_async_wait_all();
+    named_sync(bar, 128);  // tile t's words are in; every thread is done with the other buffer
+    if (t + stride < tiles) fetch(t + stride, b ^ 1);
+    unsigned char* buf = bufs + b * L.buf;
+
+    // The product: a group of two words (four K tiles) per wgmma fence,
+    // commit and wait, which synchronise the warpgroup; the A fragments of
+    // group g + 2 built while groups g - 1, g and g + 1 run (four register
+    // sets).
+    float acc[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+    const uint2* wr0 = reinterpret_cast<const uint2*>(buf + (16 * wl + (lane >> 2)) * L.ws * 4);
+    const uint2* wr8 = wr0 + 8 * L.ws / 2;
+    uint32_t fa[4][4], fb[4][4], fc[4][4] = {}, fd[4][4] = {};
+    auto build = [&](int g, uint32_t(&fr)[4][4]) {
+      const uint2 x0 = wr0[g], x1 = wr8[g];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // K tile 4g + k: word 2g + k / 2, p = k % 2
+        const int sh = c + 4 * (k & 1);
+        const uint32_t a0 = (k < 2 ? x0.x : x0.y) << sh, a1 = (k < 2 ? x1.x : x1.y) << sh;
+        fr[k][0] = onehot_sign_pair<0>(a0);
+        fr[k][1] = onehot_sign_pair<0>(a1);
+        fr[k][2] = onehot_sign_pair<2>(a0);
+        fr[k][3] = onehot_sign_pair<2>(a1);
+      }
+    };
+    const uint64_t desc0 = b_desc(smem);
+    // Issues group g's four products from `cur`; once group g - 2 is done,
+    // builds group g + 2 into its registers, `nxt`.
+    auto step = [&](int g, const uint32_t(&cur)[4][4], uint32_t(&nxt)[4][4]) {
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fwd_mma<NS>(acc, cur[k], desc0 + (uint64_t)((4 * g + k) * NS * 2));
+      wgmma_commit();
+      wgmma_wait<2>();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_operand(nxt[k][i]);
+      if (g + 2 < L.pairs) build(g + 2, nxt);
+    };
+    build(0, fa);
+    if (L.pairs > 1) build(1, fb);
+    for (int g = 0; g < L.pairs; g += 4) {
+      step(g, fa, fc);
+      if (g + 1 < L.pairs) step(g + 1, fb, fd);
+      if (g + 2 < L.pairs) step(g + 2, fc, fa);
+      if (g + 3 < L.pairs) step(g + 3, fd, fb);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fence_operand(fa[k][i]);
+        fence_operand(fb[k][i]);
+        fence_operand(fc[k][i]);
+        fence_operand(fd[k][i]);
+      }
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) fence_operand(acc[i]);
+    named_sync(bar, 128);  // every warp is done with the words
+
+    // Epilogue: bf16(bf16(sum) + bf16(b1)) into the output rows (over the
+    // words), then the tile's rows out, 16 bytes (8 columns) a store, rows
+    // past M dropped.
+    {
+      const int r0 = 16 * wl + (lane >> 2);
+      uint32_t* st32 = reinterpret_cast<uint32_t*>(buf);
+      const int sw = L.stage_row / 4;
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        const int col = 8 * j + 2 * c;
+        const float bx = bias_s[col], by = bias_s[col + 1];
+        st32[r0 * sw + col / 2] =
+            pack_bf16(bf(__float2bfloat16_rn(acc[4 * j])) + bx, bf(__float2bfloat16_rn(acc[4 * j + 1])) + by);
+        st32[(r0 + 8) * sw + col / 2] =
+            pack_bf16(bf(__float2bfloat16_rn(acc[4 * j + 2])) + bx, bf(__float2bfloat16_rn(acc[4 * j + 3])) + by);
+      }
+    }
+    named_sync(bar, 128);
+    if (vc % 8 == 0) {
+      const int upr = vc / 8;  // 16-byte units per row
+      for (int q = wt; q < rows * upr; q += 128) {
+        const int r = q / upr, u = q % upr;
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * H + h0 + 8 * u) =
+            *reinterpret_cast<const uint4*>(buf + r * L.stage_row + 16 * u);
+      }
+    } else {  // H = 4: one 8-byte store per row
+      for (int r = wt; r < rows; r += 128) {
+        *reinterpret_cast<uint2*>(out + (size_t)(m0 + r) * H) = *reinterpret_cast<const uint2*>(buf + r * L.stage_row);
+      }
+    }
   }
 }
 
@@ -312,9 +569,28 @@ __global__ void embed_bwd_reduce_kernel(const float* __restrict__ part, float* _
   }
 }
 
-// Hidden sizes of the forward: 4 hidden units per thread, 256 threads per
-// block in whole samples.
-bool hidden_ok(int H) { return H >= 4 && H <= 512 && H % 4 == 0 && FWD_THREADS % (H / 4) == 0; }
+// Hidden sizes of both directions: a power of two from 4 to 512 (the
+// forward's slabs of up to 64 columns, a narrower H padded to 8).
+bool hidden_ok(int H) { return H >= 4 && H <= 512 && (H & (H - 1)) == 0; }
+
+// The forward's slab width and warpgroups for V2 view cells at hidden size
+// H: the widest slab (64 columns, or H's own width from 8 up) that leaves
+// room for two warpgroups, else for one; false if not even an 8-column
+// slab and one warpgroup fit.
+bool fwd_config(int V2, int H, int* ns, int* nwg) {
+  for (int need = 2; need >= 1; --need) {
+    for (int w = H >= 64 ? 64 : max(8, H); w >= 8; w /= 2) {
+      const FwdLayout L(V2, w);
+      const int fit = (SMEM_LIMIT - L.bytes(0)) / (2 * L.buf);
+      if (fit >= need) {
+        *ns = w;
+        *nwg = min(fit, FWD_MAX_WG);
+        return true;
+      }
+    }
+  }
+  return false;
+}
 
 // Hidden sizes of the backward: whole slabs of 64 columns per warpgroup
 // (a narrower dy comes padded to 64 columns).
@@ -362,20 +638,75 @@ cudaError_t launch_bwd_partial(dim3 grid, const CUtensorMap& dy_map, const int* 
   return cudaGetLastError();
 }
 
+template <int NS>
+cudaError_t launch_fwd(const uint32_t* words, const float* w1, const float* b1, __nv_bfloat16* out, int M, int V2,
+                       int H, int nwg, cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = FwdLayout(V2, NS).bytes(nwg);
+  const cudaError_t err =
+      cudaFuncSetAttribute(embed_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // One CTA a slab per SM, no more than the tiles' warpgroups need.
+  const int slabs = (H + NS - 1) / NS;
+  const int tiles = (M + FWD_TILE - 1) / FWD_TILE;
+  const int per_slab = max(1, min(sms / slabs, (tiles + nwg - 1) / nwg));
+  embed_fwd_kernel<NS><<<dim3(per_slab, slabs), nwg * 128, bytes, s>>>(words, w1, b1, out, M, V2, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// bf16 out [M, H] from packed [M, V2], dir [M], bf16 w1 [V2*20+4, H], bf16 b1 [H].
-extern "C" int embed_dense1_fwd_launch(const int* packed, const int* dir, const void* w1,
-                                       const void* b1, void* out, int M, int V2, int H,
-                                       void* stream) {
-  if (M < 0 || V2 < 1 || !hidden_ok(H)) return (int)cudaErrorInvalidValue;
+// The forward's slab width (hidden columns a CTA holds) for V2 view cells
+// at hidden size H, or 0 if the forward does not take them.
+extern "C" int embed_dense1_fwd_slab_width(int V2, int H) {
+  int ns = 0, nwg = 0;
+  return V2 >= 1 && hidden_ok(H) && fwd_config(V2, H, &ns, &nwg) ? ns : 0;
+}
+
+// The forward's warpgroups per CTA for V2 view cells at hidden size H (0
+// where it does not take them).
+extern "C" int embed_dense1_fwd_warpgroups(int V2, int H) {
+  int ns = 0, nwg = 0;
+  return V2 >= 1 && hidden_ok(H) && fwd_config(V2, H, &ns, &nwg) ? nwg : 0;
+}
+
+// One-hot words per sample of the forward: the scratch `words` of
+// embed_dense1_fwd_launch is int32 [M, this].
+extern "C" int embed_dense1_fwd_words(int V2) { return fwd_words(V2); }
+
+// bf16 out [M, H] from packed [M, V2], dir [M], f32 w1 [V2*20+4, H] and f32
+// b1 [H] (both rounded to bf16 here); `words` is scratch.
+extern "C" int embed_dense1_fwd_launch(const int* packed, const int* dir, const void* w1, const void* b1,
+                                       void* words, void* out, int M, int V2, int H, void* stream) {
+  int ns = 0, nwg = 0;
+  if (M < 0 || V2 < 1 || !hidden_ok(H) || !fwd_config(V2, H, &ns, &nwg)) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
-  const int spb = FWD_THREADS / (H / 4);
-  const int blocks = min((M + spb - 1) / spb, 132 * 16);
-  embed_fwd_kernel<<<blocks, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      packed, dir, static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
-      static_cast<__nv_bfloat16*>(out), M, V2, H);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* wd = static_cast<uint32_t*>(words);
+  const int per_block = WORDS_THREADS / 32 * WORDS_ROWS;
+  const int cb_bytes = per_block * (V2 + 1) * 4;
+  if (cb_bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(embed_fwd_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cb_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  embed_fwd_words_kernel<<<(M + per_block - 1) / per_block, WORDS_THREADS, cb_bytes, s>>>(packed, dir, wd, M, V2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float* w = static_cast<const float*>(w1);
+  const float* b = static_cast<const float*>(b1);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  err = ns == 64   ? launch_fwd<64>(wd, w, b, o, M, V2, H, nwg, s)
+        : ns == 32 ? launch_fwd<32>(wd, w, b, o, M, V2, H, nwg, s)
+        : ns == 16 ? launch_fwd<16>(wd, w, b, o, M, V2, H, nwg, s)
+                   : launch_fwd<8>(wd, w, b, o, M, V2, H, nwg, s);
+  return (int)err;
 }
 
 // Dynamic shared memory (bytes) of the backward's pass 1 at hidden size H.

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the actor kernel and the
-// embed + dense-1 backward: mbarriers, TMA copies (one-dimensional bulk
-// copies and two-dimensional tensor-map boxes), warpgroup MMA (wgmma) with A
-// in registers and B in shared memory, and the shared-memory layout both
-// kernels give B.
+// embed + dense-1 kernels: mbarriers, TMA copies (one-dimensional bulk
+// copies and two-dimensional tensor-map boxes), cp.async, warpgroup MMA
+// (wgmma) with A in registers and B in shared memory, the shared-memory
+// layout all of them give B, and one-hot bits as bf16 A fragments.
 //
 // B layout.  A [K, N] bf16 operand, K a multiple of 16 and N of 8, is
 // stored per K tile of 16 rows as [N/8][2][8][8]: element (k, n) of tile
@@ -168,6 +168,40 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+// D[64, 16] += A[64, 16] (registers) x B[16, 16] (shared memory, descriptor).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// D[64, 64] += A[64, 16] (registers) x B[16, 64] (shared memory, descriptor).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
 // D[64, 160] += A[64, 16] (registers) x B[16, 160] (shared memory, descriptor).
 __device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -226,6 +260,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// Bytes (a multiple of 4 bytes, both addresses 4-byte aligned) from global
+// to shared memory without passing through registers (cp.async); complete
+// once the thread's cp_async_wait_all returns.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Waits for all of this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile(
+      "cp.async.commit_group;\n"
+      "cp.async.wait_group 0;\n" ::
+          : "memory");
+}
+
+// The bf16 pair of 0 and 1 whose lower half is bit 7 of `x`'s byte `lo`
+// and whose upper half is bit 7 of byte `lo + 1` (lo 0 or 2): prmt
+// replicates each byte's top bit across the output bytes it selects.
+template <int LO>
+__device__ __forceinline__ uint32_t onehot_sign_pair(uint32_t x) {
+  constexpr uint32_t SEL = LO == 0 ? 0x9988u : 0xBBAAu;
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0u), "n"(SEL));
+  return r & 0x3F803F80u;
 }
 
 }  // namespace hopper

@@ -11,19 +11,30 @@
 // layout (core/obs.gen_obs_packed), so the TPU wrapper's transpose has no
 // counterpart.
 //
-// One thread owns one env and walks its view row by row from the agent's
-// (j = V-1) up: it reads the row's V cells (view_cell, stride 1), floods the
-// row (flood_row, shared with the rollout kernels), and writes the row out,
-// so it holds one row of cells in registers and no V x V tile.  Every odd V
-// from 3 to 15 and both values of see_through_walls are instantiated.
+// A block owns EB = 64 consecutive envs, a thread each.  The thread walks
+// its env's view row by row from the agent's (j = V-1) up: it reads the
+// row's V cells (view_cell), floods the row (flood_row, shared with the
+// rollout kernels) and writes the row's cells into the block's output tile
+// in shared memory, [EB][V*V] int32 (the tile's odd row stride V*V keeps
+// the threads' writes free of bank conflicts).  After a barrier the block
+// writes its tile, a contiguous slice of `out`, with 16-byte stores.  Where
+// a grid has at most STAGED_MAX_CELLS cells, the block first copies its
+// envs' grid rows, also one contiguous slice, into shared memory with
+// 16-byte loads, each env's row at an odd stride (the envs of a warp that
+// read the same cell hit distinct banks), and view_cell reads them there;
+// a larger grid is read where it lies, each thread inside its own env's
+// row.  Every odd V from 3 to 15, both values of see_through_walls and both
+// ways of reading the grid are instantiated; the launch picks the last by
+// W*H.
 //
-// What bounds it on this card: bytes.  Per env it must read V*V grid cells
-// and 4 scalars and write V*V cells (0.4 KB at V = 7); its integer work is a
-// few hundred operations, far below the CUDA cores' rate.  This first
-// version leaves the layout as it is: a thread's reads fall inside its own
-// env's W*H row (neighbouring threads read neighbouring rows, through L1),
-// and its stores are strided by V*V words across the warp.  Staging a
-// block's output in shared memory to write it coalesced is later work.
+// What bounds it on this card: bytes.  Per env it must read the V*V grid
+// cells it sees and 4 scalars and write V*V cells (0.4 KB at V = 7); its
+// integer work is a few hundred operations, far below the CUDA cores'
+// rate.  With the stores and, on a staged grid, the loads whole 16-byte
+// vectors of contiguous memory, the call moves what it must plus, on a
+// staged grid, the cells of the rows that the view does not see (an 8x8
+// grid's 64 cells against the 49 of a 7x7 view).  A grid read in place is
+// read in the sectors of each env's own row, through L1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,47 +45,119 @@ namespace {
 
 using namespace minigrid;
 
-constexpr int THREADS = 256;
+constexpr int EB = 64;  // envs per block
+// Grids of at most this many cells are staged in shared memory (an env's
+// row of up to 101 words, 26 KB a block).
+constexpr int STAGED_MAX_CELLS = 100;
 
-template <int V, bool SEE_THROUGH>
-__global__ void __launch_bounds__(THREADS)
+// Dynamic shared memory of a block: the output tile and, staged, the grid
+// rows at an odd stride.
+template <int V, bool STAGED>
+int smem_bytes(int WH) {
+  return EB * V * V * 4 + (STAGED ? EB * (WH | 1) * 4 : 0);
+}
+
+template <int V, bool SEE_THROUGH, bool STAGED>
+__global__ void __launch_bounds__(EB)
     obs_packed_kernel(const int* __restrict__ grid, const int* __restrict__ ax, const int* __restrict__ ay,
                       const int* __restrict__ dir, const int* __restrict__ carrying, int* __restrict__ out, int N,
                       int W, int H) {
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
-  const int* g = grid + (size_t)n * W * H;
-  const ViewFrame f = view_frame(ax[n], ay[n], dir[n]);
-  const int carry = carrying[n];
-  int* o = out + (size_t)n * V * V;
-  int up = 1 << (V / 2);
-#pragma unroll
-  for (int j = V - 1; j >= 0; --j) {
-    int row[V];
-    int t = 0;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      row[i] = view_cell<V>(g, 1, W, H, f, i, j);
-      t |= see_behind(row[i]) ? (1 << i) : 0;
+  constexpr int V2 = V * V;
+  extern __shared__ __align__(16) int smem[];
+  int* tile = smem;  // [EB][V2]
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * EB;
+  const int valid = min(EB, N - n0);
+  const int n = n0 + tid;
+  const int WH = W * H;
+  const int* g;
+  if constexpr (STAGED) {
+    // The block's grid rows, grid[n0 * WH, (n0 + valid) * WH), into rows
+    // of P words: cell k of the slice goes to row k / WH (k / WH as
+    // __umulhi(k, ceil(2^32 / WH)), exact for k * WH < 2^32 / WH).
+    const int P = WH | 1;
+    int* stage = smem + EB * V2;
+    const int* src = grid + (size_t)n0 * WH;
+    const int count = valid * WH;
+    const uint32_t magic = 0xFFFFFFFFu / (uint32_t)WH + 1u;
+    auto put = [&](int k, int v) {
+      const int r = (int)__umulhi((uint32_t)k, magic);
+      stage[r * P + k - r * WH] = v;
+    };
+    const int head = min(count, (int)(((16u - ((uintptr_t)src & 15u)) & 15u) >> 2));
+    for (int k = tid; k < head; k += EB) put(k, src[k]);
+    const int nvec = (count - head) >> 2;
+    const int4* vsrc = reinterpret_cast<const int4*>(src + head);
+    for (int q = tid; q < nvec; q += EB) {
+      const int4 v = vsrc[q];
+      const int k = head + 4 * q;
+      put(k, v.x);
+      put(k + 1, v.y);
+      put(k + 2, v.z);
+      put(k + 3, v.w);
     }
-    // The agent cell is lit whatever the flood: `up` seeds row V-1 with it.
-    const int lit = SEE_THROUGH ? (1 << V) - 1 : flood_row<V>(t, up);
-    if (j == V - 1) row[V / 2] = carry != 0 ? (carry & 0xFFFF) : OBJ_EMPTY;
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i * V + j] = ((lit >> i) & 1) ? row[i] : 0;
+    for (int k = head + 4 * nvec + tid; k < count; k += EB) put(k, src[k]);
+    __syncthreads();
+    g = stage + tid * P;
+  } else {
+    g = grid + (size_t)n * WH;
   }
+  if (tid < valid) {
+    const ViewFrame f = view_frame(ax[n], ay[n], dir[n]);
+    const int carry = carrying[n];
+    int* o = tile + tid * V2;
+    int up = 1 << (V / 2);
+#pragma unroll
+    for (int j = V - 1; j >= 0; --j) {
+      int row[V];
+      int t = 0;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        row[i] = view_cell<V>(g, 1, W, H, f, i, j);
+        t |= see_behind(row[i]) ? (1 << i) : 0;
+      }
+      // The agent cell is lit whatever the flood: `up` seeds row V-1 with it.
+      const int lit = SEE_THROUGH ? (1 << V) - 1 : flood_row<V>(t, up);
+      if (j == V - 1) row[V / 2] = carry != 0 ? (carry & 0xFFFF) : OBJ_EMPTY;
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i * V + j] = ((lit >> i) & 1) ? row[i] : 0;
+    }
+  }
+  __syncthreads();
+  // The tile is out[n0 .. n0 + valid), 16-byte aligned (n0 * V2 a multiple
+  // of 4, `out` 16-byte aligned).
+  int* dst = out + (size_t)n0 * V2;
+  const int count = valid * V2;
+  const int nvec = count >> 2;
+  for (int q = tid; q < nvec; q += EB) reinterpret_cast<int4*>(dst)[q] = reinterpret_cast<const int4*>(tile)[q];
+  for (int k = 4 * nvec + tid; k < count; k += EB) dst[k] = tile[k];
+}
+
+template <int V, bool SEE_THROUGH, bool STAGED>
+cudaError_t launch_case(const int* grid, const int* ax, const int* ay, const int* dir, const int* carrying,
+                        int* out, int N, int W, int H, cudaStream_t stream) {
+  const int bytes = smem_bytes<V, STAGED>(W * H);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(obs_packed_kernel<V, SEE_THROUGH, STAGED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (N + EB - 1) / EB;
+  obs_packed_kernel<V, SEE_THROUGH, STAGED><<<blocks, EB, bytes, stream>>>(grid, ax, ay, dir, carrying, out, N, W, H);
+  return cudaGetLastError();
 }
 
 template <int V>
 cudaError_t launch_v(const int* grid, const int* ax, const int* ay, const int* dir, const int* carrying, int* out,
-                     int N, int W, int H, bool see_through, cudaStream_t stream) {
-  const int blocks = (N + THREADS - 1) / THREADS;
+                     int N, int W, int H, bool see_through, cudaStream_t s) {
+  const int wh = W * H;
+  const bool staged = wh >= 2 && wh <= STAGED_MAX_CELLS;
   if (see_through) {
-    obs_packed_kernel<V, true><<<blocks, THREADS, 0, stream>>>(grid, ax, ay, dir, carrying, out, N, W, H);
-  } else {
-    obs_packed_kernel<V, false><<<blocks, THREADS, 0, stream>>>(grid, ax, ay, dir, carrying, out, N, W, H);
+    return staged ? launch_case<V, true, true>(grid, ax, ay, dir, carrying, out, N, W, H, s)
+                  : launch_case<V, true, false>(grid, ax, ay, dir, carrying, out, N, W, H, s);
   }
-  return cudaGetLastError();
+  return staged ? launch_case<V, false, true>(grid, ax, ay, dir, carrying, out, N, W, H, s)
+                : launch_case<V, false, false>(grid, ax, ay, dir, carrying, out, N, W, H, s);
 }
 
 }  // namespace
@@ -82,12 +165,17 @@ cudaError_t launch_v(const int* grid, const int* ax, const int* ay, const int* d
 // Whether view size V was instantiated.
 extern "C" int obs_packed_supports_view(int V) { return V >= 3 && V <= 15 && V % 2 == 1; }
 
-// out int32 [N, V, V] from grid int32 [N, W*H] and ax, ay, dir, carrying
-// int32 [N], on `stream`; returns the launch's CUDA error (0 on success).
+// Whether the grid of a W x H env is staged in shared memory.
+extern "C" int obs_packed_staged(int W, int H) { return W * H >= 2 && W * H <= STAGED_MAX_CELLS; }
+
+// out int32 [N, V, V] (16-byte aligned) from grid int32 [N, W*H] and ax,
+// ay, dir, carrying int32 [N], on `stream`; returns the launch's CUDA error
+// (0 on success).
 extern "C" int obs_packed_launch(const int* grid, const int* ax, const int* ay, const int* dir,
                                  const int* carrying, int* out, int N, int W, int H, int V, int see_through,
                                  void* stream) {
   if (N < 0 || W < 1 || H < 1 || !obs_packed_supports_view(V)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)out & 15u) != 0) return (int)cudaErrorMisalignedAddress;
   if (N == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool st = see_through != 0;

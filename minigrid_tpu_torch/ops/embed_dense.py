@@ -21,6 +21,7 @@ launch the kernels (or raise), CPU tensors run ``embed_dense1_reference``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,7 +31,7 @@ from minigrid_tpu_torch.ops._build import load_library
 # caller reset them).
 KERNEL_LAUNCHES = {"fwd": 0, "bwd": 0}
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -85,9 +86,9 @@ def _check_inputs(packed, direction) -> tuple[int, int]:
 
 
 def _hidden_ok(hidden: int) -> bool:
-    # What the source takes: the forward's 4 hidden units per thread, 256
-    # threads per block in whole samples; the backward takes the same sizes
-    # (``backward_width``).
+    # What the sources take: a power of two from 4 to 512 (the forward's
+    # slabs of up to 64 columns, a narrower width padded to 8; the backward
+    # pads below 64, ``backward_width``).
     return 4 <= hidden <= 512 and hidden % 4 == 0 and 256 % (hidden // 4) == 0
 
 
@@ -117,21 +118,42 @@ def _forward(w1, b1, packed, direction) -> torch.Tensor:
     _require(b1.shape == (hidden,), f"b1 must be [{hidden}], got {tuple(b1.shape)}")
     _require(w1.device == packed.device and b1.device == packed.device, "w1, b1 and packed on different devices")
     _require(w1.is_floating_point() and b1.is_floating_point(), "w1 and b1 must be floating point")
-    w1b = w1.detach().to(torch.bfloat16).contiguous()
-    b1b = b1.detach().to(torch.bfloat16).contiguous()
-    pk, dr = packed.contiguous(), direction.contiguous()
-    out = torch.empty((m, hidden), dtype=torch.bfloat16, device=packed.device)
     lib = load_library("embed_dense")
+    slab, words_per_sample = _forward_shape(lib, v2, hidden)
+    _require(slab > 0, f"a view of {v2} cells does not fit the forward's W1 slab")
+    # The kernel rounds float32 weights to bf16 as it loads them; other
+    # types are rounded here first (exact in float32 after that).
+    w1f, b1f = (t.detach() if t.dtype == torch.float32 else t.detach().to(torch.bfloat16).float() for t in (w1, b1))
+    w1f, b1f, pk, dr = (t.contiguous() for t in (w1f, b1f, packed, direction))
+    if w1f.data_ptr() % 16:  # the kernel reads W1 16 bytes at a time
+        w1f = w1f.clone()
+    words = torch.empty((m, words_per_sample), dtype=torch.int32, device=packed.device)
+    out = torch.empty((m, hidden), dtype=torch.bfloat16, device=packed.device)
     fn = lib.embed_dense1_fwd_launch
     fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = fn(pk.data_ptr(), dr.data_ptr(), w1b.data_ptr(), b1b.data_ptr(), out.data_ptr(), m, v2, hidden, stream)
+        err = fn(
+            pk.data_ptr(), dr.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), words.data_ptr(), out.data_ptr(),
+            m, v2, hidden, stream,
+        )
     if err != 0:
         raise RuntimeError(f"embed_dense1 forward kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES["fwd"] += 1
     return out
+
+
+@functools.cache
+def _forward_shape(lib, v2: int, hidden: int) -> tuple[int, int]:
+    """The forward's slab width (hidden columns of W1 a CTA holds; 0 when
+    a view of ``v2`` cells does not fit) at width ``hidden``, and its
+    one-hot words per sample (the scratch's width)."""
+    for name in ("embed_dense1_fwd_slab_width", "embed_dense1_fwd_words"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.embed_dense1_fwd_slab_width.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.embed_dense1_fwd_words.argtypes = [ctypes.c_int]
+    return lib.embed_dense1_fwd_slab_width(v2, hidden), lib.embed_dense1_fwd_words(v2)
 
 
 def _backward(packed, direction, dy) -> tuple[torch.Tensor, torch.Tensor]:

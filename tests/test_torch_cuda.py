@@ -8,6 +8,8 @@ import no JAX, so they also run where JAX is not installed:
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
+from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
@@ -189,6 +192,45 @@ def test_embed_dense_kernels_match_plain_version(device, hidden):
         torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2 * scale)
     dw2, db2 = ed._backward(packed, direction, dy)
     assert torch.equal(dw2, dw) and torch.equal(db2, db)  # deterministic
+
+
+@pytest.mark.parametrize("hidden", [16, 64, 128, 256, 512])
+@pytest.mark.parametrize("m", [1, 63, 65, 5000, 8192])
+def test_embed_forward_matches_plain_version_and_repeats(device, m, hidden):
+    packed, direction, w1, b1, _ = _embed_inputs(device, m, hidden, 5)
+    before = ed.KERNEL_LAUNCHES["fwd"]
+    out = ed.embed_dense1(w1, b1, packed, direction)
+    again = ed.embed_dense1(w1, b1, packed, direction)
+    torch.cuda.synchronize()
+    assert ed.KERNEL_LAUNCHES["fwd"] == before + 2
+    want = ed.embed_dense1_reference(w1, b1, packed, direction)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, hidden)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    assert torch.equal(out, again)  # bit-identical twice
+
+
+@pytest.mark.parametrize("view_size", [3, 9, 15])  # slabs of 64, 32 and 8 columns
+def test_embed_forward_takes_other_views(device, view_size):
+    rng = np.random.default_rng(view_size)
+    m, v2, hidden = 1000, view_size * view_size, 64
+    fields = [rng.integers(0, hi, (m, v2)) for hi in (13, 8, 4)]  # some types and colors out of range
+    packed = torch.from_numpy((fields[0] | fields[1] << 8 | fields[2] << 16).astype(np.int32)).to(device)
+    direction = torch.from_numpy(rng.integers(-1, 6, m).astype(np.int32)).to(device)
+    w1 = torch.from_numpy(rng.normal(0, 0.03, (v2 * 20 + 4, hidden)).astype(np.float32)).to(device)
+    b1 = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32)).to(device)
+    out = ed.embed_dense1(w1, b1, packed, direction)
+    want = ed.embed_dense1_reference(w1, b1, packed, direction)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("hidden", [48, 1024])
+def test_embed_forward_raises_on_widths_it_does_not_take(device, hidden):
+    packed, direction, _, _, _ = _embed_inputs(device, 64, 64, 1)
+    w1 = torch.zeros(49 * 20 + 4, hidden, device=device)
+    before = ed.KERNEL_LAUNCHES["fwd"]
+    with pytest.raises(ValueError, match=f"hidden size {hidden}"):
+        ed.embed_dense1(w1, torch.zeros(hidden, device=device), packed, direction)
+    assert ed.KERNEL_LAUNCHES["fwd"] == before
 
 
 def _actor_case(device, kind, n=2048, t=16, hidden=64, seed=0):
@@ -479,6 +521,20 @@ def test_obs_kernel_matches_plain_version(device, view_size, see_through):
         assert op.KERNEL_LAUNCHES == before + 1
         want = op.fused_obs_packed_reference(*_obs_inputs(states), view_size, see_through)
         assert got.shape == (n, view_size, view_size) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("see_through", [False, True])
+@pytest.mark.parametrize("size", [5, 8, 25])  # 5x5 and 8x8 staged in shared memory, 25x25 read in place
+@pytest.mark.parametrize("n", [1, 255, 257, 65536])
+def test_obs_kernel_is_exact_on_both_grid_instantiations(device, n, size, see_through):
+    staged = load_library("obs_packed").obs_packed_staged
+    staged.argtypes, staged.restype = [ctypes.c_int] * 2, ctypes.c_int
+    assert staged(size, size) == (size <= 8)
+    states = state_from_numpy(random_states(np.random.default_rng(n + size), (n,), size, size), device)
+    for view_size in op.BUILT_VIEW_SIZES:
+        got = op.fused_obs_packed(*_obs_inputs(states), view_size, see_through)
+        want = op.fused_obs_packed_reference(*_obs_inputs(states), view_size, see_through)
+        assert got.shape == (n, view_size, view_size) and torch.equal(got, want), view_size
 
 
 def test_obs_kernel_raises_on_what_it_does_not_take(device):
