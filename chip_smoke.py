@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``minigrid_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one output line each; any failure raises and exits non-zero:
 
@@ -12,7 +12,8 @@ Phases, one output line each; any failure raises and exits non-zero:
    stages per ext and hidden size, the embed + dense-1 backward's
    registers, spills and shared memory per warpgroup count, and its
    forward's registers and spills per slab width with the slab and
-   warpgroups it runs at a PPO minibatch;
+   warpgroups it runs at a PPO minibatch; the rollout kernel's instrumented
+   copy (phase 17) is built beside them;
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
    ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
    GoToDoor and GoToObject with their targets) through the port's core
@@ -31,7 +32,9 @@ Phases, one output line each; any failure raises and exits non-zero:
 6. the fused embed + dense-1 kernels at a PPO minibatch (131072 samples,
    hidden 256): forward against the plain version to atol 2e-2, backward
    against plain autograd to atol 2e-2 x max(1, |g|max), each twice
-   bit-identical, each timed against the plain version;
+   bit-identical, each timed against the plain version; the forward also at
+   v = 17, 19 and 31, whose slab is streamed through shared memory, on
+   random cells, with the same checks, timed;
 7. the learner slice: ``make_ppo`` on ``MiniGrid-Empty-8x8-v0`` at 8192 envs x
    128 steps, hidden 256, three train steps through the kernels (the actor
    kernel once, the observation kernel once and the embed + dense-1
@@ -102,8 +105,10 @@ Phases, one output line each; any failure raises and exits non-zero:
 15. the stepwise API with observations through the observation kernel: the
    kernel bit-exact with its plain version on object-rich random states
    (65536 on an 8x8 grid, which its staged instantiation takes, 16384 on a
-   22x22 and 4096 on a 25x25 grid, read in place) at every built view size
-   and both values of ``see_through_walls``; then bench.py's
+   22x22 and 4096 on a 25x25 grid, read in place) at every view size it
+   takes, odd 3 to 31 (17 to 31 through its run-time-V path, which reads
+   the grid in place), and both values of ``see_through_walls``; then
+   bench.py's
    ``obs_consumed_xla_steps_per_sec`` loop through the port's entry points,
    ``make("MiniGrid-Empty-8x8-v0")``, ``env.reset`` of 65536 envs and 256
    ``env.step`` calls with ``obs["image"]`` summed into an int32 checksum
@@ -119,7 +124,18 @@ Phases, one output line each; any failure raises and exits non-zero:
    4096 x 8, every observation exact with the plain observation's in
    lockstep, the first timed against it; each wrapped step launches the
    observation kernel once (a wrapper that replaces the image asks its
-   inner env for the rest of the observation without one).
+   inner env for the rest of the observation without one);
+17. the rollout kernel's phase split (``tools/rollout_split.py``: an
+   instrumented copy with per-lane ``clock64()`` sums of the pre-step hook,
+   core step, post-step hook, reset, observation and the wait for the
+   warp) on Empty-8x8 (observations off and on), FourRooms,
+   GoToObject-8x8-N2, Dynamic-Obstacles-8x8, BabyAI-GoToLocal and
+   BabyAI-GoTo at the shapes above, with the wrapper's device work before
+   and after the kernel apart, one JSON line a row;
+18. with ``--parent DIR`` (a checkout, e.g. a ``git archive`` of the parent
+   commit), every rollout-kernel row above and two actor-kernel rows timed
+   in that tree and this one in turns, parent, change, change, parent
+   (``tools/torch_kernel_ab.py``); without it, nothing.
 
 Every learner train step (phases 7, 9, 10, 12, 14) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
@@ -144,6 +160,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import copy
@@ -179,6 +196,7 @@ from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
+from minigrid_tpu_torch.tools import rollout_split
 from minigrid_tpu_torch.utils import golden
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
@@ -238,6 +256,9 @@ GOTOLOCAL_ID = BABYAI_IDS[0]
 # (staged in shared memory) and on a 22x22 and a 25x25 one (read in place),
 # the wrapped DoorKey-8x8 loop, and the RGB frames' size.
 OBS_CHECK_SIZES = ((NUM_ENVS, 8, 8), (16384, 22, 22), (4096, 25, 25))
+# K3's forward past v = 15, where it streams its slab, timed at a PPO
+# minibatch.
+WIDE_VIEWS = (17, 19, 31)
 WRAPPED_STEPS = 64
 RGB_ENVS = 4096
 RGB_STEPS = 8
@@ -706,7 +727,37 @@ def embed_dense_check(device, card: str) -> list[dict]:
             bound(moved[name], ops / CUDA_CORE_OPS_PER_S), library[name],
         )
 
+    for v in WIDE_VIEWS:
+        print(embed_wide_view(device, card, v), flush=True)
     return [entry("fwd", 103, fwd_err), entry("bwd", 115, bwd_err)]
+
+
+def embed_wide_view(device, card: str, v: int) -> str:
+    """Phase 6, a view that streams the slab: the forward at a PPO
+    minibatch on random cells of a v x v view, against the plain version
+    (W1's spread shrunk as 1/v, so that the sums spread as at v = 15),
+    bit-identical twice, both timed."""
+    rng = np.random.default_rng(v)
+    v2 = v * v
+    fields = [rng.integers(0, hi, (EMBED_SAMPLES, v2)) for hi in (11, 6, 3)]
+    packed = torch.from_numpy((fields[0] | fields[1] << 8 | fields[2] << 16).astype(np.int32)).to(device)
+    direction = torch.from_numpy(rng.integers(0, 4, EMBED_SAMPLES).astype(np.int32)).to(device)
+    w1 = torch.from_numpy(rng.normal(0, 0.45 / v, (v2 * 20 + 4, PPO_HIDDEN)).astype(np.float32)).to(device)
+    b1 = torch.from_numpy(rng.normal(0, 0.1, PPO_HIDDEN).astype(np.float32)).to(device)
+    k = partial(ed.embed_dense1, w1, b1, packed, direction)
+    p = partial(ed.embed_dense1_reference, w1, b1, packed, direction)
+    out = k()
+    err = float((out.float() - p().float()).abs().max())
+    check(err <= BF16_ATOL, f"embed_dense1 forward at v={v} differs from the plain version by {err}")
+    check(torch.equal(out, k()), f"the forward at v={v} is not deterministic")
+    streamed = _build.load_library("embed_dense").embed_dense1_fwd_streamed
+    streamed.argtypes, streamed.restype = [ctypes.c_int] * 2, ctypes.c_int
+    tp1, tk1, tk2, tp2 = time_ms(p, 2), device_ms(k, 5), device_ms(k, 5), time_ms(p, 2)
+    return (
+        f"embed_dense1 fwd ({card}) M={EMBED_SAMPLES} H={PPO_HIDDEN} v={v} (slab "
+        f"{'streamed' if streamed(v2, PPO_HIDDEN) == 1 else 'resident'}): kernel {min(tk1, tk2):.4f} ms, plain "
+        f"{min(tp1, tp2):.4f} ms, max abs err {err}, bit-identical twice"
+    )
 
 
 def onehot_rows(packed, direction) -> torch.Tensor:
@@ -1105,9 +1156,9 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
         k = partial(fr.fused_rollout_core, env, states, cache, actions, compute_obs)
         p = partial(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
         times[compute_obs] = (min(time_ms(k, 5), time_ms(k, 5)), event_ms(p))
-    # The wrapper's share of a kernel call: the state and the cache into the
-    # kernel's env-minor layout.
-    layout_ms = time_ms(partial(fr.to_env_minor, states, cache), 5)
+    # The wrapper's share of a kernel call: the buffers it makes, the state's
+    # clones (the cache is read where it lies).
+    layout_ms = time_ms(partial(fr.kernel_buffers, env, states, cache, None), 5)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1122,7 +1173,8 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
             flush=True,
         )
     print(
-        f"wrapper ({card}) {env_id}: env-minor copies of the state and the R={resets} cache "
+        f"wrapper ({card}) {env_id}: the kernel's buffers (the state's grid cloned, the contents and mission "
+        f"too where the family writes them, the ext's packed state; the R={resets} cache read where it lies) "
         f"{layout_ms:.4f} ms of the {times[False][0]:.4f} ms obs-off call",
         flush=True,
     )
@@ -1449,6 +1501,12 @@ def wrapper_slice(device, card: str) -> None:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout to time the rollout kernels against (tools/torch_kernel_ab.py, phase 18)",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
     device = torch.device("cuda", 0)
@@ -1460,9 +1518,14 @@ def main() -> None:
     phase(1, f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    # One nvcc per source, all started together.
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    # One nvcc per source, all started together, and one for the
+    # instrumented copy of the rollout kernel (phase 17).
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        split_build = pool.submit(
+            rollout_split.build_instrumented, _build.CSRC, _build.BUILD_DIR, _build._nvcc(), _build.NVCC_FLAGS
+        )
         list(pool.map(_build.load_library, KERNELS))
+        split_path = split_build.result()
     built = []
     for name in KERNELS:
         if name not in _build.BUILD_INFO:
@@ -1565,6 +1628,17 @@ def main() -> None:
     gotolocal_entry, _ = ppo_slice(device, card, GOTOLOCAL_ID, 14)
     obs_entry = obs_slice(device, card)
     wrapper_slice(device, card)
+    records = rollout_split.run(split_path=split_path)
+    phase(
+        17,
+        f"rollout kernel's phase split (tools/rollout_split.py) on {len(records)} rows: "
+        + "; ".join(f"{r['row']}: reset {r['share']['reset']:.3g}, wait {r['share']['wait']:.3g}" for r in records),
+    )
+    if args.parent is None:
+        phase(18, "no --parent checkout given: the rollout kernels are not timed against one")
+    else:
+        subprocess.run([sys.executable, str(ROOT / "tools" / "torch_kernel_ab.py"), str(args.parent), str(ROOT)], check=True)
+        phase(18, f"the rollout kernels timed against {args.parent} in turns (tools/torch_kernel_ab.py)")
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, actor_entry, actor_ext_entry,

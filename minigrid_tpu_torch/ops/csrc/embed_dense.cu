@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(WORDS_THREADS)
                            uint32_t* __restrict__ words, int M, int V2) {
   extern __shared__ uint32_t cb[];  // [warps][WORDS_ROWS][V2 + 1]
   const int lane = threadIdx.x & 31;
-  const int m0 = (blockIdx.x * (WORDS_THREADS / 32) + (threadIdx.x >> 5)) * WORDS_ROWS;
+  const int m0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * WORDS_ROWS;
   if (m0 >= M) return;
   const int rows = min(WORDS_ROWS, M - m0);
   const int cells = V2 + 1;
@@ -364,6 +364,159 @@ __global__ void __launch_bounds__(FWD_MAX_WG * 128)
   }
 }
 
+// The forward for views whose slab does not fit shared memory beside two
+// warpgroups at any width (v >= 17 at V2 = v*v): the same product, with the slab streamed through
+// shared memory in chunks of FWD_STREAM_WORDS words (64 K rows a word) in
+// its K order.  A CTA's warpgroups take one M tile each, keep its
+// accumulators in registers across the chunks, and for each chunk load the
+// chunk's slab together (a barrier before and after) and each its tile's
+// words; then they issue the chunk's word pairs as the resident kernel
+// does, in the same order, so two calls give the same bits.  The slab is
+// read once per group of the CTA's tiles, from L2.
+constexpr int FWD_STREAM_WORDS = 32;
+
+struct FwdStreamLayout {
+  int ws, bias, wg0, stage_row, buf;
+  __host__ __device__ FwdStreamLayout(int NS)
+      : ws(FWD_STREAM_WORDS + 2),
+        bias(64 * FWD_STREAM_WORDS * NS),
+        wg0(64 * FWD_STREAM_WORDS * NS + NS * 4),
+        stage_row(2 * NS + 16),
+        buf((max(FWD_TILE * (FWD_STREAM_WORDS + 2) * 4, FWD_TILE * (2 * NS + 16)) + 15) / 16 * 16) {}
+  __host__ __device__ int bytes(int nwg) const { return wg0 + nwg * buf; }
+};
+
+template <int NS>
+__global__ void __launch_bounds__(FWD_MAX_WG * 128)
+    embed_fwd_streamed_kernel(const uint32_t* __restrict__ words, const float* __restrict__ w1,
+                              const float* __restrict__ b1, __nv_bfloat16* __restrict__ out, int M, int V2, int H) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdStreamLayout L(NS);
+  const int nw = fwd_words(V2), pairs = fwd_words_even(V2) / 2;
+  const int chunks = (2 * pairs + FWD_STREAM_WORDS - 1) / FWD_STREAM_WORDS;
+  const int tid = threadIdx.x;
+  const int nwg = blockDim.x >> 7;
+  const int h0 = blockIdx.y * NS;
+  const int vc = min(NS, H - h0);
+  const int F = V2 * PER_CELL + 4;
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  for (int n = tid; n < NS; n += blockDim.x) bias_s[n] = n < vc ? bf(__float2bfloat16_rn(b1[h0 + n])) : 0.f;
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int lane = tid & 31;
+  const int wl = wt >> 5;
+  const int c = lane & 3;
+  const int bar = 1 + wg;
+  unsigned char* buf = smem + L.wg0 + wg * L.buf;
+  const int tiles = (M + FWD_TILE - 1) / FWD_TILE;
+  const uint64_t desc0 = b_desc(smem);
+
+  for (int t0 = blockIdx.x * nwg; t0 < tiles; t0 += gridDim.x * nwg) {
+    const int t = t0 + wg;
+    const bool live = t < tiles;
+    const int m0 = t * FWD_TILE;
+    float acc[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int w0 = ch * FWD_STREAM_WORDS;
+      __syncthreads();  // every warpgroup is done with the last chunk (and the last tile's epilogue)
+      // The chunk's slab, as the resident kernel lays out the whole slab.
+      for (int u = tid; u < FWD_STREAM_WORDS * NS; u += blockDim.x) {
+        const int n = 4 * (u % (NS / 4));
+        const int g8 = u / (NS / 4);
+        const int kl = g8 >> 1, h = g8 & 1;
+        float4 x[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int f = fwd_row(2 * w0 + kl, 8 * h + j);
+          x[j] = f < F && n < vc ? *reinterpret_cast<const float4*>(w1 + (size_t)f * H + h0 + n)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        unsigned char* dst = smem + kl * NS * 32 + ((n >> 3) * 2 + h) * 128 + (n & 7) * 16;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(x[0].x, x[1].x), pack_bf16(x[2].x, x[3].x),
+                                                    pack_bf16(x[4].x, x[5].x), pack_bf16(x[6].x, x[7].x));
+        *reinterpret_cast<uint4*>(dst + 16) = make_uint4(pack_bf16(x[0].y, x[1].y), pack_bf16(x[2].y, x[3].y),
+                                                         pack_bf16(x[4].y, x[5].y), pack_bf16(x[6].y, x[7].y));
+        *reinterpret_cast<uint4*>(dst + 32) = make_uint4(pack_bf16(x[0].z, x[1].z), pack_bf16(x[2].z, x[3].z),
+                                                         pack_bf16(x[4].z, x[5].z), pack_bf16(x[6].z, x[7].z));
+        *reinterpret_cast<uint4*>(dst + 48) = make_uint4(pack_bf16(x[0].w, x[1].w), pack_bf16(x[2].w, x[3].w),
+                                                         pack_bf16(x[4].w, x[5].w), pack_bf16(x[6].w, x[7].w));
+      }
+      // The tile's words of the chunk; a row past M and a word past the
+      // sample's are zeros.
+      uint32_t* wd = reinterpret_cast<uint32_t*>(buf);
+      for (int q = wt; q < FWD_TILE * FWD_STREAM_WORDS; q += 128) {
+        const int r = q / FWD_STREAM_WORDS, w = w0 + q % FWD_STREAM_WORDS;
+        wd[r * L.ws + w - w0] = live && m0 + r < M && w < nw ? words[(size_t)(m0 + r) * nw + w] : 0u;
+      }
+      fence_proxy_async();  // the slab, written by the generic proxy, is read by wgmma
+      __syncthreads();
+      if (live) {
+        const uint2* wr0 = reinterpret_cast<const uint2*>(buf + (16 * wl + (lane >> 2)) * L.ws * 4);
+        const uint2* wr8 = wr0 + 8 * L.ws / 2;
+        const int gn = min(FWD_STREAM_WORDS / 2, pairs - w0 / 2);
+        for (int g = 0; g < gn; ++g) {
+          uint32_t fr[4][4];
+          const uint2 x0 = wr0[g], x1 = wr8[g];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {  // K tile 4g + k of the chunk: word 2g + k / 2, p = k % 2
+            const int sh = c + 4 * (k & 1);
+            const uint32_t a0 = (k < 2 ? x0.x : x0.y) << sh, a1 = (k < 2 ? x1.x : x1.y) << sh;
+            fr[k][0] = onehot_sign_pair<0>(a0);
+            fr[k][1] = onehot_sign_pair<0>(a1);
+            fr[k][2] = onehot_sign_pair<2>(a0);
+            fr[k][3] = onehot_sign_pair<2>(a1);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k) fwd_mma<NS>(acc, fr[k], desc0 + (uint64_t)((4 * g + k) * NS * 2));
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) fence_operand(fr[k][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) fence_operand(acc[i]);
+    if (!live) continue;
+    named_sync(bar, 128);  // every warp is done with the words
+
+    // Epilogue, as the resident kernel's.
+    const int rows = min(FWD_TILE, M - m0);
+    {
+      const int r0 = 16 * wl + (lane >> 2);
+      uint32_t* st32 = reinterpret_cast<uint32_t*>(buf);
+      const int sw = L.stage_row / 4;
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        const int col = 8 * j + 2 * c;
+        const float bx = bias_s[col], by = bias_s[col + 1];
+        st32[r0 * sw + col / 2] =
+            pack_bf16(bf(__float2bfloat16_rn(acc[4 * j])) + bx, bf(__float2bfloat16_rn(acc[4 * j + 1])) + by);
+        st32[(r0 + 8) * sw + col / 2] =
+            pack_bf16(bf(__float2bfloat16_rn(acc[4 * j + 2])) + bx, bf(__float2bfloat16_rn(acc[4 * j + 3])) + by);
+      }
+    }
+    named_sync(bar, 128);
+    if (vc % 8 == 0) {
+      const int upr = vc / 8;
+      for (int q = wt; q < rows * upr; q += 128) {
+        const int r = q / upr, u = q % upr;
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * H + h0 + 8 * u) =
+            *reinterpret_cast<const uint4*>(buf + r * L.stage_row + 16 * u);
+      }
+    } else {  // H = 4: one 8-byte store per row
+      for (int r = wt; r < rows; r += 128) {
+        *reinterpret_cast<uint2*>(out + (size_t)(m0 + r) * H) = *reinterpret_cast<const uint2*>(buf + r * L.stage_row);
+      }
+    }
+  }
+}
+
 // Pass 1: one CTA per (row tile, chunk of CHUNK samples, slab of SLAB
 // hidden columns), blockIdx.x the row tile, so that a chunk's tiles run
 // together and its dy comes from L2.  Row tile t covers view cells
@@ -577,19 +730,38 @@ bool hidden_ok(int H) { return H >= 4 && H <= 512 && (H & (H - 1)) == 0; }
 // H: the widest slab (64 columns, or H's own width from 8 up) that leaves
 // room for two warpgroups, else for one; false if not even an 8-column
 // slab and one warpgroup fit.
-bool fwd_config(int V2, int H, int* ns, int* nwg) {
-  for (int need = 2; need >= 1; --need) {
-    for (int w = H >= 64 ? 64 : max(8, H); w >= 8; w /= 2) {
-      const FwdLayout L(V2, w);
-      const int fit = (SMEM_LIMIT - L.bytes(0)) / (2 * L.buf);
-      if (fit >= need) {
-        *ns = w;
-        *nwg = min(fit, FWD_MAX_WG);
-        return true;
-      }
+// The words kernel's threads a block for V2 view cells (WORDS_ROWS samples
+// a warp, each a row of V2 + 1 words in shared memory), 0 if none fit.
+int words_threads(int V2) {
+  int threads = WORDS_THREADS;
+  while (threads >= 32 && threads / 32 * WORDS_ROWS * (V2 + 1) * 4 > SMEM_LIMIT) threads /= 2;
+  return threads >= 32 ? threads : 0;
+}
+
+// The forward's slab width and warpgroups for V2 view cells at width H: the
+// widest resident slab beside which two warpgroups fit (v <= 15), or else
+// the streamed kernel's (*streamed; on an H100 at M = 131072, H = 256 a
+// resident slab of 8 columns with one warpgroup a CTA took 9.9 ms at
+// v = 19, the streamed kernel 2.1 ms at v = 21).  False if the words do
+// not fit.
+bool fwd_config(int V2, int H, int* ns, int* nwg, bool* streamed = nullptr) {
+  if (words_threads(V2) == 0) return false;
+  if (streamed != nullptr) *streamed = false;
+  for (int w = H >= 64 ? 64 : max(8, H); w >= 8; w /= 2) {
+    const FwdLayout L(V2, w);
+    const int fit = (SMEM_LIMIT - L.bytes(0)) / (2 * L.buf);
+    if (fit >= 2) {
+      *ns = w;
+      *nwg = min(fit, FWD_MAX_WG);
+      return true;
     }
   }
-  return false;
+  const int w = H >= 64 ? 64 : max(8, H);
+  const FwdStreamLayout L(w);
+  *ns = w;
+  *nwg = min((SMEM_LIMIT - L.bytes(0)) / L.buf, FWD_MAX_WG);
+  if (streamed != nullptr) *streamed = true;
+  return true;
 }
 
 // Hidden sizes of the backward: whole slabs of 64 columns per warpgroup
@@ -640,7 +812,7 @@ cudaError_t launch_bwd_partial(dim3 grid, const CUtensorMap& dy_map, const int* 
 
 template <int NS>
 cudaError_t launch_fwd(const uint32_t* words, const float* w1, const float* b1, __nv_bfloat16* out, int M, int V2,
-                       int H, int nwg, cudaStream_t s) {
+                       int H, int nwg, bool streamed, cudaStream_t s) {
   static int sms = 0;
   if (sms == 0) {
     int device = 0;
@@ -648,15 +820,15 @@ cudaError_t launch_fwd(const uint32_t* words, const float* w1, const float* b1, 
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
   }
-  const int bytes = FwdLayout(V2, NS).bytes(nwg);
-  const cudaError_t err =
-      cudaFuncSetAttribute(embed_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const auto kernel = streamed ? embed_fwd_streamed_kernel<NS> : embed_fwd_kernel<NS>;
+  const int bytes = streamed ? FwdStreamLayout(NS).bytes(nwg) : FwdLayout(V2, NS).bytes(nwg);
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   // One CTA a slab per SM, no more than the tiles' warpgroups need.
   const int slabs = (H + NS - 1) / NS;
   const int tiles = (M + FWD_TILE - 1) / FWD_TILE;
   const int per_slab = max(1, min(sms / slabs, (tiles + nwg - 1) / nwg));
-  embed_fwd_kernel<NS><<<dim3(per_slab, slabs), nwg * 128, bytes, s>>>(words, w1, b1, out, M, V2, H);
+  kernel<<<dim3(per_slab, slabs), nwg * 128, bytes, s>>>(words, w1, b1, out, M, V2, H);
   return cudaGetLastError();
 }
 
@@ -676,6 +848,14 @@ extern "C" int embed_dense1_fwd_warpgroups(int V2, int H) {
   return V2 >= 1 && hidden_ok(H) && fwd_config(V2, H, &ns, &nwg) ? nwg : 0;
 }
 
+// Whether the forward streams its slab (1) for V2 view cells at hidden
+// size H, or holds it resident (0; -1 where it does not take them).
+extern "C" int embed_dense1_fwd_streamed(int V2, int H) {
+  int ns = 0, nwg = 0;
+  bool streamed = false;
+  return V2 >= 1 && hidden_ok(H) && fwd_config(V2, H, &ns, &nwg, &streamed) ? (int)streamed : -1;
+}
+
 // One-hot words per sample of the forward: the scratch `words` of
 // embed_dense1_fwd_launch is int32 [M, this].
 extern "C" int embed_dense1_fwd_words(int V2) { return fwd_words(V2); }
@@ -685,27 +865,31 @@ extern "C" int embed_dense1_fwd_words(int V2) { return fwd_words(V2); }
 extern "C" int embed_dense1_fwd_launch(const int* packed, const int* dir, const void* w1, const void* b1,
                                        void* words, void* out, int M, int V2, int H, void* stream) {
   int ns = 0, nwg = 0;
-  if (M < 0 || V2 < 1 || !hidden_ok(H) || !fwd_config(V2, H, &ns, &nwg)) return (int)cudaErrorInvalidValue;
+  bool streamed = false;
+  if (M < 0 || V2 < 1 || !hidden_ok(H) || !fwd_config(V2, H, &ns, &nwg, &streamed)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (M == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* wd = static_cast<uint32_t*>(words);
-  const int per_block = WORDS_THREADS / 32 * WORDS_ROWS;
+  const int threads = words_threads(V2);
+  const int per_block = threads / 32 * WORDS_ROWS;
   const int cb_bytes = per_block * (V2 + 1) * 4;
   if (cb_bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(embed_fwd_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cb_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  embed_fwd_words_kernel<<<(M + per_block - 1) / per_block, WORDS_THREADS, cb_bytes, s>>>(packed, dir, wd, M, V2);
+  embed_fwd_words_kernel<<<(M + per_block - 1) / per_block, threads, cb_bytes, s>>>(packed, dir, wd, M, V2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float* w = static_cast<const float*>(w1);
   const float* b = static_cast<const float*>(b1);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  err = ns == 64   ? launch_fwd<64>(wd, w, b, o, M, V2, H, nwg, s)
-        : ns == 32 ? launch_fwd<32>(wd, w, b, o, M, V2, H, nwg, s)
-        : ns == 16 ? launch_fwd<16>(wd, w, b, o, M, V2, H, nwg, s)
-                   : launch_fwd<8>(wd, w, b, o, M, V2, H, nwg, s);
+  err = ns == 64   ? launch_fwd<64>(wd, w, b, o, M, V2, H, nwg, streamed, s)
+        : ns == 32 ? launch_fwd<32>(wd, w, b, o, M, V2, H, nwg, streamed, s)
+        : ns == 16 ? launch_fwd<16>(wd, w, b, o, M, V2, H, nwg, streamed, s)
+                   : launch_fwd<8>(wd, w, b, o, M, V2, H, nwg, streamed, s);
   return (int)err;
 }
 

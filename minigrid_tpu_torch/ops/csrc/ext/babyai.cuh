@@ -4,9 +4,9 @@
 // babyai/core/instr_block.py:172-444, itself the block form of instr.py's
 // verify_step :314-470 and level.py's _post_step :293-303).
 //
-// Extra scalars, env-minor [8, N], the packed words of instr_block.py:
-// top, leaf, d_type, d_color, d_loc, d_plural, carried, mem.  Extra planes,
-// env-minor bytes [2, W*H, N]: gridm (the cells holding each tracked
+// 8 extra scalars, the packed words of instr_block.py:
+// top, leaf, d_type, d_color, d_loc, d_plural, carried, mem.  2 extra
+// planes of W*H bytes: gridm (the cells holding each tracked
 // object now) and poss (the positions the verifier sees), bit leaf*2 + slot
 // of each cell.  The reset cache blends both in with the rest of the level.
 //
@@ -18,7 +18,8 @@
 // writes the one gridm word a pickup, a drop or an opened box changes, and
 // its only pass over a plane is poss = gridm on a drop action, which some
 // lane of a warp takes at nearly every step (1 - (6/7)^32 of them under a
-// random policy).  The leaf
+// random policy); the random-policy kernel leaves that copy to the whole
+// warp (POSS_ON_DROP, verify<true>).  The leaf
 // status machine and the Before/After/And combinators follow the JAX
 // package's, word for word.
 
@@ -75,7 +76,17 @@ struct BabyAIExt : NoExt {
     return strict && second == SUCCESS ? FAILURE : CONTINUE;
   }
 
-  __device__ static bool post_step(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
+  static constexpr bool POSS_ON_DROP = true;
+
+  __device__ static bool post_step(const ExtParams& p, const StepCtx& ctx, float& reward, Extra& x) {
+    return verify<false>(p, ctx, reward, x);
+  }
+
+  // The hook; with WARP_POSS the poss = gridm copy of a drop action is left
+  // to the caller's warp (the random-policy kernel), and the hook reads
+  // gridm where it would read that copy.
+  template <bool WARP_POSS>
+  __device__ static bool verify(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
     const size_t N = ctx.N;
     const int W = ctx.W, H = ctx.H, WH = W * H;
     uint8_t* gridm = ctx.planes;
@@ -107,9 +118,10 @@ struct BabyAIExt : NoExt {
     }
     if (word != at_fwd) gridm[fidx] = (uint8_t)word;
     // update_objs_poss on a drop action.
-    if (a == ACT_DROP) {
+    if (!WARP_POSS && a == ACT_DROP) {
       for (int k = 0; k < WH; ++k) poss[(size_t)k * N] = gridm[(size_t)k * N];
     }
+    const uint8_t* seen = WARP_POSS && a == ACT_DROP ? gridm : poss;
 
     // The front cell of the pose after the step, and poss around it.
     const Cell fn = front_cell(ctx.post, W, H);
@@ -117,12 +129,12 @@ struct BabyAIExt : NoExt {
     const int fcell_now = ctx.grid[(size_t)now * N];
     const int fnow_type = fcell_now & 0xFF;
     const int fnow_state = (fcell_now >> 16) & 0xFF;
-    const int poss_now = poss[(size_t)now * N];
+    const int poss_now = seen[(size_t)now * N];
     int near = 0;
-    if (fn.x + 1 < W) near |= poss[(size_t)(now + H) * N];
-    if (fn.x > 0) near |= poss[(size_t)(now - H) * N];
-    if (fn.y + 1 < H) near |= poss[(size_t)(now + 1) * N];
-    if (fn.y > 0) near |= poss[(size_t)(now - 1) * N];
+    if (fn.x + 1 < W) near |= seen[(size_t)(now + H) * N];
+    if (fn.x > 0) near |= seen[(size_t)(now - H) * N];
+    if (fn.y + 1 < H) near |= seen[(size_t)(now + 1) * N];
+    if (fn.y > 0) near |= seen[(size_t)(now - 1) * N];
 
     // Each leaf's status; in done-actions mode only a done action reports,
     // from the leaf's last match.

@@ -3,13 +3,15 @@
 // (minigrid_tpu_torch/envs/dynamicobstacles.py; the JAX package's
 // minigrid_tpu/envs/dynamicobstacles.py::_DynamicObstaclesFusedExt).
 //
-// Extra scalars, env-minor [2n + 3, N]: ox0, oy0, ..., ox(n-1), oy(n-1),
+// 2n + 3 extra scalars: ox0, oy0, ..., ox(n-1), oy(n-1),
 // front_not_clear, walk_seed0, walk_seed1.  In registers they sit in
 // fixed slots of MAX_OBSTACLES, each loop unrolled and guarded by n, so no
 // slot is indexed at run time.  Per step the walk reads the 3x3
 // neighbourhood of every ball (9n gathered loads) and draws n/2 threefry
 // pairs; a reset writes the W*H scaffold and scans the grid twice per
-// placement.
+// placement.  `reset` is the per-lane form (the actor kernel),
+// `warp_reset` the whole-warp form (the random-policy kernel), whose lanes
+// write and scan 1/32 of the cells each.
 
 #pragma once
 
@@ -151,6 +153,38 @@ struct DynamicObstaclesExt : NoExt {
       if (i < p.n_obstacles) {
         const int lin = draw_free_cell(grid, N, WH, agent, place_word(e, word + i));
         grid[(size_t)lin * N] = BALL_CELL;
+        x.ox[i] = lin / H;
+        x.oy[i] = lin % H;
+      }
+    }
+    const Words ws = threefry2x32(e.w0, e.w1, WALK_TAG0, WALK_TAG1);
+    x.front_not_clear = 0;
+    x.ws0 = ws.w0;
+    x.ws1 = ws.w1;
+    s = fresh_scalars(ax, ay, d, p.max_steps);
+  }
+
+  // The same level, made by a whole warp on the env's grid row (stride 1).
+  __device__ static void warp_reset(const ExtParams& p, const Words& e, int* grid, int W, int H, Scalars& s,
+                                    Extra& x, int lane) {
+    const int WH = W * H;
+    warp_walled_plane(grid, W, H, lane);
+    __syncwarp();
+    int word = 0, ax = p.start_x, ay = p.start_y, d = p.start_dir;
+    if (p.start_x < 0) {
+      const int lin = warp_draw_free_cell(grid, WH, -1, place_word(e, 0), lane);
+      ax = lin / H;
+      ay = lin % H;
+      d = uniform_index(place_word(e, 1), 4);
+      word = 2;
+    }
+    const int agent = ax * H + ay;
+#pragma unroll
+    for (int i = 0; i < MAX_OBSTACLES; ++i) {
+      if (i < p.n_obstacles) {
+        const int lin = warp_draw_free_cell(grid, WH, agent, place_word(e, word + i), lane);
+        if (lane == 0) grid[lin] = BALL_CELL;
+        __syncwarp();
         x.ox[i] = lin / H;
         x.oy[i] = lin % H;
       }

@@ -2,7 +2,9 @@
 // (minigrid_tpu_torch/envs/empty.py::_EmptyRandomResetExt; the JAX
 // package's minigrid_tpu/envs/empty.py::_EmptyRandomResetExt): the
 // walls-and-goal scaffold, the agent on the place_draw(e, 0).w0-th empty
-// cell, its direction uniform_index(place_draw(e, 0).w1, 4).
+// cell, its direction uniform_index(place_draw(e, 0).w1, 4).  `reset` is the
+// per-lane form (the actor kernel), `warp_reset` the whole-warp form (the
+// random-policy kernel).
 
 #pragma once
 
@@ -20,6 +22,16 @@ struct EmptyRandomExt : NoExt {
     walled_plane(grid, N, W, H);
     const Words b = threefry2x32(e.w0, e.w1, PLACE_TAG, 0u);
     const int lin = draw_free_cell(grid, N, W * H, -1, b.w0);
+    s = fresh_scalars(lin / H, lin % H, uniform_index(b.w1, 4), p.max_steps);
+  }
+
+  // The same level, made by a whole warp on the env's grid row (stride 1).
+  __device__ static void warp_reset(const ExtParams& p, const Words& e, int* grid, int W, int H, Scalars& s,
+                                    Extra&, int lane) {
+    warp_walled_plane(grid, W, H, lane);
+    __syncwarp();
+    const Words b = threefry2x32(e.w0, e.w1, PLACE_TAG, 0u);
+    const int lin = warp_draw_free_cell(grid, W * H, -1, b.w0, lane);
     s = fresh_scalars(lin / H, lin % H, uniform_index(b.w1, 4), p.max_steps);
   }
 };

@@ -1,7 +1,7 @@
 // Fetch: any pickup ends the episode, rewarded only where the carried
 // (type, color) is the target (minigrid_tpu_torch/envs/fetch.py::
 // FetchFusedExt; the JAX package's minigrid_tpu/envs/fetch.py:93-122).
-// Extra scalars, env-minor [2, N]: the target's type and color, which the
+// 2 extra scalars: the target's type and color, which the
 // reset cache blends in with the rest of the level.  Per step the hook reads
 // the post-step carried word; nothing is loaded.
 

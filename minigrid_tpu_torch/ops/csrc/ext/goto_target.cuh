@@ -1,7 +1,7 @@
 // GoToObject and GoToDoor: `done` next to the target succeeds, `toggle` or
 // `done` ends the episode (minigrid_tpu_torch/envs/gotoobject.py::
 // GoToTargetFusedExt; the JAX package's minigrid_tpu/envs/gotoobject.py:
-// 95-119).  Extra scalars, env-minor [2, N]: the target's x and y, which
+// 95-119).  2 extra scalars: the target's x and y, which
 // the reset cache blends in with the rest of the level.  Per step the hook
 // is a few integer compares on the post-step pose; nothing is loaded.
 

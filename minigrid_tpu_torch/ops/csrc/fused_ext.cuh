@@ -10,22 +10,28 @@
 //                            at: 1 or 0, or SWITCH_ANY for both;
 //   MAX_K                    the most extra int32 scalars it carries;
 //   NUM_PLANES               its extra planes: P per env of W*H bytes,
-//                            env-minor in device memory ([P, W*H, N], the
-//                            env's column handed to the hooks), which
-//                            cache_reset copies from the reset-cache slot
-//                            ([R, P, W*H, N]) with the level;
+//                            handed to the hooks as the env's column of the
+//                            actor kernel's env-minor [P, W*H, N] (stride
+//                            N) or its row of the random-policy kernel's
+//                            env-major [N, P, W*H] (stride 1), which a
+//                            reset copies from the reset-cache slot with the
+//                            level;
 //   FRONT_BEFORE             whether post_step reads the front cell's
 //                            value from before the core step (the kernels
 //                            load it only then);
+//   POSS_ON_DROP             whether a drop action sets plane 1 to plane 0
+//                            (BabyAI's poss = gridm), which the
+//                            random-policy kernel leaves to the whole warp
+//                            (the ext's verify<true>);
 //   Extra                    its extra scalars (registers in the
 //                            random-policy kernel, shared memory in the
 //                            actor kernel);
-//   load / store             Extra from / to the env's column of an
-//                            env-minor [K, N] scalar array: the live state,
-//                            or a reset-cache slot's plane, which
-//                            cache_reset (minigrid_env.cuh) loads at every
-//                            reset of a cached ext (MAX_K > 0, no
-//                            COUNTER_RESET);
+//   load / store             Extra from / to the env's K scalars at
+//                            stride N (the actor kernel's env-minor [K, N])
+//                            or 1 (the random-policy kernel's [N, K]): the
+//                            live state, or a reset-cache slot's, which
+//                            every reset of a cached ext (MAX_K > 0, no
+//                            COUNTER_RESET) loads;
 //   map_action               the action the core step sees;
 //   pre_step                 dynamics before the agent acts, on the
 //                            pre-step scalars (step count not yet counted)
@@ -37,7 +43,10 @@
 //                            reshape the reward, the extra scalars and the
 //                            planes, returns extra termination;
 //   reset                    a fresh level from an episode seed (used with
-//                            COUNTER_RESET in place of the reset cache).
+//                            COUNTER_RESET in place of the reset cache), by
+//                            one lane (the actor kernel); warp_reset makes
+//                            the same level with the whole warp (the
+//                            random-policy kernel).
 // NoExt is the default-hook family; a family derives from it and hides
 // what it changes, so each family is one header under ext/ (exts.cuh maps
 // kernel ids to them).  Runtime family parameters come in ExtParams, by
@@ -189,6 +198,44 @@ __device__ __forceinline__ int draw_free_cell(const int* grid, size_t N, int WH,
   return nth_free(grid, N, WH, skip, uniform_index(bits, max(count_free(grid, N, WH, skip), 1)));
 }
 
+// Warp-wide forms of the three above, for the random-policy kernel's
+// whole-warp counter reset: every lane of a full warp calls them with the
+// same env's grid row (an env-major [W*H] row, stride 1) and the same
+// arguments, and gets the same result.  Lane l writes or tests cells l,
+// l + 32, ...; the scans ballot 32 cells at a time, and the i-th free cell
+// is found from each lane's count of the free cells below it, so the
+// result is nth_free's, in the same order.  The caller puts __syncwarp()
+// between a write and a scan that reads it.
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
+
+__device__ __forceinline__ void warp_walled_plane(int* grid, int W, int H, int lane) {
+  const int goal = (W - 2) * H + H - 2;
+  for (int k = lane; k < W * H; k += 32) {
+    const int x = k / H, y = k - (k / H) * H;
+    const bool border = x == 0 || y == 0 || x == W - 1 || y == H - 1;
+    grid[k] = k == goal ? GOAL_CELL : border ? WALL_CELL : EMPTY_CELL;
+  }
+}
+
+__device__ __forceinline__ bool free_cell(const int* grid, int WH, int skip, int k) {
+  return k < WH && (grid[k] & 0xFF) == OBJ_EMPTY && k != skip;
+}
+
+__device__ __forceinline__ int warp_draw_free_cell(const int* grid, int WH, int skip, uint32_t bits, int lane) {
+  int count = 0;
+  for (int k0 = 0; k0 < WH; k0 += 32) count += __popc(__ballot_sync(FULL_WARP, free_cell(grid, WH, skip, k0 + lane)));
+  int target = uniform_index(bits, max(count, 1));
+  const unsigned below = (1u << lane) - 1u;
+  for (int k0 = 0; k0 < WH; k0 += 32) {
+    const bool f = free_cell(grid, WH, skip, k0 + lane);
+    const unsigned b = __ballot_sync(FULL_WARP, f);
+    const int c = __popc(b);
+    if (target < c) return k0 + __ffs(__ballot_sync(FULL_WARP, f && __popc(b & below) == target)) - 1;
+    target -= c;
+  }
+  return 0;
+}
+
 // The scalar rows of a fresh episode.
 __device__ __forceinline__ Scalars fresh_scalars(int ax, int ay, int d, int max_steps) {
   return Scalars{ax, ay, d, 0, 0, max_steps, 0, 0};
@@ -223,6 +270,7 @@ struct NoExt {
   static constexpr int MAX_K = 0;
   static constexpr int NUM_PLANES = 0;
   static constexpr bool FRONT_BEFORE = false;
+  static constexpr bool POSS_ON_DROP = false;
   struct Extra {};
 
   __device__ static Extra load(const int*, int, size_t, const ExtParams&) { return Extra{}; }

@@ -14,52 +14,55 @@
 // and episode ordinal `used` (ext.reset_block); both use the pre-increment
 // `used`.
 //
-// Design.  One thread runs one env through all T steps; the transition,
-// the cache reset and the view are the device functions of minigrid_env.cuh,
-// which the actor kernel (actor_rollout.cu) shares, and the family hooks
-// are an Ext struct (fused_ext.cuh, one header per family under ext/)
-// picked at launch by ext_id.  Every array is env-minor ([..., N]): grid and
-// contents [W*H, N], the 8 scalar rows [8, N], mission [M, N], the ext's
-// extra scalars [K, N] and byte planes [P, W*H, N], seeds [2, N], cache
-// [R, W*H, N] / [R, 8, N] / [R, M, N] / [R, K, N] / [R, P, W*H, N],
-// actions [T, N].  The state lives in the output buffers, which
-// the wrapper initialises from the input state; the kernel updates them in
-// place and allocates nothing.  NO_OBJECTS, STATIC_MISSION, SEE_THROUGH and
-// COMPUTE_OBS are compile-time switches, as in the TPU kernel; the view
-// size V is a template parameter (7 is instantiated).  An ext is
-// instantiated only at the switches its SWITCHES fixes (counter-reset exts
-// without objects and with a constant mission, since their reset writes
-// neither; GoToTarget and Fetch with objects, a per-episode mission and
-// see-through walls); ext_launch_ok refuses other flags.
+// Design.  One thread owns one env through all T steps and runs the
+// per-env work: the pre-step hook, the core transition and the post-step
+// hook (the device functions of minigrid_env.cuh, which the actor kernel
+// actor_rollout.cu shares, and an Ext struct of fused_ext.cuh, one header
+// per family under ext/, picked at launch by ext_id), and the view.  Every
+// reset is done by the whole warp: after the step, __ballot_sync collects
+// the lanes whose episode ended, and for each of them in turn the 32 lanes
+// copy that env's cache slot min(used, R-1) (grid, contents, mission,
+// byte planes) or, for a COUNTER_RESET ext, make its fresh level
+// (Ext::warp_reset: the scaffold written and the free cells scanned 32 at a
+// time, the threefry draws on the owner's seed and episode ordinal); the
+// owner then loads the level's 8 scalar rows and the ext's extra scalars
+// after a __syncwarp().  Lanes past N stay in the loop, inactive, so the
+// full-warp ballots and copies are defined; a warp wholly past N returns.
 //
-// What bounds it.  The per-step work is a handful of integer operations
-// around data-dependent loads: the front cell (and its contents), and with
-// COMPUTE_OBS the V*V view cells.  Neighbouring threads read cells of
-// neighbouring envs, but each env reads its own cell index, so a warp's
-// loads are gathers of one 4-byte word per 32-byte sector out of L2 (the
-// Empty-8x8 grids of 65536 envs are 16 MiB and stay resident in the 50 MB
-// L2).  The kernel is bound by those gathered loads and by the latency of
-// each thread's sequential chain, at one warp per 32 envs.  The ext paths
-// add, per step, Dynamic-Obstacles' walk (9 gathered loads and 2 stores per
-// ball, one threefry per two balls), and per episode end the counter reset:
-// W*H coalesced stores of the scaffold (all threads of a warp that reset
-// write the same cell index), 2-5 threefry evaluations of 20 rounds, and
-// for Dynamic-Obstacles two W*H scans per placed ball.  A cache reset
-// copies a whole level from the env's own slot: the slots differ across a
-// warp, so those loads are not coalesced, and the warp runs the copy
-// whenever any of its lanes resets.  BabyAI's verifier adds, per step, 6
-// byte loads of its planes and the status machine's integer work, and per
-// drop action a copy of the gridm plane into poss (W*H bytes, coalesced
-// across the warp); BabyAI's bench size is 16384 envs, 4 warps per SM, so
-// its time is the latency of one env's chain, not the card's throughput.  With FourRooms' 361-cell levels (a
-// grid plane beyond the L2) and GoTo's reset every 3.5 steps, that copy,
-// not the step, sets the kernel's time.  The resets branch within a warp,
-// so a warp runs as long as its slowest env.  What a later
-// change could do: stage each block's grids in shared memory (an env-minor
-// [W*H][blockDim] tile is free of bank conflicts whatever cell each thread
-// reads), spread one env over several threads of a warp for the view, and
-// count free cells from the scaffold's closed form instead of scanning, and
-// copy a resetting lane's level with the whole warp.
+// Layouts.  Each array is read where the caller's state and reset cache
+// hold it, so the wrapper copies neither: grid and contents [N, W*H] (the
+// state's [N, W, H], cloned once, updated in place), the 8 scalar rows
+// [8, N], mission [N, M], the ext's extra scalars [N, K] and byte planes
+// [N, P, W*H], seeds [N, 2]; the cache as batch_reset_cache returns it,
+// [N, R, W*H] grid and contents, [N, R, M] mission, [N, R] for each
+// scalar field, [N, R, K] extra scalars, [N, R, P, W*H] planes; actions
+// [T, N].  An env's cells are contiguous, so the per-env device
+// functions run on its row with cell stride 1, and a level is one
+// contiguous run on either side of the copy: each warp access is whole
+// lines, in 16-byte vectors where the row allows.  NO_OBJECTS,
+// STATIC_MISSION, SEE_THROUGH and COMPUTE_OBS are compile-time switches, as
+// in the TPU kernel; the view size V is a template parameter (7 is
+// instantiated).  An ext is instantiated only at the switches its SWITCHES
+// fixes (counter-reset exts without objects and with a constant mission,
+// since their reset writes neither; GoToTarget and Fetch with objects, a
+// per-episode mission and see-through walls; BabyAI with objects, a
+// per-episode mission and occluding walls); ext_launch_ok refuses other
+// flags.
+//
+// What bounds it.  The bytes it must move are the actions, the state in
+// and out and the levels its resets read (chip_smoke.rollout_bytes); per
+// step a lane does a handful of integer operations around a few
+// data-dependent loads inside its env's row (the front cell, and with
+// COMPUTE_OBS the V*V view cells, through L1), and per reset the warp
+// moves one level, W*H words and the rest, in whole lines, where the
+// per-lane copy it replaces gathered one word per 32-byte sector and ran
+// once per resetting lane while the other 31 waited.  Dynamic-Obstacles'
+// walk (9 loads and 2 stores per ball, a threefry per two balls) and
+// BabyAI's verifier (6 byte loads, and a W*H-byte copy of gridm into poss on
+// a drop) stay per lane, but for BabyAI's copy, which the warp makes after
+// the hooks (POSS_ON_DROP).  BabyAI's bench size is 16384 envs, 4 warps a SM,
+// so its time is the latency of one env's chain of T steps, not the card's
+// throughput (tools/rollout_split.py measures the phases).
 //
 // Bit-exactness with the JAX package: the per-env checksum is accumulated in
 // uint32 so that it wraps as int32 does in JAX.
@@ -76,92 +79,250 @@ using namespace minigrid;
 
 constexpr int THREADS = 128;
 
+// The phases of a step that tools/rollout_split.py times: it builds a copy
+// of this file with SPLIT_BEGIN, SPLIT_MARK, SPLIT_SYNC and SPLIT_END
+// defined as per-lane clock64() sums (SPLIT_SYNC puts a __syncwarp() first,
+// so that a lane's wait for the rest of its warp is a phase of its own).
+// Here they compile to nothing.
+enum SplitPhase { PH_PRE, PH_STEP, PH_POST, PH_WAIT, PH_RESET, PH_OBS };
+#ifndef SPLIT_MARK
+#define SPLIT_BEGIN()
+#define SPLIT_MARK(phase)
+#define SPLIT_SYNC(phase)
+#define SPLIT_END(active)
+#endif
+
+// The reset cache's scalar fields, each [N, R] as the cache holds them:
+// six int32, and the two flags as bytes (torch.bool).
+struct CacheRows {
+  const int *ax, *ay, *dir, *carry, *step, *max_steps;
+  const uint8_t *term, *trunc;
+};
+
 struct Args {
-  const int* actions;  // [T, N]
-  int* grid;           // [W*H, N]  in: initial state, out: final state
-  int* cont;           // [W*H, N]
-  int* sc;             // [NUM_SC, N]
-  int* mis;            // [M, N]
-  const int* cgrid;    // [R, W*H, N]  (NoExt families)
-  const int* ccont;    // [R, W*H, N]
-  const int* csc;      // [R, NUM_SC, N]
-  const int* cmis;     // [R, M, N]
-  const int* cscal;    // [R, K, N] (cached exts)
-  int* scal;           // [K, N] the ext's extra scalars, in and out
-  uint8_t* planes;     // [P, W*H, N] the ext's extra planes, in and out
-  const uint8_t* cplanes;  // [R, P, W*H, N] (cached exts with planes)
-  const int* seeds;    // [2, N] counter-reset seeds (COUNTER_RESET exts)
-  int* used;           // [N] resets so far (cache slots consumed)
-  int* obs;            // [N] observation checksum (int32 wraparound)
-  float* rew;          // [N] reward sum
-  int* done;           // [N] episodes ended
+  const int* actions;      // [T, N]
+  int* grid;               // [N, W*H]  in: initial state, out: final state
+  int* cont;               // [N, W*H]
+  int* sc;                 // [NUM_SC, N]
+  int* mis;                // [N, M]
+  const int* cgrid;        // [N, R, W*H]  (cached families)
+  const int* ccont;        // [N, R, W*H]
+  CacheRows csc;           // the cache's 8 scalar fields, each [N, R]
+  const int* cmis;         // [N, R, M]
+  const int* cscal;        // [N, R, K] (cached exts)
+  int* scal;               // [N, K] the ext's extra scalars, in and out
+  uint8_t* planes;         // [N, P, W*H] the ext's extra planes, in and out
+  const uint8_t* cplanes;  // [N, R, P, W*H] (cached exts with planes)
+  const int* seeds;        // [N, 2] counter-reset seeds (COUNTER_RESET exts)
+  int* used;               // [N] resets so far (cache slots consumed)
+  int* obs;                // [N] observation checksum (int32 wraparound)
+  float* rew;              // [N] reward sum
+  int* done;               // [N] episodes ended
   int W, H, R, M, T, N, K, P;
 };
+
+// A level's copy by the 32 lanes of a warp, as segments (grid, contents,
+// mission, planes): each a contiguous run copied in units of 16 bytes, a
+// word or a byte, the widest that both ends and the size allow; unit i of
+// a segment goes to lane i % 32.  A lane issues its loads of every segment
+// for a round (ROUND units each) before its stores, so that a level's copy
+// takes one round of memory latency per 32 * ROUND units of its largest
+// segment, and every access of the warp is whole lines.  A round is held
+// in 16-byte registers: four for one segment, two a segment for more (on
+// the H100 eight for one segment cost the rollout kernel's smaller
+// instantiations registers and spills, and BabyAI's time).
+
+struct Segment {
+  void* dst;
+  const void* src;
+  int units, width;
+};
+
+__device__ __forceinline__ Segment segment(void* dst, const void* src, int bytes) {
+  const uintptr_t align = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes;
+  const int width = (align & 15) == 0 ? 16 : (align & 3) == 0 ? 4 : 1;
+  return Segment{dst, src, bytes / width, width};
+}
+
+__device__ __forceinline__ int4 load_unit(const Segment& g, int i) {
+  if (g.width == 16) return __ldcs(static_cast<const int4*>(g.src) + i);
+  if (g.width == 4) return make_int4(__ldcs(static_cast<const int*>(g.src) + i), 0, 0, 0);
+  return make_int4(static_cast<const uint8_t*>(g.src)[i], 0, 0, 0);
+}
+
+__device__ __forceinline__ void store_unit(const Segment& g, int i, const int4& v) {
+  if (g.width == 16) {
+    static_cast<int4*>(g.dst)[i] = v;
+  } else if (g.width == 4) {
+    static_cast<int*>(g.dst)[i] = v.x;
+  } else {
+    static_cast<uint8_t*>(g.dst)[i] = (uint8_t)v.x;
+  }
+}
+
+template <int NSEG>
+__device__ __forceinline__ void warp_copy(const Segment (&g)[NSEG], int lane) {
+  constexpr int ROUND = NSEG == 1 ? 4 : 2;
+  int most = 0;
+#pragma unroll
+  for (int k = 0; k < NSEG; ++k) most = max(most, g[k].units);
+  for (int i0 = lane; i0 < most; i0 += 32 * ROUND) {
+    int4 v[NSEG][ROUND];
+#pragma unroll
+    for (int k = 0; k < NSEG; ++k)
+#pragma unroll
+      for (int u = 0; u < ROUND; ++u) {
+        if (i0 + 32 * u < g[k].units) v[k][u] = load_unit(g[k], i0 + 32 * u);
+      }
+#pragma unroll
+    for (int k = 0; k < NSEG; ++k)
+#pragma unroll
+      for (int u = 0; u < ROUND; ++u) {
+        if (i0 + 32 * u < g[k].units) store_unit(g[k], i0 + 32 * u, v[k][u]);
+      }
+  }
+}
 
 template <int V, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
 __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const ExtParams p) {
   static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
                 "a counter reset writes neither contents nor mission");
+  const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= a.N) return;
+  const int base = n - lane;  // the warp's first env
+  if (base >= a.N) return;
+  const bool active = n < a.N;
   const size_t N = (size_t)a.N;
-  const int W = a.W, H = a.H, WH = a.W * a.H;
-  const Cache cache{a.cgrid, a.ccont, a.csc, a.cmis, a.cscal, a.cplanes, a.R, a.K, a.P};
+  const int W = a.W, H = a.H, WH = a.W * a.H, R = a.R, M = a.M, K = a.K;
+  constexpr int P = Ext::NUM_PLANES;
 
-  // This env's column of every env-minor array: element k at [k * N].
-  int* grid = a.grid + n;
-  int* cont = a.cont + n;
-  int* sc = a.sc + n;
-  int* mis = a.mis + n;
-  uint8_t* planes = Ext::NUM_PLANES > 0 ? a.planes + n : nullptr;
-  const int* act = a.actions + n;
+  // This env's rows (an inactive lane takes the warp's first env's and
+  // never reads or writes them).
+  const size_t me = active ? (size_t)n : (size_t)base;
+  int* grid = a.grid + me * WH;
+  int* cont = a.cont + me * WH;
+  uint8_t* planes = P > 0 ? a.planes + me * P * WH : nullptr;
 
-  Scalars s = load_scalars(sc, N);
-  typename Ext::Extra x = Ext::load(a.scal, n, N, p);
+  Scalars s{};
+  typename Ext::Extra x{};
   uint32_t seed0 = 0, seed1 = 0;
-  if constexpr (Ext::COUNTER_RESET) {
-    seed0 = (uint32_t)a.seeds[n];
-    seed1 = (uint32_t)a.seeds[N + n];
+  if (active) {
+    s = load_scalars(a.sc + n, N);
+    x = Ext::load(a.scal + me * K, 0, 1, p);
+    if constexpr (Ext::COUNTER_RESET) {
+      seed0 = (uint32_t)a.seeds[2 * me];
+      seed1 = (uint32_t)a.seeds[2 * me + 1];
+    }
   }
   int used = 0, done_count = 0;
   uint32_t obs_sum = 0;
   float rew_sum = 0.0f;
 
+  SPLIT_BEGIN();
   for (int t = 0; t < a.T; ++t) {
-    const int action = act[(size_t)t * N];
-    if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, planes, N, W, H, s, x);
-    const Scalars prev = s;
-    const Cell f = front_cell(prev, W, H);
-    const int front = f.x * H + f.y;
-    const int front_before = Ext::FRONT_BEFORE ? grid[(size_t)front * N] : 0;
-    float reward = core_step<NO_OBJECTS>(grid, cont, N, W, H, s, Ext::map_action(action));
-    const StepCtx ctx{grid, cont, N, W, H, prev, s, action, front, front_before, planes};
-    if (Ext::post_step(p, ctx, reward, x)) s.term = 1;
-    const bool done = s.term || s.trunc;
-    rew_sum += reward;
-    done_count += done;
-    if (done) {
-      if constexpr (Ext::COUNTER_RESET) {
-        Ext::reset(p, episode_seed(seed0, seed1, used), grid, N, W, H, s, x);
+    bool done = false;
+    const int action = active ? a.actions[(size_t)t * N + n] : -1;
+    if (active) {
+      if constexpr (Ext::PRE_STEP) Ext::pre_step(p, grid, planes, 1, W, H, s, x);
+      SPLIT_MARK(PH_PRE);
+      const Scalars prev = s;
+      const Cell f = front_cell(prev, W, H);
+      const int front = f.x * H + f.y;
+      const int front_before = Ext::FRONT_BEFORE ? grid[front] : 0;
+      float reward = core_step<NO_OBJECTS>(grid, cont, 1, W, H, s, Ext::map_action(action));
+      SPLIT_MARK(PH_STEP);
+      const StepCtx ctx{grid, cont, 1, W, H, prev, s, action, front, front_before, planes};
+      bool ended;
+      if constexpr (Ext::POSS_ON_DROP) {
+        ended = Ext::template verify<true>(p, ctx, reward, x);
       } else {
-        cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, planes, N, WH, a.M, s, x);
+        ended = Ext::post_step(p, ctx, reward, x);
       }
-      used += 1;
+      if (ended) s.term = 1;
+      done = s.term || s.trunc;
+      rew_sum += reward;
+      done_count += done;
+      SPLIT_MARK(PH_POST);
     }
-    if (COMPUTE_OBS) {
+    SPLIT_SYNC(PH_WAIT);
+    if constexpr (Ext::POSS_ON_DROP) {
+      // The hooks' poss = gridm copies of this step's drops, a warp each.
+      const unsigned drops = __ballot_sync(FULL_WARP, action == ACT_DROP);
+      if (drops != 0) {
+        __syncwarp();
+        for (unsigned m = drops; m != 0; m &= m - 1) {
+          uint8_t* gridm = a.planes + ((size_t)base + __ffs(m) - 1) * P * WH;
+          const Segment copy[1] = {segment(gridm + WH, gridm, WH)};
+          warp_copy(copy, lane);
+        }
+        __syncwarp();
+      }
+      SPLIT_MARK(PH_POST);
+    }
+    const unsigned resets = __ballot_sync(FULL_WARP, done);
+    if (resets != 0) {
+      __syncwarp();  // each lane's step is written before other lanes rewrite its rows
+      for (unsigned m = resets; m != 0; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const size_t e = (size_t)base + src;
+        const int u = __shfl_sync(FULL_WARP, used, src);
+        if constexpr (Ext::COUNTER_RESET) {
+          const uint32_t s0 = __shfl_sync(FULL_WARP, seed0, src), s1 = __shfl_sync(FULL_WARP, seed1, src);
+          Scalars sr = s;
+          typename Ext::Extra xr = x;
+          Ext::warp_reset(p, episode_seed(s0, s1, u), a.grid + e * WH, W, H, sr, xr, lane);
+          if (lane == src) {
+            s = sr;
+            x = xr;
+          }
+        } else {
+          const size_t level = e * R + min(u, R - 1);
+          const Segment grid_seg = segment(a.grid + e * WH, a.cgrid + level * WH, WH * 4);
+          if constexpr (NO_OBJECTS && STATIC_MISSION && P == 0) {
+            const Segment copy[1] = {grid_seg};
+            warp_copy(copy, lane);
+          } else {
+            const Segment copy[4] = {
+                grid_seg,
+                NO_OBJECTS ? Segment{} : segment(a.cont + e * WH, a.ccont + level * WH, WH * 4),
+                STATIC_MISSION ? Segment{} : segment(a.mis + e * M, a.cmis + level * M, M * 4),
+                P == 0 ? Segment{} : segment(a.planes + e * P * WH, a.cplanes + level * P * WH, P * WH),
+            };
+            warp_copy(copy, lane);
+          }
+        }
+      }
+      __syncwarp();  // the new levels are in before their owners read them
+      if (done) {
+        if constexpr (!Ext::COUNTER_RESET) {
+          const size_t level = me * R + min(used, R - 1);
+          const CacheRows& c = a.csc;
+          s = Scalars{c.ax[level],        c.ay[level],        c.dir[level],  c.carry[level],
+                      c.step[level],      c.max_steps[level], c.term[level], c.trunc[level]};
+          if constexpr (Ext::MAX_K > 0) x = Ext::load(a.cscal + level * K, 0, 1, p);
+        }
+        used += 1;
+      }
+    }
+    SPLIT_MARK(PH_RESET);
+    SPLIT_SYNC(PH_WAIT);
+    if (COMPUTE_OBS && active) {
       // Sum of the visible packed cells (_obs_checksum_block).
       int view[V][V];
-      view_cells<V>(grid, N, W, H, s, view);
+      view_cells<V>(grid, 1, W, H, s, view);
       hide_unseen<V, SEE_THROUGH>(view);
 #pragma unroll
       for (int i = 0; i < V; ++i)
 #pragma unroll
         for (int j = 0; j < V; ++j) obs_sum += (uint32_t)view[i][j];
     }
+    SPLIT_MARK(PH_OBS);
   }
+  SPLIT_END(active);
 
-  store_scalars(sc, N, s);
-  Ext::store(a.scal, n, N, p, x);
+  if (!active) return;
+  store_scalars(a.sc + n, N, s);
+  Ext::store(a.scal + me * K, 0, 1, p, x);
   a.used[n] = used;
   a.obs[n] = (int)obs_sum;
   a.rew[n] = rew_sum;
@@ -195,9 +356,11 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 // cplanes and seeds unused); a cached ext takes the cache with its K extra
 // scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
 // planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
-// cache).
+// cache).  The layouts are Args'.
 extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, int* sc, int* mis,
-                                    const int* cgrid, const int* ccont, const int* csc,
+                                    const int* cgrid, const int* ccont, const int* c_ax, const int* c_ay,
+                                    const int* c_dir, const int* c_carry, const int* c_step,
+                                    const int* c_max_steps, const uint8_t* c_term, const uint8_t* c_trunc,
                                     const int* cmis, const int* cscal, int* scal, uint8_t* planes,
                                     const uint8_t* cplanes, const int* seeds, int* used,
                                     int* obs, float* rew, int* done, int W, int H, int V, int R,
@@ -210,6 +373,7 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
+  const CacheRows csc{c_ax, c_ay, c_dir, c_carry, c_step, c_max_steps, c_term, c_trunc};
   const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, planes, cplanes, seeds,
                used, obs, rew, done, W, H, R, M, T, N, K, P};
   const int flags[4] = {no_objects, static_mission, see_through, compute_obs};

@@ -4,10 +4,12 @@
 // and obs_packed.cu), and the rows of the learner's one-hot features
 // (actor_rollout.cu, embed_dense.cu).
 //
-// Every env-state array is env-minor: an env's column of a [K, N] array is
-// a pointer to its element 0, and element k lies at [k * N].  One thread
-// owns one env, so neighbouring threads touch neighbouring addresses for the
-// scalar rows and gather their own cell of the grid planes.
+// The device functions take an env's cells as a pointer to its element 0
+// and a stride, element k at [k * stride]: N for the actor kernel's
+// env-minor [K, N] arrays (neighbouring threads touch neighbouring
+// addresses for the scalar rows and gather their own cell of the grid
+// planes), 1 for the random-policy kernel's env-major rows (an env's cells
+// contiguous).  One thread owns one env.
 //
 // Bit-exactness with the JAX package: the reward is computed with
 // round-to-nearest intrinsics, never contracted into an FMA.
@@ -218,8 +220,8 @@ __device__ __forceinline__ ViewFrame view_frame(int ax, int ay, int d) {
 // The packed grid cell under view cell (i, j) of a V x V view: world cell
 // agent + f * (V-1-j) - r * (V/2 - i), a wall outside the grid.  `grid`
 // points at the env's cell 0 and cell (x, y) lies at [(x * H + y) * stride]:
-// stride N for the kernels' env-minor planes, 1 for an env-major [N, W*H]
-// grid.
+// stride N for the actor kernel's env-minor planes, 1 for an env-major
+// [N, W*H] grid (the random-policy and observation kernels).
 template <int V>
 __device__ __forceinline__ int view_cell(const int* grid, size_t stride, int W, int H, const ViewFrame& f,
                                          int i, int j) {

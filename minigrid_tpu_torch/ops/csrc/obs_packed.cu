@@ -25,7 +25,11 @@
 // a larger grid is read where it lies, each thread inside its own env's
 // row.  Every odd V from 3 to 15, both values of see_through_walls and both
 // ways of reading the grid are instantiated; the launch picks the last by
-// W*H.
+// W*H.  Views of 17 to 31 (MAX_VIEW, the widest whose row masks fit the
+// 32-bit words of the flood, as the JAX package's int32 ones do) take
+// obs_packed_wide_kernel: V at run time, the grid read in place, each row
+// of the view read twice (once for its transparency bits, once for the
+// cells the flood lit, from L1) and written straight to `out`.
 //
 // What bounds it on this card: bytes.  Per env it must read the V*V grid
 // cells it sees and 4 scalars and write V*V cells (0.4 KB at V = 7); its
@@ -133,6 +137,58 @@ __global__ void __launch_bounds__(EB)
   for (int k = 4 * nvec + tid; k < count; k += EB) dst[k] = tile[k];
 }
 
+// The flood of one view row at run-time V (flood_row with 32-bit unsigned
+// masks, whose wraparound keeps the low V bits exact up to V = 32).
+__device__ __forceinline__ uint32_t flood_row_wide(uint32_t t, uint32_t& up, int V) {
+  const uint32_t full = V >= 32 ? 0xFFFFFFFFu : (1u << V) - 1u;
+  const uint32_t m_r = up | ((((up & t) + t) & full) ^ t);
+  const uint32_t cond_r = m_r & t & (full >> 1);
+  const uint32_t new_up = cond_r | ((cond_r << 1) & full);
+  uint32_t m_l = m_r;
+  for (int k = 0; k < V - 1; ++k) m_l |= (m_l & t) >> 1;
+  const uint32_t cond_l = m_l & t & ~1u;
+  up = new_up | cond_l | (cond_l >> 1);
+  return m_l;
+}
+
+constexpr int MAX_VIEW = 31;
+constexpr int WIDE_THREADS = 128;
+
+template <bool SEE_THROUGH>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    obs_packed_wide_kernel(const int* __restrict__ grid, const int* __restrict__ ax, const int* __restrict__ ay,
+                           const int* __restrict__ dir, const int* __restrict__ carrying, int* __restrict__ out, int N,
+                           int W, int H, int V) {
+  const int n = blockIdx.x * WIDE_THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int* g = grid + (size_t)n * W * H;
+  int* o = out + (size_t)n * V * V;
+  const int d = dir[n];
+  const int fx = (d == 0) - (d == 2), fy = (d == 1) - (d == 3);
+  const int x0 = ax[n], y0 = ay[n], half = V / 2;
+  // World cell of view cell (i, j): agent + f * (V-1-j) - r * (V/2 - i),
+  // r = (-fy, fx); a wall outside the grid (view_cell).
+  auto cell = [&](int i, int j) {
+    const int wx = x0 + fx * (V - 1 - j) + fy * (half - i);
+    const int wy = y0 + fy * (V - 1 - j) - fx * (half - i);
+    return wx >= 0 && wx < W && wy >= 0 && wy < H ? g[wx * H + wy] : WALL_CELL;
+  };
+  const int carry = carrying[n];
+  uint32_t up = 1u << half;
+  for (int j = V - 1; j >= 0; --j) {
+    uint32_t lit = 0xFFFFFFFFu;
+    if (!SEE_THROUGH) {
+      uint32_t t = 0;
+      for (int i = 0; i < V; ++i) t |= see_behind(cell(i, j)) ? 1u << i : 0u;
+      lit = flood_row_wide(t, up, V);
+    }
+    for (int i = 0; i < V; ++i) {
+      int v = (i == half && j == V - 1) ? (carry != 0 ? (carry & 0xFFFF) : OBJ_EMPTY) : cell(i, j);
+      o[i * V + j] = (lit >> i) & 1u ? v : 0;
+    }
+  }
+}
+
 template <int V, bool SEE_THROUGH, bool STAGED>
 cudaError_t launch_case(const int* grid, const int* ax, const int* ay, const int* dir, const int* carrying,
                         int* out, int N, int W, int H, cudaStream_t stream) {
@@ -162,8 +218,8 @@ cudaError_t launch_v(const int* grid, const int* ax, const int* ay, const int* d
 
 }  // namespace
 
-// Whether view size V was instantiated.
-extern "C" int obs_packed_supports_view(int V) { return V >= 3 && V <= 15 && V % 2 == 1; }
+// Whether the kernels take view size V: every odd V from 3 to MAX_VIEW.
+extern "C" int obs_packed_supports_view(int V) { return V >= 3 && V <= MAX_VIEW && V % 2 == 1; }
 
 // Whether the grid of a W x H env is staged in shared memory.
 extern "C" int obs_packed_staged(int W, int H) { return W * H >= 2 && W * H <= STAGED_MAX_CELLS; }
@@ -186,6 +242,13 @@ extern "C" int obs_packed_launch(const int* grid, const int* ax, const int* ay, 
     case 9: return (int)launch_v<9>(grid, ax, ay, dir, carrying, out, N, W, H, st, s);
     case 11: return (int)launch_v<11>(grid, ax, ay, dir, carrying, out, N, W, H, st, s);
     case 13: return (int)launch_v<13>(grid, ax, ay, dir, carrying, out, N, W, H, st, s);
-    default: return (int)launch_v<15>(grid, ax, ay, dir, carrying, out, N, W, H, st, s);
+    case 15: return (int)launch_v<15>(grid, ax, ay, dir, carrying, out, N, W, H, st, s);
   }
+  const int blocks = (N + WIDE_THREADS - 1) / WIDE_THREADS;
+  if (st) {
+    obs_packed_wide_kernel<true><<<blocks, WIDE_THREADS, 0, s>>>(grid, ax, ay, dir, carrying, out, N, W, H, V);
+  } else {
+    obs_packed_wide_kernel<false><<<blocks, WIDE_THREADS, 0, s>>>(grid, ax, ay, dir, carrying, out, N, W, H, V);
+  }
+  return (int)cudaGetLastError();
 }

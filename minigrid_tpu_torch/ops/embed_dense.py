@@ -120,7 +120,7 @@ def _forward(w1, b1, packed, direction) -> torch.Tensor:
     _require(w1.is_floating_point() and b1.is_floating_point(), "w1 and b1 must be floating point")
     lib = load_library("embed_dense")
     slab, words_per_sample = _forward_shape(lib, v2, hidden)
-    _require(slab > 0, f"a view of {v2} cells does not fit the forward's W1 slab")
+    _require(slab > 0, f"a view of {v2} cells is wider than the forward takes")
     # The kernel rounds float32 weights to bf16 as it loads them; other
     # types are rounded here first (exact in float32 after that).
     w1f, b1f = (t.detach() if t.dtype == torch.float32 else t.detach().to(torch.bfloat16).float() for t in (w1, b1))
@@ -146,9 +146,10 @@ def _forward(w1, b1, packed, direction) -> torch.Tensor:
 
 @functools.cache
 def _forward_shape(lib, v2: int, hidden: int) -> tuple[int, int]:
-    """The forward's slab width (hidden columns of W1 a CTA holds; 0 when
-    a view of ``v2`` cells does not fit) at width ``hidden``, and its
-    one-hot words per sample (the scratch's width)."""
+    """The forward's slab width (hidden columns of W1 a CTA holds,
+    resident or, past v = 15, streamed through shared memory; 0 when a
+    view of ``v2`` cells is wider than the forward takes) at width
+    ``hidden``, and its one-hot words per sample (the scratch's width)."""
     for name in ("embed_dense1_fwd_slab_width", "embed_dense1_fwd_words"):
         getattr(lib, name).restype = ctypes.c_int
     lib.embed_dense1_fwd_slab_width.argtypes = [ctypes.c_int, ctypes.c_int]

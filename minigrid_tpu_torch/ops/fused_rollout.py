@@ -38,7 +38,7 @@ COMPILED_VIEW_SIZES = (7,)
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 
 
 def supports_fused(env) -> bool:
@@ -261,7 +261,7 @@ def _rows(s: EnvState) -> torch.Tensor:
 
 
 def to_env_minor(states: EnvState, cache: EnvState | None) -> tuple:
-    """The kernels' env-minor buffers (thread n reads column n): state grid
+    """The actor kernel's env-minor buffers (thread n reads column n): state grid
     and contents [W*H, N], scalar rows [8, N], mission [M, N], and the cache
     as [R, W*H, N], [R, W*H, N], [R, 8, N], [R, M, N] (four Nones without a
     cache).  The state buffers are fresh copies the kernel updates in
@@ -286,11 +286,18 @@ def to_env_minor(states: EnvState, cache: EnvState | None) -> tuple:
 
 
 def from_env_minor(states: EnvState, grid, cont, sc, mis) -> EnvState:
-    """``states`` with the kernel's final env-minor buffers put back."""
+    """``states`` with the actor kernel's final env-minor buffers put back."""
     n, w, h = states.grid.shape
+    return _with_rows(states, grid.t().reshape(n, w, h).contiguous(), cont.t().reshape(n, w, h).contiguous(), sc,
+                      mis.t().contiguous())
+
+
+def _with_rows(states: EnvState, grid, contains, sc, mission) -> EnvState:
+    """``states`` with a kernel's final grid, contents, mission and 8 scalar
+    rows [8, N]."""
     return states.replace(
-        grid=grid.t().reshape(n, w, h).contiguous(),
-        contains=cont.t().reshape(n, w, h).contiguous(),
+        grid=grid,
+        contains=contains,
         agent_x=sc[0],
         agent_y=sc[1],
         agent_dir=sc[2],
@@ -299,7 +306,60 @@ def from_env_minor(states: EnvState, grid, cont, sc, mis) -> EnvState:
         max_steps=sc[5],
         terminated=sc[6] != 0,
         truncated=sc[7] != 0,
-        mission=mis.t().contiguous(),
+        mission=mission,
+    )
+
+
+class KernelBuffers(NamedTuple):
+    """What the rollout kernel reads and writes, in its layouts: the state's
+    grid and contents [N, W*H] and mission [N, M] (the state's own, cloned
+    where the kernel writes them), its 8 scalar rows [8, N], and the reset
+    cache as ``batch_reset_cache`` returns it, grid and contents [N, R, W*H],
+    mission [N, R, M] and its 8 scalar fields [N, R] (six int32, the two
+    flags bool) (Nones without a cache); ``ext``, the ext's buffers,
+    env-major."""
+
+    grid: torch.Tensor
+    cont: torch.Tensor
+    sc: torch.Tensor
+    mis: torch.Tensor
+    cgrid: torch.Tensor | None
+    ccont: torch.Tensor | None
+    csc: tuple[torch.Tensor, ...]
+    cmis: torch.Tensor | None
+    ext: "ExtBuffers"
+
+
+def kernel_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds, what: str = "fused_rollout"):
+    """The rollout kernel's buffers (``KernelBuffers``): no permute of the
+    state or the cache, whose leaves the kernel reads where they lie; the
+    grid (and the contents and mission, where the family's instantiation
+    writes them) cloned once for the kernel to update in place."""
+    n, w, h = states.grid.shape
+
+    def rows(x: torch.Tensor, width: int, writes: bool) -> torch.Tensor:
+        x = x.reshape(n, width)
+        return x.clone(memory_format=torch.contiguous_format) if writes else x.contiguous()
+
+    live = (
+        rows(states.grid, w * h, True),
+        rows(states.contains, w * h, not env.fused_no_objects),
+        _rows(states),
+        rows(states.mission, states.mission.shape[-1], not env.fused_static_mission),
+    )
+    ext = ext_buffers(env, states, cache, reset_seeds, what, env_major=True)
+    if cache is None:
+        return KernelBuffers(*live, None, None, (None,) * 8, None, ext)
+    r = cache.step_count.shape[1]
+    fields = (cache.agent_x, cache.agent_y, cache.agent_dir, cache.carrying, cache.step_count, cache.max_steps)
+    return KernelBuffers(
+        *live,
+        cache.grid.reshape(n, r, w * h).contiguous(),
+        cache.contains.reshape(n, r, w * h).contiguous(),
+        tuple(x.to(torch.int32).contiguous() for x in fields)
+        + tuple(x.to(torch.bool).contiguous() for x in (cache.terminated, cache.truncated)),
+        cache.mission.contiguous(),
+        ext,
     )
 
 
@@ -308,49 +368,67 @@ def _pointer(x: torch.Tensor | None) -> int | None:
 
 
 class ExtBuffers(NamedTuple):
-    """The ext arguments of a whole-rollout kernel (``ext_buffers``)."""
+    """The ext arguments of a whole-rollout kernel (``ext_buffers``), in the
+    actor kernel's env-minor layout or, ``env_major``, in the rollout
+    kernel's, where the env is the leading axis of each."""
 
-    scal: torch.Tensor | None  # int32 [K, N] extra scalars, updated in place
-    cscal: torch.Tensor | None  # int32 [R, K, N] a cached ext's cache scalars
-    planes: torch.Tensor | None  # uint8 [P, W*H, N] extra planes, updated in place
-    cplanes: torch.Tensor | None  # uint8 [R, P, W*H, N] a cached ext's cache planes
-    seeds: torch.Tensor | None  # int32 [2, N] a counter-reset ext's seeds
+    scal: torch.Tensor | None  # int32 [K, N] extra scalars, updated in place ([N, K])
+    cscal: torch.Tensor | None  # int32 [R, K, N] a cached ext's cache scalars ([N, R, K])
+    planes: torch.Tensor | None  # uint8 [P, W*H, N] extra planes, updated in place ([N, P, W*H])
+    cplanes: torch.Tensor | None  # uint8 [R, P, W*H, N] a cached ext's cache planes ([N, R, P, W*H])
+    seeds: torch.Tensor | None  # int32 [2, N] a counter-reset ext's seeds ([N, 2])
     ext_id: int
     params: tuple[int, ...]  # ExtParams (FusedExt.kernel_params)
+    env_major: bool = False
 
     def pointers(self) -> tuple:
         """The five buffers' addresses in the launch functions' order."""
         return tuple(None if x is None else x.data_ptr() for x in (self.cscal, self.scal, self.planes, self.cplanes, self.seeds))
 
 
-def _planes_minor(planes: torch.Tensor, lead: tuple[int, ...], p: int, cells: int, device, what: str) -> torch.Tensor:
-    """int32 [*lead, P, W*H] planes as env-minor bytes [*lead[1:], P, W*H,
-    N] (every value must fit in a byte)."""
+def _plane_bytes(
+    planes: torch.Tensor, lead: tuple[int, ...], p: int, cells: int, device, what: str, env_major: bool
+) -> torch.Tensor:
+    """int32 [*lead, P, W*H] planes as bytes (every value must fit in one),
+    env-minor [*lead[1:], P, W*H, N] or, ``env_major``, as they are."""
     _require(
         planes is not None and tuple(planes.shape) == lead + (p, cells), f"extra planes must pack to {lead + (p, cells)}", what
     )
     _require(bool(((planes >= 0) & (planes < 256)).all()), "extra plane values must fit in a byte", what)
+    if env_major:  # a copy: the kernel updates the live planes in place
+        return planes.to(device=device, dtype=torch.uint8, memory_format=torch.contiguous_format, copy=True)
     order = tuple(range(1, len(lead))) + (len(lead), len(lead) + 1, 0)
     return planes.to(device=device, dtype=torch.uint8).permute(order).contiguous()
 
 
-def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torch.Tensor | None, what: str) -> ExtBuffers:
+def ext_buffers(
+    env, states: EnvState, cache: EnvState | None, reset_seeds: torch.Tensor | None, what: str, env_major: bool = False
+) -> ExtBuffers:
     """The ext arguments of a whole-rollout kernel: the extra scalars and
-    planes as env-minor copies the kernel updates in place, a cached ext's
-    cache scalars and planes, a counter-reset ext's seeds (each None where
-    the ext has none), the ext's kernel id and its ``ExtParams``."""
+    planes as copies the kernel updates in place, a cached ext's cache
+    scalars and planes, a counter-reset ext's seeds (each None where the ext
+    has none), the ext's kernel id and its ``ExtParams``; env-minor for the
+    actor kernel, or ``env_major`` for the rollout kernel, which takes the
+    packed ext state and seeds as they come."""
     ext = env.fused_ext
     if ext is None:
-        return ExtBuffers(None, None, None, None, None, 0, (0,) * 7)
+        return ExtBuffers(None, None, None, None, None, 0, (0,) * 7, env_major)
     n, device = states.step_count.shape[0], states.device
     cells = env.width * env.height
+
+    def minor(x: torch.Tensor, order: tuple[int, ...]) -> torch.Tensor:
+        return x.contiguous() if env_major else x.permute(order).contiguous()
+
     scal = planes = None
     if ext.n_scalars:
         scal = ext.pack_extra(env, states.extra)
         _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]", what)
-        scal = scal.to(device=device, dtype=torch.int32).t().contiguous()
+        scal = scal.to(device=device, dtype=torch.int32)
+        # The kernel updates these in place: never the state's own tensor,
+        # which a pack may return as it is.
+        scal = scal.clone(memory_format=torch.contiguous_format) if env_major else scal.t().contiguous()
     if ext.n_planes:
-        planes = _planes_minor(ext.pack_planes(env, states.extra), (n,), ext.n_planes, cells, device, what)
+        planes = _plane_bytes(ext.pack_planes(env, states.extra), (n,), ext.n_planes, cells, device, what, env_major)
     if not ext.covers_reset:
         _require(reset_seeds is None, "a cached ext resets from its cache and takes no reset_seeds", what)
         r = cache.step_count.shape[1]
@@ -358,30 +436,30 @@ def ext_buffers(env, states: EnvState, cache: EnvState | None, reset_seeds: torc
         _require(
             tuple(cscal.shape) == (n, r, ext.n_scalars), f"the cache's extra must pack to [{n}, {r}, {ext.n_scalars}]", what
         )
-        cscal = cscal.to(device=device, dtype=torch.int32).permute(1, 2, 0).contiguous()
+        cscal = minor(cscal.to(device=device, dtype=torch.int32), (1, 2, 0))
         cplanes = None
         if ext.n_planes:
-            cplanes = _planes_minor(ext.pack_planes(env, cache.extra), (n, r), ext.n_planes, cells, device, what)
-        return ExtBuffers(scal, cscal, planes, cplanes, None, ext.kernel_id, ext.kernel_params(env))
+            cplanes = _plane_bytes(ext.pack_planes(env, cache.extra), (n, r), ext.n_planes, cells, device, what, env_major)
+        return ExtBuffers(scal, cscal, planes, cplanes, None, ext.kernel_id, ext.kernel_params(env), env_major)
     _require(
         reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
         and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
         f"reset_seeds must be int32 [{n}, 2] on the state's device",
         what,
     )
-    return ExtBuffers(scal, None, planes, None, reset_seeds.t().contiguous(), ext.kernel_id, ext.kernel_params(env))
+    return ExtBuffers(scal, None, planes, None, minor(reset_seeds, (1, 0)), ext.kernel_id, ext.kernel_params(env), env_major)
 
 
 def with_extra(env, final: EnvState, ext: ExtBuffers) -> EnvState:
-    """``final`` with the kernel's final extra scalars [K, N] and planes
-    [P, W*H, N] (widened back to int32) unpacked into its ``extra``."""
+    """``final`` with the kernel's final extra scalars and planes (widened
+    back to int32) unpacked into its ``extra``."""
     if ext.scal is None:
         return final
-    scal = ext.scal.t().contiguous()
+    scal = ext.scal if ext.env_major else ext.scal.t().contiguous()
     if ext.planes is None:
         return final.replace(extra=env.fused_ext.unpack_extra(env, scal))
-    planes = ext.planes.permute(2, 0, 1).to(torch.int32).contiguous()
-    return final.replace(extra=env.fused_ext.unpack_extra(env, scal, planes))
+    planes = ext.planes if ext.env_major else ext.planes.permute(2, 0, 1)
+    return final.replace(extra=env.fused_ext.unpack_extra(env, scal, planes.to(torch.int32).contiguous()))
 
 
 def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bool, reset_seeds):
@@ -392,9 +470,8 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     t = actions.shape[0]
     _require(actions.shape == (t, n), f"actions must be [T, {n}], got {tuple(actions.shape)}")
     _require(actions.dtype == torch.int32 and actions.device == device, "actions must be int32 on the state's device")
-    ext = ext_buffers(env, states, cache, reset_seeds, "fused_rollout")
-
-    grid, cont, sc, mis, cgrid, ccont, csc, cmis = to_env_minor(states, cache)
+    b = kernel_buffers(env, states, cache, reset_seeds)
+    ext = b.ext
     acts = actions.contiguous()
     used = torch.zeros(n, dtype=torch.int32, device=device)
     obs = torch.zeros_like(used)
@@ -408,12 +485,12 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(_pointer(x) for x in (acts, grid, cont, sc, mis, cgrid, ccont, csc, cmis)),
+            *(_pointer(x) for x in (acts, b.grid, b.cont, b.sc, b.mis, b.cgrid, b.ccont, *b.csc, b.cmis)),
             *ext.pointers(),
             *(_pointer(x) for x in (used, obs, rew, done)),
             env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
-            0 if ext.scal is None else ext.scal.shape[0],
-            0 if ext.planes is None else ext.planes.shape[0],
+            0 if ext.scal is None else env.fused_ext.n_scalars,
+            0 if ext.planes is None else env.fused_ext.n_planes,
             int(bool(env.fused_no_objects)),
             int(bool(env.fused_static_mission)),
             int(env.see_through_walls),
@@ -426,8 +503,10 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
         raise RuntimeError(f"fused_rollout kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
 
+    w, h = env.width, env.height
+    final = _with_rows(states, b.grid.reshape(n, w, h), b.cont.reshape(n, w, h), b.sc, b.mis)
     return (
-        with_extra(env, from_env_minor(states, grid, cont, sc, mis), ext),
+        with_extra(env, final, ext),
         rew.sum(),
         wrap_int32(done.sum(dtype=torch.int64)),
         wrap_int32(obs.sum(dtype=torch.int64)),

@@ -7,8 +7,8 @@ view in the port's [i, j] layout, 0 for unseen cells.  The CUDA kernel
 (``csrc/obs_packed.cu``) replaces the Pallas kernel ``_kernel``: view
 extraction, the occlusion flood, the carried object at the agent cell and
 the zeroing of unseen cells in one pass, where the plain version is a
-Python loop of some 200 small ops at v = 7.  The kernel is built for every
-odd v in ``BUILT_VIEW_SIZES`` and both values of ``see_through_walls``.
+Python loop of some 200 small ops at v = 7.  The kernel takes every odd v
+in ``BUILT_VIEW_SIZES`` and both values of ``see_through_walls``.
 
 ``fused_obs_packed`` dispatches on the device of ``grid``: CUDA tensors
 launch the kernel (or raise), CPU tensors run
@@ -32,8 +32,11 @@ import torch
 from minigrid_tpu_torch.core.constants import OBJ_EMPTY, WALL_CELL, cell_state, cell_type, dir_vec, see_behind
 from minigrid_tpu_torch.ops._build import load_library
 
-# View sizes the CUDA source instantiates (csrc/obs_packed.cu).
-BUILT_VIEW_SIZES = (3, 5, 7, 9, 11, 13, 15)
+# View sizes the CUDA source takes (csrc/obs_packed.cu): every odd v from 3
+# to 15 instantiated, 17 to 31 at run time.  31 is the widest view whose
+# rows fit the flood's 32-bit masks, as in the JAX package, whose int32
+# masks overflow past it.
+BUILT_VIEW_SIZES = tuple(range(3, 32, 2))
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 

@@ -37,8 +37,8 @@ from minigrid_tpu_torch.rl.rollout import Trajectory
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from torch_port_util import HIDDEN, flax_params, jax_to_numpy, port_model, to_port, with_bias_noise
 
-N, T, R = 1024, 10, 2  # T > max_steps: every env ends an episode
-MAX_STEPS = 8
+N, T, R = 1024, 8, 2  # T > max_steps: every env ends an episode
+MAX_STEPS = 5
 ACTOR_IDS = ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-GoToDoor-5x5-v0"]
 
 

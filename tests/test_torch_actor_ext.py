@@ -35,7 +35,7 @@ from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from torch_port_util import flax_params, jax_to_numpy, port_model, to_port
 
-N, T = 1024, 8
+N, T = 1024, 5
 ENV_ID = "MiniGrid-Dynamic-Obstacles-5x5-v0"
 
 

@@ -11,7 +11,7 @@ package and the original's recorded episodes.
   recorded transitions: the instruction state, the reward and the
   termination at every step.
 * The rollout kernel's plain version against the JAX package's Pallas kernel
-  in interpret mode on GoToLocal (12 steps) and GoTo (4 steps), on JAX's
+  in interpret mode on GoToLocal (8 steps) and GoTo (4 steps), on JAX's
   states and an R=2 cache, in both verifier modes: the final state with its
   ``InstrState``, the done count, the checksum and ``max_used`` bit for bit,
   the reward total to rtol 1e-6 (XLA's FMA, ROADMAP queue 3).
@@ -69,8 +69,8 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 VERIFIER_FILES = sorted(glob.glob(os.path.join(GOLDEN_DIR, "verifier_*.npz")))
 N, R = 1024, 2
 # (env id, steps, seed): tests/test_fused_rollout.py's BabyAI cases.
-K1_CASES = {"gotolocal": ("BabyAI-GoToLocal-v0", 12, 0), "goto": ("BabyAI-GoTo-v0", 4, 2)}
-ACTOR_STEPS = 12
+K1_CASES = {"gotolocal": ("BabyAI-GoToLocal-v0", 8, 0), "goto": ("BabyAI-GoTo-v0", 4, 2)}
+ACTOR_STEPS = 6
 GOTO_IDS = sorted(i for i in mgt.registered_ids() if i.startswith("BabyAI-"))
 # The bridge's type for BabyAI's structured extra leaf.
 EXTRA_TYPES = {"instr": InstrState}
@@ -181,6 +181,7 @@ def _done_mode(state):
     return state.replace(extra={"instr": instr.replace(done_mode=jnp.ones_like(instr.done_mode))})
 
 
+@functools.cache
 @functools.cache
 def _jax_levels(env_id: str, seed: int):
     """JAX's states [N] and R=2 cache [N, R], from (R+1)N resets of one

@@ -61,9 +61,9 @@ COVERING_R_256 = {
 # (env id, make kwargs, steps, seed): tests/test_fused_rollout.py's cases.
 K1_CASES = {
     # Keys, the locked door, occlusion; the default 250 steps.
-    "doorkey5x5": ("MiniGrid-DoorKey-5x5-v0", {}, 24, 3),
+    "doorkey5x5": ("MiniGrid-DoorKey-5x5-v0", {}, 12, 3),
     # 19x19, beyond the view; truncation resets through the cache.
-    "fourrooms": ("MiniGrid-FourRooms-v0", {"max_steps": 10}, 12, 5),
+    "fourrooms": ("MiniGrid-FourRooms-v0", {"max_steps": 5}, 6, 5),
     # Any pickup ends the episode; the target blended from the cache.
     "fetch5x5n2": ("MiniGrid-Fetch-5x5-N2-v0", {"max_steps": 8}, 12, 7),
     # done/toggle end episodes; target_pos blended from the cache.

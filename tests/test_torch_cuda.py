@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import minigrid_tpu_torch as mgt
+from minigrid_tpu_torch import wrappers as wr
 from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.env import MiniGridEnv
+from minigrid_tpu_torch.core.sampling import randint
 from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
@@ -209,18 +211,27 @@ def test_embed_forward_matches_plain_version_and_repeats(device, m, hidden):
     assert torch.equal(out, again)  # bit-identical twice
 
 
-@pytest.mark.parametrize("view_size", [3, 9, 15])  # slabs of 64, 32 and 8 columns
+# Resident slabs of 64, 32 and 8 columns at v = 3, 9 and 15; past 15 the
+# slab is streamed through shared memory.
+@pytest.mark.parametrize("view_size", [3, 9, 15, 17, 19, 31])
 def test_embed_forward_takes_other_views(device, view_size):
     rng = np.random.default_rng(view_size)
     m, v2, hidden = 1000, view_size * view_size, 64
     fields = [rng.integers(0, hi, (m, v2)) for hi in (13, 8, 4)]  # some types and colors out of range
     packed = torch.from_numpy((fields[0] | fields[1] << 8 | fields[2] << 16).astype(np.int32)).to(device)
     direction = torch.from_numpy(rng.integers(-1, 6, m).astype(np.int32)).to(device)
-    w1 = torch.from_numpy(rng.normal(0, 0.03, (v2 * 20 + 4, hidden)).astype(np.float32)).to(device)
+    # Past v = 15 W1's spread shrinks as 1/v, so that the sums spread as at
+    # v = 15 and one bf16 rounding of the output stays under the tolerance.
+    scale = 0.03 * min(1.0, 15 / view_size)
+    w1 = torch.from_numpy(rng.normal(0, scale, (v2 * 20 + 4, hidden)).astype(np.float32)).to(device)
     b1 = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32)).to(device)
+    streamed = load_library("embed_dense").embed_dense1_fwd_streamed
+    streamed.argtypes, streamed.restype = [ctypes.c_int] * 2, ctypes.c_int
+    assert streamed(v2, hidden) == (view_size >= 17)
     out = ed.embed_dense1(w1, b1, packed, direction)
     want = ed.embed_dense1_reference(w1, b1, packed, direction)
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    assert torch.equal(out, ed.embed_dense1(w1, b1, packed, direction))  # bit-identical twice
 
 
 @pytest.mark.parametrize("hidden", [48, 1024])
@@ -461,6 +472,81 @@ def test_actor_kernel_runs_babyai(device, env_id):
     ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
 
 
+# K1's whole-warp resets on the state and cache where they lie: tail warps,
+# lanes resetting at spread steps and all at once, R = 1 and 137, every
+# compiled ext; bit for bit, the reward total to rtol 1e-6.
+K1_CASES = {
+    # env id, N, steps, R, max_steps, ages: "fresh", "spread" or "last" (every lane ends at step 1)
+    "doorkey-n1": ("MiniGrid-DoorKey-8x8-v0", 1, 64, 3, 24, "spread"),
+    "doorkey-n31": ("MiniGrid-DoorKey-8x8-v0", 31, 64, 3, 24, "spread"),
+    "doorkey-n33": ("MiniGrid-DoorKey-8x8-v0", 33, 64, 3, 24, "spread"),
+    "doorkey-n4127": ("MiniGrid-DoorKey-8x8-v0", 4127, 64, 3, 24, "spread"),
+    "empty-all-at-once": ("MiniGrid-Empty-8x8-v0", 4096, 32, 2, 16, "last"),
+    "empty-r1": ("MiniGrid-Empty-8x8-v0", 4096, 64, 1, 12, "spread"),
+    "fourrooms": ("MiniGrid-FourRooms-v0", 2048, 48, 3, 20, "spread"),
+    "gotoobject-r137": ("MiniGrid-GoToObject-8x8-N2-v0", 1024, 256, 137, None, "spread"),
+    "gotodoor": ("MiniGrid-GoToDoor-8x8-v0", 4096, 64, 3, 24, "spread"),
+    "fetch": ("MiniGrid-Fetch-8x8-N3-v0", 4096, 64, 3, 24, "spread"),
+    "gotolocal": ("BabyAI-GoToLocal-v0", 4096, 64, 4, 24, "spread"),
+    "goto": ("BabyAI-GoTo-v0", 1024, 64, 3, 24, "spread"),
+    "empty-random": ("MiniGrid-Empty-Random-5x5-v0", 4127, 64, 0, 16, "spread"),
+    "crossing": ("MiniGrid-LavaCrossingS9N2-v0", 4096, 64, 0, 24, "spread"),
+    "dynamic-obstacles": ("MiniGrid-Dynamic-Obstacles-8x8-v0", 4127, 64, 0, 24, "fresh"),
+}
+
+
+def _k1_inputs(device, name, seed=11):
+    env_id, n, steps, r, max_steps, ages = K1_CASES[name]
+    env = mgt.make(env_id) if max_steps is None else mgt.make(env_id, max_steps=max_steps)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, states = env.reset(n, gen)
+    if ages == "spread":
+        states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    elif ages == "last":
+        states = states.replace(step_count=states.max_steps - 1)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    if fr.counter_reset(env):
+        seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, device=device, dtype=torch.int32)
+        return env, states, None, actions, seeds
+    return env, states, env.batch_reset_cache(n, r, gen), actions, None
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_matches_plain_version_bit_for_bit(device, name, compute_obs):
+    env, states, cache, actions, seeds = _k1_inputs(device, name)
+    n = states.step_count.shape[0]
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, compute_obs, seeds)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, compute_obs, seeds)
+    for f in FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert (got[0].extra is None) == (want[0].extra is None)
+    if want[0].extra is not None:
+        _assert_extra_same(got[0].extra, want[0].extra)
+    assert [int(x) for x in got[2:]] == [int(x) for x in want[2:]]
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+    if K1_CASES[name][5] == "last":
+        assert int(got[2]) >= n  # every lane ended its episode at the first step
+    assert int(got[2]) > 0 and (cache is None or int(got[4]) >= 1)
+
+
+def test_k1_allocates_no_env_minor_cache(device):
+    # The reset cache is read where it lies: what a call allocates stays
+    # below one [N, R, W*H] plane of it (the old layout's permuted copy).
+    env, states, cache, actions, _ = _k1_inputs(device, "gotoobject-r137")
+    fr.fused_rollout_core(env, states, cache, actions, False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fr.fused_rollout_core(env, states, cache, actions, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert int(out[2]) > 0 and peak < cache.grid.nbytes, (peak, cache.grid.nbytes)
+
+
 def test_new_wrappers_reject_what_their_kernels_do_not_take(device):
     packed, direction, w1, b1, dy = _embed_inputs(device, 64, 64, 1)
     with pytest.raises(ValueError, match="need CUDA"):
@@ -538,8 +624,11 @@ def test_obs_kernel_is_exact_on_both_grid_instantiations(device, n, size, see_th
 
 
 def test_obs_kernel_raises_on_what_it_does_not_take(device):
+    # Every odd view from 3 to 31 is taken (17-31 since the runtime-V
+    # path); 33, the first past them, an even and a too small one are not.
     states = state_from_numpy(random_states(np.random.default_rng(0), (64,), 8, 8), device)
-    for v in (17, 4, 1):
+    assert op.BUILT_VIEW_SIZES[-1] == 31
+    for v in (33, 4, 1):
         with pytest.raises(ValueError, match=f"view size {v} was not built"):
             op.fused_obs_packed(*_obs_inputs(states), v)
     with pytest.raises(ValueError, match="need CUDA"):
@@ -548,6 +637,30 @@ def test_obs_kernel_raises_on_what_it_does_not_take(device):
         op.fused_obs_packed(states.grid, states.agent_x.cpu(), states.agent_y, states.agent_dir, states.carrying)
     with pytest.raises(ValueError, match="carrying must be int32"):
         op.fused_obs_packed(states.grid, states.agent_x, states.agent_y, states.agent_dir, states.carrying.long())
+
+
+@pytest.mark.parametrize("view_size", [17, 19])
+def test_a_wrapped_view_past_15_steps_on_the_card(device, view_size):
+    # ViewSizeWrapper(DoorKey-8x8, v): a reset and 8 steps, each observation
+    # through the kernel (one launch a step) equal to the plain one's.
+    env = wr.ViewSizeWrapper(mgt.make("MiniGrid-DoorKey-8x8-v0"), view_size)
+    gens = [torch.Generator(device=device).manual_seed(9) for _ in range(2)]
+    n = 512
+    obs, states = env.reset(n, gens[0])
+    with obs_lib.plain_observations():
+        want, plain_states = env.reset(n, gens[1])
+    assert obs["image"].shape == (n, view_size, view_size, 3) and torch.equal(obs["image"], want["image"])
+    for _ in range(8):
+        actions = [torch.randint(0, env.num_actions, (n,), generator=g, device=device, dtype=torch.int32) for g in gens]
+        before = op.KERNEL_LAUNCHES
+        obs, states, *_ = env.step(states, actions[0], gens[0])
+        torch.cuda.synchronize()
+        assert op.KERNEL_LAUNCHES == before + 1
+        with obs_lib.plain_observations():
+            want, plain_states, *_ = env.step(plain_states, actions[1], gens[1])
+        assert torch.equal(obs["image"], want["image"])
+    for f in FIELDS:
+        assert torch.equal(getattr(states, f), getattr(plain_states, f)), f
 
 
 def test_env_observations_take_the_obs_kernel(device):

@@ -23,7 +23,7 @@ from minigrid_tpu.core.env import MiniGridEnv as JEnv
 from minigrid_tpu.core.state import EnvState as JState
 from minigrid_tpu.ops.fused_rollout import fused_rollout_core as j_fused_rollout_core
 from minigrid_tpu_torch.core.env import MiniGridEnv
-from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.parallel.vector import VectorEnv, fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.utils.synthetic import random_states
@@ -57,7 +57,7 @@ CASES = {
     # Keys and doors, occlusion, R=2.
     "doorkey5x5": lambda: _jax_case("MiniGrid-DoorKey-5x5-v0", {"max_steps": 10}, 2, 3),
     # 19x19 grid, truncation resets.
-    "fourrooms": lambda: _jax_case("MiniGrid-FourRooms-v0", {"max_steps": 10}, 2, 5),
+    "fourrooms": lambda: _jax_case("MiniGrid-FourRooms-v0", {"max_steps": 5}, 2, 5),
     # Every object kind, carried objects, box contents, mission resets.
     "synthetic": lambda: _synthetic_case(9),
 }
@@ -74,7 +74,7 @@ def _port_env(jenv, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_rollout_core_matches_jax_kernel(case):
     jenv, jstates, jcache = CASES[case]()
-    steps = 12 if case == "fourrooms" else 24
+    steps = {"fourrooms": 6, "synthetic": 24}.get(case, 12)
     actions = np.random.default_rng(1).integers(0, 7, (steps, N), dtype=np.int32)
     jfinal, jrew, jdone, jchk, jused = j_fused_rollout_core(
         jenv, jstates, jcache, jnp.asarray(actions), True, True  # interpret=True
@@ -115,7 +115,7 @@ def test_fused_rollout_draws_actions_then_cache():
     # fused_rollout is fused_rollout_core on the actions and cache drawn from
     # the generator, in that order (what chip_smoke.py replays).
     env = mgt.make("MiniGrid-Empty-5x5-v0", max_steps=16)
-    n, steps = 1024, 64
+    n, steps = 256, 24
     gen = torch.Generator().manual_seed(3)
     _, states = env.reset(n, gen)
     snapshot = gen.get_state()
@@ -211,3 +211,37 @@ def test_counter_families_take_the_kernel_on_cuda_and_the_plain_loop_on_cpu(env_
     assert int(total_done) > 0 and int(max_used) == 0 and torch.isfinite(total_r)
     assert (final.extra is None) == (env.fused_ext.n_scalars == 0)
     assert int(final.step_count.max()) < env.max_steps
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "BabyAI-GoToLocal-v0", "MiniGrid-Empty-Random-5x5-v0"])
+def test_the_kernel_takes_state_and_cache_where_they_lie(env_id):
+    # The rollout kernel's buffers: the cache's grid, contents and mission,
+    # the ext's cache scalars and planes as batch_reset_cache and the ext's
+    # pack give them, no permute; the state's grid cloned [N, W*H].
+    env = mgt.make(env_id)
+    gen = torch.Generator().manual_seed(0)
+    n, wh = 32, env.width * env.height
+    _, states = env.reset(n, gen, "cpu")
+    counter = fr.counter_reset(env)
+    cache = None if counter else env.batch_reset_cache(n, 3, gen, "cpu")
+    seeds = torch.zeros((n, 2), dtype=torch.int32) if counter else None
+    b = fr.kernel_buffers(env, states, cache, seeds)
+    assert b.grid.shape == (n, wh) and b.grid.is_contiguous() and b.grid.data_ptr() != states.grid.data_ptr()
+    assert torch.equal(b.grid, states.grid.reshape(n, wh)) and b.sc.shape == (8, n)
+    assert b.ext.env_major
+    if counter:
+        assert b.cgrid is None and b.csc == (None,) * 8 and b.ext.seeds.data_ptr() == seeds.data_ptr()
+        return
+    for got, leaf in ((b.cgrid, cache.grid), (b.ccont, cache.contains), (b.cmis, cache.mission)):
+        assert got.data_ptr() == leaf.data_ptr() and got.is_contiguous()
+    fields = [getattr(cache, f) for f in ("agent_x", "agent_y", "agent_dir", "carrying", "step_count", "max_steps")]
+    for got, leaf in zip(b.csc, fields + [cache.terminated, cache.truncated]):
+        assert got.data_ptr() == leaf.data_ptr() and got.shape == (n, 3)
+    if env.fused_ext is not None:
+        k, p = env.fused_ext.n_scalars, env.fused_ext.n_planes
+        assert b.ext.scal.shape == (n, k) and b.ext.cscal.shape == (n, 3, k)
+        assert b.ext.planes.shape == (n, p, wh) and b.ext.cplanes.shape == (n, 3, p, wh)
+        leaves = tree_leaves(fr.with_extra(env, states.replace(extra=None), b.ext).extra)
+        assert [k for k, _ in leaves] == [k for k, _ in tree_leaves(states.extra)]
+        for (k, got), (_, want) in zip(leaves, tree_leaves(states.extra)):
+            assert torch.equal(got, want), k

@@ -14,6 +14,7 @@ import torch
 import minigrid_tpu as mg
 import minigrid_tpu_torch as mgt
 from minigrid_tpu.core.obs import gen_obs_image as jax_gen_obs_image
+from minigrid_tpu.core.obs import gen_obs_packed as jax_gen_obs_packed
 from minigrid_tpu.ops.obs_pallas import fused_obs_packed as jax_fused_obs_packed
 from minigrid_tpu.parallel.vector import rollout_random as jax_rollout_random
 from minigrid_tpu_torch.core import obs as obs_lib
@@ -57,6 +58,18 @@ def test_obs_packed_matches_jax_gen_obs_image(view_size, see_through):
     want = jax.jit(jax.vmap(lambda s: jax_gen_obs_image(s, view_size, see_through)))(jstates)
     got = unpack_grid(op.fused_obs_packed(*_inputs(state_from_numpy(arrays, "cpu")), view_size, see_through))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("view_size", [17, op.BUILT_VIEW_SIZES[-1]])
+def test_the_plain_observation_matches_jax_past_15(view_size):
+    # The kernel's widest views on a 22x22 grid (v = 31 overhangs it), JAX's
+    # observation run op by op: most of the case is JAX compiling its ops
+    # at the new view size, which jit would take longer to do.
+    arrays = random_states(np.random.default_rng(view_size), (16,), 22, 22)
+    want = jax.vmap(lambda s: jax_gen_obs_packed(s, view_size, False))(jax_state(arrays))
+    got = op.fused_obs_packed(*_inputs(state_from_numpy(arrays, "cpu")), view_size, False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got == 0).any()) and bool((got != 0).any())
 
 
 def test_core_obs_goes_through_the_op_and_plain_on_request():
