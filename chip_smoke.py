@@ -16,9 +16,11 @@ Phases, one output line each; any failure raises and exits non-zero:
    copy (phase 17) is built beside them;
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
    ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
-   GoToDoor and GoToObject with their targets) through the port's core
-   step, family hooks, observation and occlusion on the card: integers
-   bit-exact, rewards to rtol 1e-6;
+   GoToDoor, GoToObject, Memory, PutNear and RedBlueDoors with their
+   targets) through the port's core step, family hooks, observation and
+   occlusion on the card, the DistShift1 and LavaGapS7 step files through
+   those families' ``step_env`` too: integers bit-exact, rewards to rtol
+   1e-6;
 4. hold the kernel against its plain PyTorch version on random object-rich
    states (doors, keys, balls, boxes, carried objects, occlusion, R=2 cache,
    short episodes): every state field, the cache slots used, the
@@ -87,7 +89,8 @@ Phases, one output line each; any failure raises and exits non-zero:
    the kernel, the plain version and the cache's generation timed apart;
 12. the actor kernel's cached-ext instantiations on
    ``MiniGrid-GoToDoor-8x8-v0`` and ``MiniGrid-Fetch-8x8-N3-v0`` at 4096 x
-   32 and R from ``reset_budget.learner_resets``, held to the three
+   32 (episode ages spread over [0, max_steps)) and R from
+   ``reset_budget.learner_resets``, held to the three
    contracts with the cache (final ``extra`` exact) and timed at 8192 x
    128; then PPO on ``MiniGrid-DoorKey-8x8-v0`` as in
    phase 7 (three train steps, launches 1/1/9/8, the last trajectory held to
@@ -135,18 +138,34 @@ Phases, one output line each; any failure raises and exits non-zero:
 18. with ``--parent DIR`` (a checkout, e.g. a ``git archive`` of the parent
    commit), every rollout-kernel row above and two actor-kernel rows timed
    in that tree and this one in turns, parent, change, change, parent
-   (``tools/torch_kernel_ab.py``); without it, nothing.
+   (``tools/torch_kernel_ab.py``); without it, nothing;
+19. the rest of the classic zoo through the rollout kernel, as in phase 11:
+   ``MiniGrid-ObstructedMaze-2Dlh-v0`` (the one ``TRACKED`` id of bench.py
+   the port lacked before) and ``ObstructedMaze-Full-v1`` at 8192 envs x
+   256 steps (bench.py's size), ``Unlock``, ``BlockedUnlockPickup``,
+   ``KeyCorridorS6R3``, ``DistShift1``, ``LavaGapS7``, ``MemoryS17Random``,
+   ``PutNear-8x8-N3`` and ``RedBlueDoors-8x8`` at 65536 x 256, and
+   ``LockedRoom``, ``Playground`` and ``MultiRoom-N6`` (19x19 and 25x25) at
+   16384 x 256, each through its ext's instantiation (the pickup target,
+   Unlock, ObstructedMaze, Memory, PutNear, RedBlueDoors) or NoExt's;
+20. the actor kernel's instantiations of those exts (Unlock,
+   BlockedUnlockPickup, ObstructedMaze-2Dlh, MemoryS17Random,
+   PutNear-8x8-N3, RedBlueDoors-8x8) at 4096 x 32 as in phase 12, timed at
+   8192 x 128; then PPO on ``MiniGrid-KeyCorridorS3R3-v0`` as in phase 7
+   (three train steps, launches 1/1/9/8, the last trajectory held to the
+   contracts with its cache, ``replayed`` 0, timed with its rollout/update
+   split).
 
-Every learner train step (phases 7, 9, 10, 12, 14) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
 ``actor_rollout_reference`` and ``check_trajectory`` launch the observation
 kernel 0 times.  Every learner run on a reset-cache
-family (DoorKey, GoToLocal) is held to its reset budget: the learners size R
+family (DoorKey, GoToLocal, KeyCorridor) is held to its reset budget: the learners size R
 from their own chunks (``rl/rollout.LearnerResets``) and report the resets
 past it, which must be 0 (``replayed``).  Every actor-kernel check on one
-(GoToDoor, Fetch) is held to the learners' first R
+(GoToDoor, Fetch and phase 20's) is held to the learners' first R
 (``reset_budget.learner_resets``): no env may end more episodes than the
 cache has levels, or levels were replayed, and the smoke fails.
 
@@ -244,7 +263,16 @@ CACHE_IDS = (
 )
 DOORKEY_ID = CACHE_IDS[0]
 CACHED_EXT_ACTOR_IDS = CACHE_IDS[3:]
-OVERLAY_IDS = ("MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-GoToObject-8x8-N2-v0")
+OVERLAY_IDS = (
+    "MiniGrid-Fetch-8x8-N3-v0",
+    "MiniGrid-GoToDoor-8x8-v0",
+    "MiniGrid-GoToObject-8x8-N2-v0",
+    "MiniGrid-MemoryS13-v0",
+    "MiniGrid-PutNear-8x8-N3-v0",
+    "MiniGrid-RedBlueDoors-8x8-v0",
+)
+# Step files replayed through their family's step_env as well.
+FAMILY_STEP_IDS = ("MiniGrid-DistShift1-v0", "MiniGrid-LavaGapS7-v0")
 # The BabyAI slice: bench.py's two BabyAI keys run at 16384 envs
 # (babyai_gotolocal_steps_per_sec, babyai_goto_steps_per_sec); PPO on
 # GoToLocal.
@@ -262,6 +290,34 @@ WIDE_VIEWS = (17, 19, 31)
 WRAPPED_STEPS = 64
 RGB_ENVS = 4096
 RGB_STEPS = 8
+# The rest of the classic zoo (phase 19): bench.py's size for
+# ObstructedMaze, its 65536 for the small grids, its BabyAI-GoTo size for
+# the 19x19 and 25x25 ones; the actor kernel on each new ext (phase 20);
+# PPO on KeyCorridorS3R3.
+ZOO_IDS = (
+    ("MiniGrid-ObstructedMaze-2Dlh-v0", 8192),
+    ("MiniGrid-ObstructedMaze-Full-v1", 8192),
+    ("MiniGrid-Unlock-v0", NUM_ENVS),
+    ("MiniGrid-BlockedUnlockPickup-v0", NUM_ENVS),
+    ("MiniGrid-KeyCorridorS6R3-v0", NUM_ENVS),
+    ("MiniGrid-DistShift1-v0", NUM_ENVS),
+    ("MiniGrid-LavaGapS7-v0", NUM_ENVS),
+    ("MiniGrid-MemoryS17Random-v0", NUM_ENVS),
+    ("MiniGrid-PutNear-8x8-N3-v0", NUM_ENVS),
+    ("MiniGrid-RedBlueDoors-8x8-v0", NUM_ENVS),
+    ("MiniGrid-LockedRoom-v0", BABYAI_ENVS),
+    ("MiniGrid-Playground-v0", BABYAI_ENVS),
+    ("MiniGrid-MultiRoom-N6-v0", BABYAI_ENVS),
+)
+ZOO_ACTOR_IDS = (
+    "MiniGrid-Unlock-v0",
+    "MiniGrid-BlockedUnlockPickup-v0",
+    "MiniGrid-ObstructedMaze-2Dlh-v0",
+    "MiniGrid-MemoryS17Random-v0",
+    "MiniGrid-PutNear-8x8-N3-v0",
+    "MiniGrid-RedBlueDoors-8x8-v0",
+)
+KEYCORRIDOR_ID = "MiniGrid-KeyCorridorS3R3-v0"
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -335,7 +391,8 @@ def ptxas_report(name: str, log: str) -> str:
 def replay_goldens(device) -> tuple[int, int]:
     """Phase 3: every recorded transition through core_step and
     gen_obs_image, every recorded view through process_vis, and the
-    recorded step overlays of the reset-cache families with targets
+    recorded step overlays of the families with targets and the step files
+    of DistShift1 and LavaGapS7 through the families' ``step_env``
     (``utils/golden.replay``)."""
     files = sorted(GOLDEN.glob("steps_*.npz"))
     check(len(files) == 10, f"expected 10 step fixtures, found {len(files)}")
@@ -348,6 +405,8 @@ def replay_goldens(device) -> tuple[int, int]:
     check(np.array_equal(vis.cpu().numpy(), masks), "process_vis differs from the fixture")
     for env_id in OVERLAY_IDS:
         golden.replay(GOLDEN / f"overlay_{env_id}.npz", device, mgt.make(env_id))
+    for env_id in FAMILY_STEP_IDS:
+        golden.replay(GOLDEN / f"steps_{env_id}.npz", device, mgt.make(env_id))
     return len(files), len(OVERLAY_IDS)
 
 
@@ -542,7 +601,10 @@ def counter_slice(env_id: str, device, card: str) -> dict:
     )
 
 
-EXT_NAMES = ("NoExt", "EmptyRandomExt", "CrossingExt", "DynamicObstaclesExt", "GoToTargetExt", "FetchExt", "BabyAIExt")
+EXT_NAMES = (
+    "NoExt", "EmptyRandomExt", "CrossingExt", "DynamicObstaclesExt", "GoToTargetExt", "FetchExt", "BabyAIExt",
+    "UnlockExt", "PickupTargetExt", "ObstructedMazeExt", "MemoryExt", "PutNearExt", "RedBlueDoorsExt",
+)
 
 
 def tensor_core_report() -> str:
@@ -924,8 +986,8 @@ def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[flo
 
 
 def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple[dict, dict]:
-    """Phase 7 (and 12, 14): PPO on Empty-8x8 (DoorKey-8x8, GoToLocal)
-    through the actor and embed + dense-1 kernels."""
+    """Phase 7 (and 12, 14, 20): PPO on Empty-8x8 (DoorKey-8x8, GoToLocal,
+    KeyCorridorS3R3) through the actor and embed + dense-1 kernels."""
     env = mgt.make(env_id)
     config = PPOConfig(rollout_steps=PPO_STEPS)
     init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
@@ -1094,7 +1156,7 @@ def impala_slice(device, card: str) -> None:
 
 
 def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number: int = 11) -> dict:
-    """Phase 11 (and 13), one family: the reset-cache path at bench.py's
+    """Phase 11 (and 13, 19), one family: the reset-cache path at bench.py's
     size, with R from ``reset_budget.resets_for``, held to cover the slots
     the family used in the main path's two runs and in 8 chunks chained
     from them."""
@@ -1122,7 +1184,8 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     check(final.grid.shape == (num_envs, env.width, env.height), f"{env_id}: final grid shape")
     check(np.isfinite(float(total_r)) and int(total_done) > 0, f"{env_id}: no episode ended")
     check(bool((final.step_count < final.max_steps).all()), f"{env_id}: a step count past max_steps")
-    check((final.extra is None) == (env.fused_ext is None), f"{env_id}: extra")
+    # ObstructedMaze's ext carries no extra state.
+    check((final.extra is None) == (env.fused_ext is None or not env.fused_ext.n_scalars), f"{env_id}: extra")
     _, _, plain_random = replay_rollout(env, states, snap_random, False, resets)
     err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
     actions, cache, plain_obs = replay_rollout(env, states, snap_obs, True, resets)
@@ -1134,7 +1197,12 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     for _ in range(8):
         chained, _, _, used = rollout_random(env, chained, gen, NUM_STEPS, resets)
         observed = max(observed, int(used))
-    check(observed <= resets, f"{env_id}: an env used {observed} slots with R={resets}: levels replayed")
+    # A deterministic family's levels are all one level (DistShift: R=1),
+    # so its last slot read again is the fresh level it stands for.
+    check(
+        env.deterministic_generation or observed <= resets,
+        f"{env_id}: an env used {observed} slots with R={resets}: levels replayed",
+    )
 
     def chunk(carry):
         st, g = carry
@@ -1217,19 +1285,22 @@ def check_budget(what: str, done: torch.Tensor, cache) -> None:
     check(most <= r, f"{what}: an env ended {most} episodes with R={r}: levels replayed")
 
 
-def actor_cache_check(env_id: str, device, card: str) -> dict:
-    """Phase 12, a cached-ext family: the actor kernel at ``SMALL_ENVS`` x
+def actor_cache_check(env_id: str, device, card: str, number: int = 12) -> dict:
+    """Phase 12 (and 20), a cached-ext family: the actor kernel at ``SMALL_ENVS`` x
     ``SMALL_STEPS``, hidden 256 with nonzero biases, on a reset cache with
     the family's extra scalars, held to the three contracts (env replay,
     final state and extra exact) and to its reset budget, the learners' R;
     then timed against its plain version at the PPO size, held to its
-    budget too."""
+    budget too.  Episode ages are spread over [0, max_steps), so that
+    families whose random-policy episodes last hundreds of steps end some
+    within ``SMALL_STEPS``."""
     env = mgt.make(env_id)
     gen = torch.Generator(device=device).manual_seed(1)
     weights = biased_weights(env, gen, device)
 
     def case(n: int, steps: int, resets: int):
         _, states = env.reset(n, gen)
+        states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
         cache = env.batch_reset_cache(n, resets, gen, device)
         return states, cache, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
@@ -1243,7 +1314,7 @@ def actor_cache_check(env_id: str, device, card: str) -> dict:
     check_budget(env_id, traj["done"], cache)
     err, ties = ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
     phase(
-        12,
+        number,
         f"actor kernel {env_id} {SMALL_ENVS}x{SMALL_STEPS}, hidden {PPO_HIDDEN}: == plain version, final extra "
         f"exact ({episodes} episodes, R={cache.step_count.shape[1]}, max abs err {err}, {ties} near-ties)",
     )
@@ -1545,7 +1616,11 @@ def main() -> None:
     print(tensor_core_report(), flush=True)
 
     n_files, n_overlays = replay_goldens(device)
-    phase(3, f"{n_files} step fixtures, process_vis and {n_overlays} step-overlay fixtures bit-exact on {device}")
+    phase(
+        3,
+        f"{n_files} step fixtures, process_vis and {n_overlays} step-overlay fixtures bit-exact on {device}; "
+        f"{', '.join(FAMILY_STEP_IDS)} steps through their families",
+    )
 
     max_err = synthetic_check(device)
     phase(4, f"kernel == plain version on object-rich states (max abs err {max_err})")
@@ -1639,10 +1714,14 @@ def main() -> None:
     else:
         subprocess.run([sys.executable, str(ROOT / "tools" / "torch_kernel_ab.py"), str(args.parent), str(ROOT)], check=True)
         phase(18, f"the rollout kernels timed against {args.parent} in turns (tools/torch_kernel_ab.py)")
+    zoo_entries = [cache_slice(env_id, device, card, n, 19) for env_id, n in ZOO_IDS]
+    zoo_actor_entries = [actor_cache_check(env_id, device, card, 20) for env_id in ZOO_ACTOR_IDS]
+    keycorridor_entry, _ = ppo_slice(device, card, KEYCORRIDOR_ID, 20)
     summary = {
         "kernels": [
-            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, actor_entry, actor_ext_entry,
-            doorkey_entry, *actor_cache_entries, gotolocal_entry, *embed_entries, obs_entry,
+            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, actor_entry,
+            actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
+            keycorridor_entry, *embed_entries, obs_entry,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -10,6 +10,12 @@
 #include "ext/empty_random.cuh"
 #include "ext/fetch.cuh"
 #include "ext/goto_target.cuh"
+#include "ext/memory.cuh"
+#include "ext/obstructed_maze.cuh"
+#include "ext/pickup_target.cuh"
+#include "ext/put_near.cuh"
+#include "ext/red_blue_doors.cuh"
+#include "ext/unlock.cuh"
 #include "fused_ext.cuh"
 
 namespace minigrid {
@@ -39,6 +45,24 @@ void with_ext(int ext_id, F&& f) {
       break;
     case EXT_BABYAI:
       f(BabyAIExt{});
+      break;
+    case EXT_UNLOCK:
+      f(UnlockExt{});
+      break;
+    case EXT_PICKUP_TARGET:
+      f(PickupTargetExt{});
+      break;
+    case EXT_OBSTRUCTED_MAZE:
+      f(ObstructedMazeExt{});
+      break;
+    case EXT_MEMORY:
+      f(MemoryExt{});
+      break;
+    case EXT_PUT_NEAR:
+      f(PutNearExt{});
+      break;
+    case EXT_RED_BLUE_DOORS:
+      f(RedBlueDoorsExt{});
       break;
   }
 }

@@ -80,6 +80,12 @@ enum {
   EXT_GOTO_TARGET = 4,
   EXT_FETCH = 5,
   EXT_BABYAI = 6,
+  EXT_UNLOCK = 7,
+  EXT_PICKUP_TARGET = 8,
+  EXT_OBSTRUCTED_MAZE = 9,
+  EXT_MEMORY = 10,
+  EXT_PUT_NEAR = 11,
+  EXT_RED_BLUE_DOORS = 12,
 };
 
 // A kernel switch (SWITCHES) that an ext leaves to the runtime flag.

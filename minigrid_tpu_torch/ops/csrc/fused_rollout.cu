@@ -8,8 +8,8 @@
 // post-reset state (_view_bits_block and _obs_checksum_block: view cells,
 // the carried object at the agent cell, the bit-parallel occlusion flood).
 // The auto-reset either takes reset-cache slot min(used, R-1), with a
-// cached ext's extra scalars from the same slot (NoExt, GoToTarget and
-// Fetch, and BabyAI with its verifier's two planes), or, for a
+// cached ext's extra scalars from the same slot (NoExt, GoToTarget, Fetch,
+// the classic families' exts, and BabyAI with its verifier's two planes), or, for a
 // COUNTER_RESET ext, generates a fresh level in place from the env's seed
 // and episode ordinal `used` (ext.reset_block); both use the pre-increment
 // `used`.
@@ -44,10 +44,10 @@
 // in the TPU kernel; the view size V is a template parameter (7 is
 // instantiated).  An ext is instantiated only at the switches its SWITCHES
 // fixes (counter-reset exts without objects and with a constant mission,
-// since their reset writes neither; GoToTarget and Fetch with objects, a
-// per-episode mission and see-through walls; BabyAI with objects, a
-// per-episode mission and occluding walls); ext_launch_ok refuses other
-// flags.
+// since their reset writes neither; GoToTarget, Fetch and PutNear with
+// objects, a per-episode mission and see-through walls; BabyAI and the
+// RoomGrid, Memory and RedBlueDoors exts with objects, a per-episode
+// mission and occluding walls); ext_launch_ok refuses other flags.
 //
 // What bounds it.  The bytes it must move are the actions, the state in
 // and out and the levels its resets read (chip_smoke.rollout_bytes); per

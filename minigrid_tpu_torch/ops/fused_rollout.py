@@ -8,8 +8,9 @@ packed observation (the sum of the visible view cells, wrapping at int32),
 so that observations are consumed without being written out.  Families
 without a fused ext (fixed-start Empty, DoorKey, FourRooms) reset from an
 R-slot reset cache, and so do the cached exts (``fused_ext.CachedExt``:
-GoToObject, GoToDoor, Fetch, and BabyAI's verifier with its two planes),
-whose extra scalars and planes the kernel blends from the same cache slot;
+GoToObject, GoToDoor, Fetch, the RoomGrid families, Memory, PutNear,
+RedBlueDoors, and BabyAI's verifier with its two planes), whose extra
+scalars and planes the kernel blends from the same cache slot;
 a ``covers_reset`` ext with a compiled twin (``FusedExt.kernel_id``:
 random-start Empty, Crossing, Dynamic-Obstacles) regenerates a fresh level
 in the kernel from per-env seeds, with no cache.
@@ -425,19 +426,23 @@ def ext_buffers(
         _require(tuple(scal.shape) == (n, ext.n_scalars), f"extra must pack to [{n}, {ext.n_scalars}]", what)
         scal = scal.to(device=device, dtype=torch.int32)
         # The kernel updates these in place: never the state's own tensor,
-        # which a pack may return as it is.
-        scal = scal.clone(memory_format=torch.contiguous_format) if env_major else scal.t().contiguous()
+        # which a pack may return as it is (and a transposed [N, 1] pack is
+        # contiguous already, so ``contiguous`` would not copy it either).
+        scal = (scal if env_major else scal.t()).clone(memory_format=torch.contiguous_format)
     if ext.n_planes:
         planes = _plane_bytes(ext.pack_planes(env, states.extra), (n,), ext.n_planes, cells, device, what, env_major)
     if not ext.covers_reset:
         _require(reset_seeds is None, "a cached ext resets from its cache and takes no reset_seeds", what)
         r = cache.step_count.shape[1]
-        cscal = ext.pack_extra(env, cache.extra)
-        _require(
-            tuple(cscal.shape) == (n, r, ext.n_scalars), f"the cache's extra must pack to [{n}, {r}, {ext.n_scalars}]", what
-        )
-        cscal = minor(cscal.to(device=device, dtype=torch.int32), (1, 2, 0))
-        cplanes = None
+        cscal = cplanes = None
+        if ext.n_scalars:
+            cscal = ext.pack_extra(env, cache.extra)
+            _require(
+                tuple(cscal.shape) == (n, r, ext.n_scalars),
+                f"the cache's extra must pack to [{n}, {r}, {ext.n_scalars}]",
+                what,
+            )
+            cscal = minor(cscal.to(device=device, dtype=torch.int32), (1, 2, 0))
         if ext.n_planes:
             cplanes = _plane_bytes(ext.pack_planes(env, cache.extra), (n, r), ext.n_planes, cells, device, what, env_major)
         return ExtBuffers(scal, cscal, planes, cplanes, None, ext.kernel_id, ext.kernel_params(env), env_major)

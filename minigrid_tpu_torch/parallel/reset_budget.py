@@ -56,6 +56,25 @@ MEASURED_MAX_EPISODES_256: dict[str, int] = {
     "MiniGrid-Fetch-5x5-N2-v0": 17,
     "MiniGrid-Fetch-6x6-N2-v0": 16,
     "MiniGrid-Fetch-8x8-N3-v0": 13,
+    # The classic zoo's last slice: the same tool on an NVIDIA H100 80GB
+    # HBM3 (700.00 W power limit), 32 chunks chained from spread episode
+    # ages, at chip_smoke.py's sizes (8192 envs for ObstructedMaze, 16384
+    # for LockedRoom, Playground and MultiRoom, 65536 for the rest).  It
+    # measured ObstructedMaze-2Dlh at JAX's 2.  PutNear ends an episode at
+    # every drop attempt and wrong pickup.
+    "MiniGrid-ObstructedMaze-Full-v1": 1,
+    "MiniGrid-Unlock-v0": 4,
+    "MiniGrid-BlockedUnlockPickup-v0": 2,
+    "MiniGrid-KeyCorridorS3R3-v0": 2,
+    "MiniGrid-KeyCorridorS6R3-v0": 1,
+    "MiniGrid-DistShift1-v0": 15,
+    "MiniGrid-LavaGapS7-v0": 18,
+    "MiniGrid-MemoryS17Random-v0": 8,
+    "MiniGrid-PutNear-8x8-N3-v0": 14,
+    "MiniGrid-RedBlueDoors-8x8-v0": 6,
+    "MiniGrid-LockedRoom-v0": 2,
+    "MiniGrid-Playground-v0": 3,
+    "MiniGrid-MultiRoom-N6-v0": 3,
 }
 
 # Fallback for ids without a measured entry; deliberately generous.
@@ -82,6 +101,21 @@ MEASURED_MEAN_EPISODES_256: dict[str, float] = {
     "MiniGrid-Fetch-5x5-N2-v0": 4.89,
     "MiniGrid-Fetch-6x6-N2-v0": 3.06,
     "MiniGrid-Fetch-8x8-N3-v0": 2.0,
+    # The classic zoo's last slice (the 32-chunk runs above;
+    # ObstructedMaze-2Dlh measured 0.446 against JAX's 0.38 here).
+    "MiniGrid-ObstructedMaze-Full-v1": 0.0719,
+    "MiniGrid-Unlock-v0": 0.9072,
+    "MiniGrid-BlockedUnlockPickup-v0": 0.4448,
+    "MiniGrid-KeyCorridorS3R3-v0": 0.9487,
+    "MiniGrid-KeyCorridorS6R3-v0": 0.237,
+    "MiniGrid-DistShift1-v0": 2.7319,
+    "MiniGrid-LavaGapS7-v0": 3.4044,
+    "MiniGrid-MemoryS17Random-v0": 0.3741,
+    "MiniGrid-PutNear-8x8-N3-v0": 7.3631,
+    "MiniGrid-RedBlueDoors-8x8-v0": 0.3065,
+    "MiniGrid-LockedRoom-v0": 1.3473,
+    "MiniGrid-Playground-v0": 2.5601,
+    "MiniGrid-MultiRoom-N6-v0": 2.1333,
 }
 
 

@@ -28,9 +28,8 @@ def make(env_id: str, **overrides: Any):
     """
     if env_id not in _REGISTRY:
         raise NotImplementedError(
-            f"{env_id!r} is not in this package yet: it holds the Empty, DoorKey, FourRooms, Crossing, "
-            "Dynamic-Obstacles, Fetch, GoToDoor and GoToObject ids and BabyAI's GoTo group; the RoomGrid "
-            "families, the rest of BabyAI and the rest of the zoo follow ROADMAP.md queue 1"
+            f"{env_id!r} is not in this package yet: it holds every classic MiniGrid id but WFC's and BabyAI's "
+            "GoTo group; the rest of BabyAI and WFC follow ROADMAP.md queue 1"
         )
     cls, kwargs = _REGISTRY[env_id]
     env = cls(**{**kwargs, **overrides})

@@ -57,6 +57,22 @@ CONFIGS = (
     ("MiniGrid-Fetch-8x8-N3-v0", 65536),
     ("BabyAI-GoToLocal-v0", 16384),
     ("BabyAI-GoTo-v0", 16384),
+    # The classic zoo's last slice, at chip_smoke.py's sizes: bench.py's
+    # 8192 for ObstructedMaze, 16384 for the 19x19 and 25x25 grids.
+    ("MiniGrid-ObstructedMaze-2Dlh-v0", 8192),
+    ("MiniGrid-ObstructedMaze-Full-v1", 8192),
+    ("MiniGrid-Unlock-v0", 65536),
+    ("MiniGrid-BlockedUnlockPickup-v0", 65536),
+    ("MiniGrid-KeyCorridorS3R3-v0", 65536),
+    ("MiniGrid-KeyCorridorS6R3-v0", 65536),
+    ("MiniGrid-DistShift1-v0", 65536),
+    ("MiniGrid-LavaGapS7-v0", 65536),
+    ("MiniGrid-MemoryS17Random-v0", 65536),
+    ("MiniGrid-PutNear-8x8-N3-v0", 65536),
+    ("MiniGrid-RedBlueDoors-8x8-v0", 65536),
+    ("MiniGrid-LockedRoom-v0", 16384),
+    ("MiniGrid-Playground-v0", 16384),
+    ("MiniGrid-MultiRoom-N6-v0", 16384),
 )
 
 

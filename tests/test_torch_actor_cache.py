@@ -2,9 +2,10 @@
 package's.
 
 * The actor collection: JAX's fused actor kernel (Pallas, interpret mode)
-  collects on DoorKey-5x5 (no ext: keys, the locked door, occlusion) and on
+  collects on DoorKey-5x5 (no ext: keys, the locked door, occlusion), on
   GoToDoor-5x5 (the cached ext: the target blended from the reset cache,
-  ``done`` and ``toggle`` ending episodes), at hidden 64 with nonzero
+  ``done`` and ``toggle`` ending episodes) and on KeyCorridorS3R1 (the
+  pickup-target ext on a RoomGrid level), at hidden 64 with nonzero
   biases.  The reset cache (``extra`` included) and the sampling bits are
   rebuilt from the keys the JAX kernel splits
   (``minigrid_tpu/ops/actor_rollout.py:464-474``) and carried into the
@@ -39,7 +40,9 @@ from torch_port_util import HIDDEN, flax_params, jax_to_numpy, port_model, to_po
 
 N, T, R = 1024, 8, 2  # T > max_steps: every env ends an episode
 MAX_STEPS = 5
-ACTOR_IDS = ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-GoToDoor-5x5-v0"]
+# KeyCorridor: the pickup-target ext, its kind by value and its color
+# blended from the cache, on a RoomGrid level.
+ACTOR_IDS = ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-GoToDoor-5x5-v0", "MiniGrid-KeyCorridorS3R1-v0"]
 
 
 @pytest.fixture(scope="module", params=ACTOR_IDS)
@@ -103,7 +106,8 @@ def test_contracts_compare_the_final_state_and_extra(case):
     if final.extra is None:
         wrong, field = final.replace(agent_dir=(final.agent_dir + 1) % 4), "final state field agent_dir"
     else:
-        wrong, field = final.replace(extra={"target_pos": final.extra["target_pos"] + 1}), "final extra target_pos"
+        key = sorted(final.extra)[0]
+        wrong, field = final.replace(extra={**final.extra, key: final.extra[key] + 1}), f"final extra {key}"
     with pytest.raises(AssertionError, match=field):
         _check(case, wrong, case["traj"])
 

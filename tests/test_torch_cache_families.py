@@ -1,12 +1,14 @@
-"""The reset-cache families (DoorKey, FourRooms, GoToObject, GoToDoor, Fetch)
-through the port's whole-rollout op, step hooks and cached stepper.
+"""The reset-cache families (DoorKey, FourRooms, GoToObject, GoToDoor, Fetch,
+and the classic zoo's last slice) through the port's whole-rollout op, step
+hooks and cached stepper.
 
 * The plain version of the rollout kernel against the JAX package's Pallas
   kernel in interpret mode, on JAX's states and R=2 reset cache (``extra``
   included) carried across by ``utils/bridge.py``: the final state with its
   ``extra``, ``used``, the done count, the checksum and ``max_used`` bit
   for bit, the reward total to rtol 1e-6 (XLA's FMA, ROADMAP queue 3).
-* The step overlays of GoToObject, GoToDoor and Fetch against the original
+* The step overlays of GoToObject, GoToDoor, Fetch, Memory, PutNear and
+  RedBlueDoors against the original
   Minigrid's recorded transitions (``tests/golden/overlay_*.npz``), through
   ``step_env`` with the recorded target in ``extra`` (``utils/golden.py``).
 * The cached stepper against the JAX package's ``step_cached`` on the same
@@ -39,16 +41,32 @@ from minigrid_tpu_torch.parallel.vector import fused_eligible, make_cached_stepp
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.rollout import collect_trajectory
 from minigrid_tpu_torch.utils import golden
-from torch_port_util import assert_states_equal, to_port
+from torch_port_util import assert_states_equal, to_jax, to_port
 
 N, R = 1024, 2
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+# The classic zoo's last slice, one id a family.
+ZOO_CACHE_IDS = [
+    "MiniGrid-Unlock-v0",
+    "MiniGrid-BlockedUnlockPickup-v0",
+    "MiniGrid-KeyCorridorS3R1-v0",
+    "MiniGrid-ObstructedMaze-1Dlhb-v0",
+    "MiniGrid-DistShift1-v0",
+    "MiniGrid-LavaGapS5-v0",
+    "MiniGrid-MemoryS7-v0",
+    "MiniGrid-PutNear-6x6-N2-v0",
+    "MiniGrid-RedBlueDoors-6x6-v0",
+    "MiniGrid-LockedRoom-v0",
+    "MiniGrid-Playground-v0",
+    "MiniGrid-MultiRoom-N2-S4-v0",
+]
 CACHE_IDS = [
     "MiniGrid-DoorKey-5x5-v0",
     "MiniGrid-FourRooms-v0",
     "MiniGrid-Fetch-5x5-N2-v0",
     "MiniGrid-GoToObject-6x6-N2-v0",
     "MiniGrid-GoToDoor-5x5-v0",
+    *ZOO_CACHE_IDS,
 ]
 # R at 256 steps: the measured maximum plus 25% and at least 2.
 COVERING_R_256 = {
@@ -57,6 +75,18 @@ COVERING_R_256 = {
     "MiniGrid-Fetch-5x5-N2-v0": 22,  # 17
     "MiniGrid-GoToObject-6x6-N2-v0": 134,  # 107
     "MiniGrid-GoToDoor-5x5-v0": 132,  # 105
+    "MiniGrid-Unlock-v0": 6,  # 4
+    "MiniGrid-BlockedUnlockPickup-v0": 4,  # 2
+    "MiniGrid-KeyCorridorS3R1-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-ObstructedMaze-1Dlhb-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-DistShift1-v0": 1,  # deterministic_generation
+    "MiniGrid-LavaGapS5-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-MemoryS7-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-PutNear-6x6-N2-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-RedBlueDoors-6x6-v0": 10,  # no row: the fallback of 8
+    "MiniGrid-LockedRoom-v0": 4,  # 2
+    "MiniGrid-Playground-v0": 5,  # 3
+    "MiniGrid-MultiRoom-N2-S4-v0": 10,  # no row: the fallback of 8
 }
 # (env id, make kwargs, steps, seed): tests/test_fused_rollout.py's cases.
 K1_CASES = {
@@ -69,7 +99,14 @@ K1_CASES = {
     # done/toggle end episodes; target_pos blended from the cache.
     "gotoobject6x6n2": ("MiniGrid-GoToObject-6x6-N2-v0", {"max_steps": 8}, 12, 2),
     "gotodoor5x5": ("MiniGrid-GoToDoor-5x5-v0", {"max_steps": 8}, 12, 4),
+    # Keys boxed in the contents plane; success is a pickup of the blue ball.
+    "obstructedmaze2dlh": ("MiniGrid-ObstructedMaze-2Dlh-v0", {"max_steps": 8}, 12, 9),
+    # Both doors read before and after the step (FRONT_BEFORE in the kernels).
+    "redbluedoors6x6": ("MiniGrid-RedBlueDoors-6x6-v0", {"max_steps": 8}, 12, 10),
 }
+
+
+ZOO_K1_IDS = ("MiniGrid-ObstructedMaze-2Dlh-v0", "MiniGrid-RedBlueDoors-6x6-v0")
 
 
 @pytest.mark.parametrize("case", list(K1_CASES))
@@ -77,8 +114,13 @@ def test_rollout_plain_version_matches_jax_kernel(case):
     env_id, kwargs, steps, seed = K1_CASES[case]
     jenv, tenv = mg.make(env_id, **kwargs), mgt.make(env_id, **kwargs)
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
-    _, jstates = jax.jit(jax.vmap(jenv.reset))(jax.random.split(k1, N))
-    jcache = jenv.batch_reset_cache(k2, N, R)
+    if env_id in ZOO_K1_IDS:
+        # The port's levels, as in the cached stepper's test.
+        gen = torch.Generator().manual_seed(seed)
+        jstates, jcache = to_jax(tenv.reset(N, gen)[1]), to_jax(tenv.batch_reset_cache(N, R, gen))
+    else:
+        _, jstates = jax.jit(jax.vmap(jenv.reset))(jax.random.split(k1, N))
+        jcache = jenv.batch_reset_cache(k2, N, R)
     actions = jax.random.randint(k3, (steps, N), 0, jenv.num_actions, jnp.int32)
     jfinal, jrew, jdone, jchk, jused = j_fused_rollout_core(jenv, jstates, jcache, actions, True, True)  # interpret
     before = fr.KERNEL_LAUNCHES
@@ -96,7 +138,14 @@ def test_rollout_plain_version_matches_jax_kernel(case):
         assert int(done) >= N and int(used) >= 1
 
 
-OVERLAY_IDS = ["MiniGrid-Fetch-8x8-N3-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-GoToObject-8x8-N2-v0"]
+OVERLAY_IDS = [
+    "MiniGrid-Fetch-8x8-N3-v0",
+    "MiniGrid-GoToDoor-8x8-v0",
+    "MiniGrid-GoToObject-8x8-N2-v0",
+    "MiniGrid-MemoryS13-v0",
+    "MiniGrid-PutNear-8x8-N3-v0",
+    "MiniGrid-RedBlueDoors-8x8-v0",
+]
 
 
 @pytest.mark.parametrize("env_id", OVERLAY_IDS)
@@ -110,8 +159,15 @@ def test_cached_stepper_matches_jax_step_cached(env_id):
     jenv, tenv = mg.make(env_id, max_steps=6), mgt.make(env_id, max_steps=6)
     n, steps = 128, 14
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(8), 3)
-    _, jst = jax.jit(jax.vmap(jenv.reset))(jax.random.split(k1, n))
-    jcache = jenv.batch_reset_cache(k2, n, 3)
+    if env_id in ZOO_CACHE_IDS:
+        # Levels from the port's generators (test_torch_generators.py holds
+        # them to JAX's), which spares compiling JAX's RoomGrid and maze
+        # generators; the stepper is what this test holds.
+        gen = torch.Generator().manual_seed(8)
+        jst, jcache = to_jax(tenv.reset(n, gen)[1]), to_jax(tenv.batch_reset_cache(n, 3, gen))
+    else:
+        _, jst = jax.jit(jax.vmap(jenv.reset))(jax.random.split(k1, n))
+        jcache = jenv.batch_reset_cache(k2, n, 3)
     actions = np.asarray(jax.random.randint(k3, (steps, n), 0, 7, jnp.int32))
     jstep = jax.jit(jax.vmap(jenv.step_cached, in_axes=(0, 0, 0, 0)))
     step = make_cached_stepper(tenv, to_port(jcache), n)
@@ -233,6 +289,12 @@ CSRC = Path(fr.__file__).resolve().parent / "csrc"
         ("MiniGrid-Dynamic-Obstacles-8x8-v0", "dynamic_obstacles"),
         ("MiniGrid-GoToDoor-8x8-v0", "goto_target"),
         ("MiniGrid-Fetch-8x8-N3-v0", "fetch"),
+        ("MiniGrid-Unlock-v0", "unlock"),
+        ("MiniGrid-KeyCorridorS3R3-v0", "pickup_target"),
+        ("MiniGrid-ObstructedMaze-2Dlh-v0", "obstructed_maze"),
+        ("MiniGrid-MemoryS17Random-v0", "memory"),
+        ("MiniGrid-PutNear-8x8-N3-v0", "put_near"),
+        ("MiniGrid-RedBlueDoors-8x8-v0", "red_blue_doors"),
     ],
 )
 def test_ext_twins_declare_their_cuda_ids_and_switches(env_id, header):

@@ -766,3 +766,160 @@ def test_embed_backward_matches_autograd_and_repeats(device, m, hidden):
         torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2 * scale)
     dw2, db2 = ed._backward(packed, direction, dy)
     assert torch.equal(dw2, dw) and torch.equal(db2, db)  # bit-identical twice
+
+
+# The classic zoo's last slice: each new ext's instantiations of both
+# kernels, and the default-hook families of the slice through K1's NoExt.
+ZOO_EXT_IDS = [
+    "MiniGrid-Unlock-v0",
+    "MiniGrid-BlockedUnlockPickup-v0",
+    "MiniGrid-KeyCorridorS6R3-v0",
+    "MiniGrid-ObstructedMaze-2Dlh-v0",
+    "MiniGrid-MemoryS17Random-v0",
+    "MiniGrid-PutNear-8x8-N3-v0",
+    "MiniGrid-RedBlueDoors-8x8-v0",
+]
+ZOO_NOEXT_IDS = [
+    "MiniGrid-DistShift1-v0",
+    "MiniGrid-LavaGapS7-v0",
+    "MiniGrid-LockedRoom-v0",
+    "MiniGrid-Playground-v0",
+    "MiniGrid-MultiRoom-N6-v0",
+]
+_DIRS = ((1, 0), (0, 1), (-1, 0), (0, -1))
+
+
+def _cell_of(states, kind, color=None):
+    """Per env, the (x, y) of a cell of type ``kind`` (and ``color``), or
+    (-1, -1)."""
+    n, w, h = states.grid.shape
+    m = (states.grid & 0xFF) == kind
+    if color is not None:
+        m = m & (((states.grid >> 8) & 0xFF) == color[:, None, None])
+    idx = m.reshape(n, -1).int().argmax(dim=1)
+    found = m.reshape(n, -1).any(dim=1)
+    return torch.where(found, idx // h, -1).int(), torch.where(found, idx % h, -1).int()
+
+
+def _face(states, tx, ty, pose):
+    """The agents of the envs ``pose`` moved onto a free cell next to (tx,
+    ty) and turned to face it, where there is one."""
+    n, w, h = states.grid.shape
+    rows = torch.arange(n, device=states.device)
+    ax, ay, ad = states.agent_x, states.agent_y, states.agent_dir
+    placed = ~pose | (tx < 0)
+    for d, (dx, dy) in enumerate(_DIRS):
+        cx, cy = tx - dx, ty - dy
+        inside = (cx >= 1) & (cx < w - 1) & (cy >= 1) & (cy < h - 1)
+        cell = states.grid[rows, cx.clamp(0, w - 1).long(), cy.clamp(0, h - 1).long()]
+        take = ~placed & inside & ((cell & 0xFF) == 1)
+        ax, ay, ad = torch.where(take, cx, ax), torch.where(take, cy, ay), torch.where(take, d, ad).int()
+        placed = placed | take
+    return states.replace(agent_x=ax.int(), agent_y=ay.int(), agent_dir=ad)
+
+
+def _zoo_states(env_id, env, states, gen):
+    """``states`` with about half of the agents put where the family's
+    events happen on the next action: facing the door with its key in
+    hand (Unlock), the target (the pickup targets, ObstructedMaze's blue
+    ball or a box with a key inside), the cue or the success and failure
+    cells (Memory), a free cell next to the target with the object to move
+    in hand (PutNear), the red or the blue door (RedBlueDoors)."""
+    n = states.step_count.shape[0]
+    device = states.device
+    coin = torch.randint(0, 4, (n,), generator=gen, device=device)
+    extra = states.extra
+    if env_id.startswith("MiniGrid-Unlock"):
+        dx, dy = extra["door_pos"][:, 0], extra["door_pos"][:, 1]
+        color = (states.grid[torch.arange(n, device=device), dx.long(), dy.long()] >> 8) & 0xFF
+        states = states.replace(carrying=torch.where(coin < 2, 5 | (color << 8), states.carrying).int())
+        return _face(states, dx, dy, coin < 2)
+    if "UnlockPickup" in env_id or "KeyCorridor" in env_id:
+        return _face(states, *_cell_of(states, env.target_kind, extra["target_color"]), coin < 2)
+    if "ObstructedMaze" in env_id:
+        box_x, box_y = _cell_of(states, 7)
+        ball_x, ball_y = _cell_of(states, 6, torch.full((n,), 2, device=device))
+        states = _face(states, box_x, box_y, coin < 2)
+        return _face(states, ball_x, ball_y, coin == 2)
+    if "Memory" in env_id:
+        mid = env.height // 2
+        states = _face(states, torch.full_like(coin, 1).int(), torch.full_like(coin, mid - 1).int(), coin < 2)
+        states = _face(states, extra["success_pos"][:, 0], extra["success_pos"][:, 1], coin == 2)
+        return _face(states, extra["failure_pos"][:, 0], extra["failure_pos"][:, 1], coin == 3)
+    if "PutNear" in env_id:
+        tx, ty = extra["target_pos"][:, 0], extra["target_pos"][:, 1]
+        rows = torch.arange(n, device=device)
+        nx, ny = torch.full_like(tx, -1), torch.full_like(ty, -1)
+        for dx, dy in _DIRS:
+            cx, cy = (tx + dx).clamp(0, env.width - 1), (ty + dy).clamp(0, env.height - 1)
+            empty = (states.grid[rows, cx.long(), cy.long()] & 0xFF) == 1
+            take = (nx < 0) & empty
+            nx, ny = torch.where(take, cx, nx), torch.where(take, cy, ny)
+        move = extra["move_type"] | (extra["move_color"] << 8)
+        states = states.replace(carrying=torch.where(coin < 2, move, states.carrying).int())
+        return _face(states, nx, ny, coin < 2)
+    if "RedBlueDoors" in env_id:
+        states = _face(states, extra["red_pos"][:, 0], extra["red_pos"][:, 1], coin < 2)
+        return _face(states, extra["blue_pos"][:, 0], extra["blue_pos"][:, 1], coin == 2)
+    return states
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+@pytest.mark.parametrize("n", [33, 4127])  # a warp's tail lane, and a block's
+@pytest.mark.parametrize("env_id", ZOO_EXT_IDS + ZOO_NOEXT_IDS)
+def test_zoo_k1_matches_plain_version(device, env_id, n, compute_obs):
+    env = mgt.make(env_id, max_steps=48)
+    gen = torch.Generator(device=device).manual_seed(12)
+    _, states = env.reset(n, gen)
+    states = _zoo_states(env_id, env, states.replace(step_count=randint(gen, n, 0, states.max_steps)), gen)
+    cache = env.batch_reset_cache(n, 3, gen)
+    actions = torch.randint(0, env.num_actions, (64, n), generator=gen, device=device, dtype=torch.int32)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+    for f in FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert (got[0].extra is None) == (want[0].extra is None) == (env.fused_ext is None or env.fused_ext.n_scalars == 0)
+    if want[0].extra is not None:
+        _assert_extra_same(got[0].extra, want[0].extra)
+    assert [int(x) for x in got[2:]] == [int(x) for x in want[2:]]
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+    assert int(got[2]) >= n // 2 and int(got[4]) >= 1
+
+
+@pytest.mark.parametrize("n", [96, 4128])  # K2 takes multiples of 32: one and a half blocks, a block's tail
+@pytest.mark.parametrize("env_id", ZOO_EXT_IDS)
+def test_zoo_k2_meets_the_contracts(device, env_id, n):
+    env = mgt.make(env_id, max_steps=24)
+    gen = torch.Generator(device=device).manual_seed(13)
+    _, states = env.reset(n, gen)
+    states = _zoo_states(env_id, env, states, gen)
+    weights = _biased_actor(env, gen, device)
+    cache = env.batch_reset_cache(n, 4, gen)
+    noise = ar.draw_bits(gen, (64, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) >= n
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
+
+
+def test_zoo_events_happen_in_the_posed_states(device):
+    # The posed states make each family's event: after one step of the
+    # plain version on the action the pose is for, the ext ends episodes
+    # (half of them posed; RedBlueDoors' failure is the quarter posed at
+    # the blue door: toggling the red one first ends nothing).
+    wanted = {
+        "MiniGrid-Unlock-v0": 5, "MiniGrid-BlockedUnlockPickup-v0": 3, "MiniGrid-KeyCorridorS6R3-v0": 3,
+        "MiniGrid-RedBlueDoors-8x8-v0": 5, "MiniGrid-PutNear-8x8-N3-v0": 4, "MiniGrid-MemoryS17Random-v0": 2,
+    }
+    for env_id, action in wanted.items():
+        env = mgt.make(env_id)
+        gen = torch.Generator(device=device).manual_seed(14)
+        _, states = env.reset(1024, gen)
+        states = _zoo_states(env_id, env, states, gen)
+        stepped, reward = env.step_env(states, torch.full((1024,), action, dtype=torch.int32, device=device))
+        assert int(stepped.terminated.sum()) >= 128, env_id

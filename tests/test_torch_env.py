@@ -33,29 +33,27 @@ EMPTY_IDS = [
 ]
 
 
-PORTED_FAMILIES = (
-    "MiniGrid-Empty-", "MiniGrid-LavaCrossing", "MiniGrid-SimpleCrossing", "MiniGrid-Dynamic-Obstacles-",
-    "MiniGrid-DoorKey-", "MiniGrid-FourRooms-", "MiniGrid-Fetch-", "MiniGrid-GoToDoor-", "MiniGrid-GoToObject-",
-    "BabyAI-GoTo",
-)
-# BabyAI's GoTo group less the two levels of levelgen.py.
-UNPORTED_PREFIXES = ("BabyAI-GoToSeq",)
+# Every classic MiniGrid family (all but WFC), and BabyAI's GoTo group.
+PORTED_FAMILIES = ("MiniGrid-", "BabyAI-GoTo")
+# WFC's presets; BabyAI's GoTo group less the two levels of levelgen.py.
+UNPORTED_PREFIXES = ("MiniGrid-WFC-", "BabyAI-GoToSeq")
 SHARED_ATTRS = (
     "width", "height", "max_steps", "see_through_walls", "agent_view_size", "deterministic_generation",
     "fused_no_objects", "fused_static_mission", "agent_start_pos", "agent_start_dir", "n_obstacles",
     "num_crossings", "obstacle_type", "expensive_reset", "num_objs", "_agent_default_pos", "_goal_default_pos",
     "num_dists", "doors_open", "pool_factor", "fixed_max_steps", "max_gen_attempts", "unblocking",
+    "obj_kind", "blocked", "key_in_box", "agent_room", "num_quarters", "v1", "random_length", "strip2_row",
+    "goal_pos", "size", "l_wall", "r_wall", "room_size_wh", "min_rooms", "max_rooms", "max_room_size",
 )
 
 
 def test_registered_ids_are_the_fixed_start_empty_subset():
-    # The Empty, Crossing, Dynamic-Obstacles, DoorKey, FourRooms, Fetch,
-    # GoToDoor and GoToObject ids and BabyAI's GoTo group, with the JAX
-    # package's kwargs and kernel flags.
+    # Every classic MiniGrid id but WFC's and BabyAI's GoTo group, with the
+    # JAX package's kwargs and kernel flags.
     ported = {
         i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES) and not i.startswith(UNPORTED_PREFIXES)
     }
-    assert set(mgt.registered_ids()) == ported and len(ported) == 65
+    assert set(mgt.registered_ids()) == ported and len(ported) == 107
     assert set(EMPTY_IDS) < ported
     for env_id in sorted(ported):
         jenv, tenv = mg.make(env_id), mgt.make(env_id)
@@ -64,7 +62,7 @@ def test_registered_ids_are_the_fixed_start_empty_subset():
         assert (tenv.fused_ext is None) == (getattr(jenv, "fused_ext", None) is None), env_id
 
 
-@pytest.mark.parametrize("env_id", ["BabyAI-GoToSeq-v0", "MiniGrid-Unlock-v0"])
+@pytest.mark.parametrize("env_id", ["BabyAI-GoToSeq-v0", "MiniGrid-WFC-MazeSimple-v0"])
 def test_unported_ids_raise(env_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mgt.make(env_id)

@@ -67,9 +67,19 @@ def _fields(value) -> dict:
 
 
 def jax_state(arrays):
-    """A JAX ``EnvState`` of numpy field arrays (zero rng keys)."""
+    """A JAX ``EnvState`` of numpy field arrays (zero rng keys), with the
+    ``"extra"`` mapping where ``arrays`` has one."""
     keys = jnp.zeros(arrays["step_count"].shape + (2,), jnp.uint32)
-    return JState(**{k: jnp.asarray(v) for k, v in arrays.items()}, rng=keys)
+    extra = arrays.get("extra")
+    fields = {k: jnp.asarray(v) for k, v in arrays.items() if k != "extra"}
+    if extra is not None:
+        fields["extra"] = {k: jnp.asarray(v) for k, v in extra.items()}
+    return JState(**fields, rng=keys)
+
+
+def to_jax(port_state):
+    """The JAX ``EnvState`` (or cache) of a port state, ``extra`` included."""
+    return jax_state(state_to_numpy(port_state))
 
 
 def observations(n_each=128, seed=0):
