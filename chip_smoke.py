@@ -154,18 +154,36 @@ Phases, one output line each; any failure raises and exits non-zero:
    8192 x 128; then PPO on ``MiniGrid-KeyCorridorS3R3-v0`` as in phase 7
    (three train steps, launches 1/1/9/8, the last trajectory held to the
    contracts with its cache, ``replayed`` 0, timed with its rollout/update
-   split).
+   split);
+21. ``BabyAI-BossLevel-v0`` (22x22, every leaf kind and combinator) at 16384
+   envs x 256 steps through the kernel's BabyAI instantiation, as in phase
+   13: observations off and on, outputs and ``extra`` exact with the plain
+   version, R covered, the cache's generation timed apart with its peak
+   memory;
+22. PPO on ``BabyAI-BossLevel-v0`` as in phase 7 (three train steps,
+   launches 1/1/9/8, the last trajectory held to the contracts with its
+   cache, ``replayed`` 0, timed with its rollout/update split);
+23. each of the 64 ids of the new BabyAI modules (open, pickup, putnext,
+   unlock, other, levelgen) through the rollout kernel at 1024 envs x 64
+   steps, exact with the plain version and held to R, one line per module;
+   the actor kernel at 1024 x 32 on one id of each module, held to its
+   contracts;
+24. the 16 recorded verifier fixtures (``tests/golden/verifier_*``, normal
+   and done-actions mode: the OPEN, PICKUP and PUTNEXT leaves, the
+   combinators and strict mode on the original's episodes) through the
+   rollout kernel one step a launch: every step's end exact, its reward to
+   rtol 1e-6.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
 ``actor_rollout_reference`` and ``check_trajectory`` launch the observation
 kernel 0 times.  Every learner run on a reset-cache
-family (DoorKey, GoToLocal, KeyCorridor) is held to its reset budget: the learners size R
+family (DoorKey, GoToLocal, KeyCorridor, BossLevel) is held to its reset budget: the learners size R
 from their own chunks (``rl/rollout.LearnerResets``) and report the resets
 past it, which must be 0 (``replayed``).  Every actor-kernel check on one
-(GoToDoor, Fetch and phase 20's) is held to the learners' first R
+(GoToDoor, Fetch and phase 20's and 23's) is held to the learners' first R
 (``reset_budget.learner_resets``): no env may end more episodes than the
 cache has levels, or levels were replayed, and the smoke fails.
 
@@ -318,6 +336,24 @@ ZOO_ACTOR_IDS = (
     "MiniGrid-RedBlueDoors-8x8-v0",
 )
 KEYCORRIDOR_ID = "MiniGrid-KeyCorridorS3R3-v0"
+# The rest of BabyAI (phases 21-24): BossLevel at bench.py's BabyAI size
+# through the rollout kernel and PPO on it; every id of the six new modules
+# at a small size through the rollout kernel, and one id of each through the
+# actor kernel; the verifier fixtures through the rollout kernel.
+BOSS_ID = "BabyAI-BossLevel-v0"
+NEW_BABYAI_MODULES = ("open", "pickup", "putnext", "unlock", "other", "levelgen")
+NEW_BABYAI_IDS = 64
+NEW_BABYAI_ACTOR_IDS = (
+    "BabyAI-OpenDoorsOrderN4Debug-v0",
+    "BabyAI-PickupDistDebug-v0",
+    "BabyAI-PutNextS5N2Carrying-v0",
+    "BabyAI-KeyInBox-v0",
+    "BabyAI-ActionObjDoor-v0",
+    "BabyAI-MiniBossLevel-v0",
+)
+NEW_BABYAI_ENVS = 1024
+NEW_BABYAI_STEPS = 64
+NEW_BABYAI_ACTOR_STEPS = 32
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -986,8 +1022,9 @@ def actor_bound(env, states0, cache, weights, noise, episodes: int) -> tuple[flo
 
 
 def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple[dict, dict]:
-    """Phase 7 (and 12, 14, 20): PPO on Empty-8x8 (DoorKey-8x8, GoToLocal,
-    KeyCorridorS3R3) through the actor and embed + dense-1 kernels."""
+    """Phase 7 (and 12, 14, 20, 22): PPO on Empty-8x8 (DoorKey-8x8, GoToLocal,
+    KeyCorridorS3R3, BossLevel) through the actor and embed + dense-1
+    kernels."""
     env = mgt.make(env_id)
     config = PPOConfig(rollout_steps=PPO_STEPS)
     init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
@@ -1156,7 +1193,7 @@ def impala_slice(device, card: str) -> None:
 
 
 def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number: int = 11) -> dict:
-    """Phase 11 (and 13, 19), one family: the reset-cache path at bench.py's
+    """Phase 11 (and 13, 19, 21), one family: the reset-cache path at bench.py's
     size, with R from ``reset_budget.resets_for``, held to cover the slots
     the family used in the main path's two runs and in 8 chunks chained
     from them."""
@@ -1285,40 +1322,49 @@ def check_budget(what: str, done: torch.Tensor, cache) -> None:
     check(most <= r, f"{what}: an env ended {most} episodes with R={r}: levels replayed")
 
 
-def actor_cache_check(env_id: str, device, card: str, number: int = 12) -> dict:
-    """Phase 12 (and 20), a cached-ext family: the actor kernel at ``SMALL_ENVS`` x
-    ``SMALL_STEPS``, hidden 256 with nonzero biases, on a reset cache with
-    the family's extra scalars, held to the three contracts (env replay,
-    final state and extra exact) and to its reset budget, the learners' R;
-    then timed against its plain version at the PPO size, held to its
-    budget too.  Episode ages are spread over [0, max_steps), so that
+def actor_cached_case(env, gen, n: int, steps: int, resets: int):
+    """States with episode ages spread over [0, max_steps), so that
     families whose random-policy episodes last hundreds of steps end some
-    within ``SMALL_STEPS``."""
-    env = mgt.make(env_id)
-    gen = torch.Generator(device=device).manual_seed(1)
-    weights = biased_weights(env, gen, device)
+    within a short run; a reset cache of ``resets`` levels; sampling bits."""
+    device = gen.device
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    cache = env.batch_reset_cache(n, resets, gen, device)
+    return states, cache, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
-    def case(n: int, steps: int, resets: int):
-        _, states = env.reset(n, gen)
-        states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
-        cache = env.batch_reset_cache(n, resets, gen, device)
-        return states, cache, ar.draw_bits(gen, (steps, env.num_actions, n), device)
 
-    states, cache, noise = case(SMALL_ENVS, SMALL_STEPS, learner_resets(env, SMALL_STEPS))
+def actor_contract_check(env, weights, gen, n: int, steps: int) -> tuple[int, int, float, int]:
+    """The actor kernel at ``n`` x ``steps`` on a reset cache with the
+    family's extra scalars and planes, held to the three contracts (env
+    replay, final state and extra exact) and to its reset budget, the
+    learners' R.  Returns (launches, episodes, max abs err, near-ties)."""
+    states, cache, noise = actor_cached_case(env, gen, n, steps, learner_resets(env, steps))
     zero_launch_counts()
     final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
     torch.cuda.synchronize()
     launches = ar.KERNEL_LAUNCHES
     episodes = int(traj["done"].sum())
-    check(launches == 1 and episodes > 0, f"{env_id}: {launches} launches, {episodes} episodes")
-    check_budget(env_id, traj["done"], cache)
+    check(launches == 1 and episodes > 0, f"{env.env_id}: {launches} launches, {episodes} episodes")
+    check_budget(env.env_id, traj["done"], cache)
     err, ties = ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
+    return launches, episodes, err, ties
+
+
+def actor_cache_check(env_id: str, device, card: str, number: int = 12) -> dict:
+    """Phase 12 (and 20), a cached-ext family: ``actor_contract_check`` at
+    ``SMALL_ENVS`` x ``SMALL_STEPS``, hidden 256 with nonzero biases; then
+    the kernel timed against its plain version at the PPO size, held to its
+    budget too."""
+    env = mgt.make(env_id)
+    gen = torch.Generator(device=device).manual_seed(1)
+    weights = biased_weights(env, gen, device)
+    launches, episodes, err, ties = actor_contract_check(env, weights, gen, SMALL_ENVS, SMALL_STEPS)
     phase(
         number,
         f"actor kernel {env_id} {SMALL_ENVS}x{SMALL_STEPS}, hidden {PPO_HIDDEN}: == plain version, final extra "
-        f"exact ({episodes} episodes, R={cache.step_count.shape[1]}, max abs err {err}, {ties} near-ties)",
+        f"exact ({episodes} episodes, R={learner_resets(env, SMALL_STEPS)}, max abs err {err}, {ties} near-ties)",
     )
-    states, cache, noise = case(PPO_ENVS, PPO_STEPS, learner_resets(env, PPO_STEPS))
+    states, cache, noise = actor_cached_case(env, gen, PPO_ENVS, PPO_STEPS, learner_resets(env, PPO_STEPS))
     k = partial(ar.fused_actor_rollout_core, env, weights, states, cache, noise)
     p = partial(ar.actor_rollout_reference, env, weights, states, cache, noise)
     k_ms, p_ms = time_ms(k, 5), event_ms(p)
@@ -1571,6 +1617,84 @@ def wrapper_slice(device, card: str) -> None:
     )
 
 
+def new_babyai_ids() -> dict[str, list[str]]:
+    """The registered ids of each new BabyAI module (``envs/babyai/<module>.py``)."""
+    by_module: dict[str, list[str]] = {m: [] for m in NEW_BABYAI_MODULES}
+    for env_id in mgt.registered_ids():
+        module = type(mgt.make(env_id)).__module__
+        if module.startswith("minigrid_tpu_torch.envs.babyai.") and module.rsplit(".", 1)[1] in by_module:
+            by_module[module.rsplit(".", 1)[1]].append(env_id)
+    count = sum(len(ids) for ids in by_module.values())
+    check(count == NEW_BABYAI_IDS, f"{count} ids in the new BabyAI modules, expected {NEW_BABYAI_IDS}")
+    return by_module
+
+
+def new_babyai_check(device) -> None:
+    """Phase 23: every id of the six new BabyAI modules through the rollout
+    kernel at ``NEW_BABYAI_ENVS`` x ``NEW_BABYAI_STEPS`` (episode ages spread
+    over [0, max_steps), R from ``learner_resets``: a short run lies inside
+    some 256-step chunk, whose measured maximum bounds it), outputs and
+    ``extra`` equal
+    to the plain version's and no level replayed; then the actor kernel on
+    one id of each module, held to its contracts and its R.  One line per
+    module."""
+    n, steps = NEW_BABYAI_ENVS, NEW_BABYAI_STEPS
+    for module, ids in new_babyai_ids().items():
+        t0 = time.perf_counter()
+        launches, episodes, most, err = 0, 0, [], 0.0
+        for env_id in ids:
+            env = mgt.make(env_id)
+            check(fused_eligible(env, device), f"{env_id} must take the kernel on {device}")
+            gen = torch.Generator(device=device).manual_seed(23)
+            resets = learner_resets(env, steps)
+            _, states = env.reset(n, gen)
+            states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+            cache = env.batch_reset_cache(n, resets, gen, device)
+            actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+            before = fr.KERNEL_LAUNCHES
+            got = fr.fused_rollout_core(env, states, cache, actions, False)
+            torch.cuda.synchronize()
+            launches += fr.KERNEL_LAUNCHES - before
+            err = max(err, compare(got, fr.fused_rollout_reference(env, states, cache, actions, False), env_id))
+            used = int(got[4])
+            check(used <= resets, f"{env_id}: an env used {used} slots with R={resets}: levels replayed")
+            episodes += int(got[2])
+            most.append(f"{used}/{resets}")
+        check(launches == len(ids), f"{module}: {launches} kernel launches for {len(ids)} ids")
+        phase(
+            23,
+            f"{module}: {len(ids)} ids through the rollout kernel at {n}x{steps}, outputs and extra == plain "
+            f"version (reward max abs err {err}), {launches} launches, {episodes} episodes, slots used of R per id "
+            f"{' '.join(most)} ({time.perf_counter() - t0:.1f} s)",
+        )
+    for env_id in NEW_BABYAI_ACTOR_IDS:
+        env = mgt.make(env_id)
+        gen = torch.Generator(device=device).manual_seed(1)
+        launches, episodes, err, ties = actor_contract_check(env, biased_weights(env, gen, device), gen, n, NEW_BABYAI_ACTOR_STEPS)
+        phase(
+            23,
+            f"actor kernel {env_id} {n}x{NEW_BABYAI_ACTOR_STEPS}, hidden {PPO_HIDDEN}: {launches} launch, == plain "
+            f"version, final extra exact ({episodes} episodes, R={learner_resets(env, NEW_BABYAI_ACTOR_STEPS)}, "
+            f"max abs err {err}, {ties} near-ties)",
+        )
+
+
+def verifier_replay(device) -> str:
+    """Phase 24: the 16 recorded verifier fixtures (8 levels, normal and
+    done-actions mode) through the rollout kernel, one step a launch with
+    the recorded action (``utils/golden.replay_verifier``)."""
+    files = sorted(GOLDEN.glob("verifier_*.npz"))
+    check(len(files) == 16, f"expected 16 verifier fixtures, found {len(files)}")
+    before = fr.KERNEL_LAUNCHES
+    steps = sum(golden.replay_verifier(path, device) for path in files)
+    launches = fr.KERNEL_LAUNCHES - before
+    check(launches == steps, f"{launches} kernel launches for {steps} recorded steps")
+    return (
+        f"{len(files)} verifier fixtures through the rollout kernel, {steps} recorded steps, one launch each: "
+        "every step's end exact, rewards to rtol 1e-6"
+    )
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
@@ -1717,11 +1841,15 @@ def main() -> None:
     zoo_entries = [cache_slice(env_id, device, card, n, 19) for env_id, n in ZOO_IDS]
     zoo_actor_entries = [actor_cache_check(env_id, device, card, 20) for env_id in ZOO_ACTOR_IDS]
     keycorridor_entry, _ = ppo_slice(device, card, KEYCORRIDOR_ID, 20)
+    boss_entry = cache_slice(BOSS_ID, device, card, BABYAI_ENVS, 21)
+    boss_actor_entry, _ = ppo_slice(device, card, BOSS_ID, 22)
+    new_babyai_check(device)
+    phase(24, verifier_replay(device))
     summary = {
         "kernels": [
-            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, actor_entry,
+            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, actor_entry,
             actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
-            keycorridor_entry, *embed_entries, obs_entry,
+            keycorridor_entry, boss_actor_entry, *embed_entries, obs_entry,
         ]
     }
     print(json.dumps(summary), flush=True)

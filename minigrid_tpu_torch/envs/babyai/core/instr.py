@@ -421,6 +421,19 @@ def set_top(instr: InstrState, kind, a_is_and=False, b_is_and=False, strict=Fals
     )
 
 
+def start_carrying_object(instr: InstrState, pos: torch.Tensor) -> InstrState:
+    """The tracked objects at ``pos`` (int32 [N, 2]) moved from the grid into
+    the agent's hand before the episode starts (PutNext's
+    ``start_carrying``, reference putnext.py:190-200: the descriptors were
+    matched with the object in the grid, then it was lifted).  ``poss``
+    stays as it was, as the reference leaves ``obj_poss`` stale."""
+    n, _, h = instr.gridm.shape
+    idx = pos[:, 0].long() * h + pos[:, 1].long()
+    word = plane_at(instr.gridm, idx)
+    gridm = instr.gridm.reshape(n, -1).scatter(1, idx[:, None], torch.zeros_like(word)[:, None])
+    return instr.replace(carried=instr.carried | unpack_slots(word), gridm=gridm.reshape(instr.gridm.shape))
+
+
 def num_navs(instr: InstrState) -> torch.Tensor:
     """int32 [N]: navigations for the dynamic step limit (reference
     roomgrid_level.py:215-235): PutNext counts 2, other leaves 1."""

@@ -12,7 +12,10 @@ A reset cache is generated from a pool (``batch_reset_cache``): single
 attempts for ``pool_factor`` times the levels needed, of which the valid
 ones are kept in order.  Attempts are independent, so the kept levels have
 the rejection loop's distribution without its batched tail, where every env
-waits for the slowest.
+waits for the slowest.  A pool with too few valid attempts is topped up by
+further pools until it has enough; no level is used twice (the JAX package
+repeats its valid levels instead, ``minigrid_tpu/envs/babyai/core/
+level.py:269,281``).
 """
 
 from __future__ import annotations
@@ -27,16 +30,21 @@ from minigrid_tpu_torch.envs.babyai.core.instr import (
     LEAF_PUTNEXT,
     S_FAILURE,
     S_SUCCESS,
+    TOP_ACTION,
     InstrState,
+    empty_instr,
     num_navs,
+    set_desc,
+    set_leaf,
+    set_top,
     tracked_plane,
     verify_step,
 )
 from minigrid_tpu_torch.envs.babyai.core.instr_block import BabyAIFusedExt
 from minigrid_tpu_torch.envs.babyai.core.text import babyai_mission_text, encode_babyai_mission
 from minigrid_tpu_torch.envs.unlock import RoomGridEnvBase
-from minigrid_tpu_torch.utils.chunked import chunked, lane_cap
-from minigrid_tpu_torch.utils.tree_gather import compact_valid_indices, tree_take
+from minigrid_tpu_torch.utils.chunked import cat_trees, chunked, lane_cap
+from minigrid_tpu_torch.utils.tree_gather import tree_take
 
 # Rows are words of at most this many bits in check_objs_reachable's flood
 # (every registered level is at most 22 cells wide; the JAX package floods
@@ -62,16 +70,33 @@ def _reverse_bits(x: torch.Tensor, width: int) -> torch.Tensor:
     return x >> (32 - width)
 
 
+def action_instr(builder, s: RoomGridState, kind, d_type, d_color=-1, d_loc=-1, strict=False) -> InstrState:
+    """One action instruction of leaf ``kind`` (an int or int32 [N]) on
+    descriptor (type, color, loc), resolved on the finished grid of ``s``
+    with locations relative to the agent's start room, as the levels of
+    open.py, pickup.py, unlock.py and other.py make theirs."""
+    instr = empty_instr(s.grid.shape[0], builder.width, builder.height, s.grid.device)
+    instr = set_leaf(set_top(instr, TOP_ACTION), 0, kind, strict=strict)
+    return set_desc(
+        instr, 0, 0, s.grid, s.agent_pos, s.agent_dir, d_type, d_color, d_loc, agent_room_mask=builder.agent_room_mask(s)
+    )
+
+
+def keep_where(mask: torch.Tensor, before, after):
+    """``before`` where the env's ``mask`` (bool [N]) is set, else ``after``,
+    leaf by leaf (an attempt's construction state undone in some envs)."""
+    return tree_map(lambda a, old: torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), old, a), after, before)
+
+
 class RoomGridLevel(RoomGridEnvBase):
     """Base of the BabyAI levels."""
 
     # Level-family flag (the reference's levels set it as an attribute).
     unblocking = False
-    # Attempts per level needed in batch_reset_cache's pool.  Families whose
+    # Attempts per level in batch_reset_cache's first pool.  Families whose
     # attempts are mostly valid take less (GoToLocal and GoToRedBall* ~0.84
-    # valid -> 1.3; the JAX package's measured rates); a short pool only
-    # repeats valid levels, and factor x validity keeps a margin of many
-    # binomial sigmas over 1 at pools of 2^14 and more.
+    # valid -> 1.3; the JAX package's measured rates); factor x validity
+    # keeps a margin over 1, so that a second pool is rarely drawn.
     pool_factor = 2.0
     fused_ext = BabyAIFusedExt()
 
@@ -213,17 +238,28 @@ class RoomGridLevel(RoomGridEnvBase):
     def batch_reset_cache(
         self, num_envs: int, num_resets: int, generator: torch.Generator | None = None, device=None
     ) -> EnvState:
-        """Reset cache [num_envs, num_resets, ...] from one pool of
+        """Reset cache [num_envs, num_resets, ...] from a pool of
         ``pool_factor`` x N x R single attempts, generated in chunks of
-        bounded memory (``utils/chunked.py``); the valid ones are kept in
-        order, repeated from the start if too few are valid."""
+        bounded memory (``utils/chunked.py``), whose valid attempts are kept
+        in order.  While the kept ones are fewer than N x R, a further pool
+        sized by the validity seen so far is drawn; each level is used once.
+        Raises if more than ``max_gen_attempts`` attempts a level were
+        drawn, the bound of the rejection loop."""
         device = resolve_device(generator, device)
         total = num_envs * num_resets
+        cap = lane_cap(self.width * self.height)
+        kept, found, drawn = [], 0, 0
         pool = int(total * self.pool_factor)
-        s, instr, valid = chunked(
-            lambda count: self._attempt(generator, count, device), pool, lane_cap(self.width * self.height)
-        )
-        s, instr = tree_take((s, instr), compact_valid_indices(valid, total))
+        while found < total:
+            if drawn >= total * self.max_gen_attempts:
+                raise RuntimeError(f"{type(self).__name__}: {found} valid levels of {drawn} attempts, {total} needed")
+            s, instr, valid = chunked(lambda count: self._attempt(generator, count, device), pool, cap)
+            index = torch.nonzero(valid, as_tuple=True)[0][: total - found]
+            kept.append(tree_take((s, instr), index))
+            found, drawn = found + index.numel(), drawn + pool
+            # The shortfall over the validity seen so far, with a margin.
+            pool = int((total - found) * 1.25 * drawn / max(found, 1)) + 64
+        s, instr = kept[0] if len(kept) == 1 else cat_trees(kept)
         states = self._finish_level(s, instr)
         return states.map(lambda a: a.reshape((num_envs, num_resets) + a.shape[1:]))
 

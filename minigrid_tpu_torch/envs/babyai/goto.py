@@ -12,9 +12,8 @@ import torch
 from minigrid_tpu_torch.core import sampling as s_
 from minigrid_tpu_torch.core.constants import COLOR_BLUE, COLOR_GREY, COLOR_RED, OBJ_BALL, OBJ_DOOR, OBJ_KEY
 from minigrid_tpu_torch.core.grid import cell_mask
-from minigrid_tpu_torch.core.state import tree_map
 from minigrid_tpu_torch.envs.babyai.core.instr import LEAF_GOTO, TOP_ACTION, empty_instr, set_desc, set_leaf, set_top
-from minigrid_tpu_torch.envs.babyai.core.level import RoomGridLevel
+from minigrid_tpu_torch.envs.babyai.core.level import RoomGridLevel, keep_where
 
 
 def _single_goto(builder, s, d_type, d_color=-1):
@@ -24,7 +23,7 @@ def _single_goto(builder, s, d_type, d_color=-1):
     return set_desc(instr, 0, 0, s.grid, s.agent_pos, s.agent_dir, d_type, d_color)
 
 
-def _picked(generator, values: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+def picked(generator, values: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
     """A uniform column of ``values`` [N, count] per env, and its index."""
     n = values.shape[0]
     pick = s_.randint(generator, n, 0, count, values.device).long()
@@ -110,7 +109,7 @@ class GoToLocal(RoomGridLevel):
         s = b.place_agent(generator, s, 0, 0)
         s, kinds, colors, _ = b.add_distractors(generator, s, num_distractors=self.num_dists, all_unique=False)
         valid = self.check_objs_reachable(s)
-        kind, pick = _picked(generator, kinds, self.num_dists)
+        kind, pick = picked(generator, kinds, self.num_dists)
         color = colors[torch.arange(n, device=device), pick]
         return s, _single_goto(b, s, kind, color), valid
 
@@ -132,7 +131,7 @@ class GoTo(RoomGridLevel):
         s = b.connect_all(generator, s)
         s, kinds, colors, _ = b.add_distractors(generator, s, num_distractors=self.num_dists, all_unique=False)
         valid = self.check_objs_reachable(s)
-        kind, pick = _picked(generator, kinds, self.num_dists)
+        kind, pick = picked(generator, kinds, self.num_dists)
         instr = _single_goto(b, s, kind, colors[torch.arange(n, device=device), pick])
         if self.doors_open:
             # The descriptors were resolved with the doors closed; opening
@@ -159,11 +158,10 @@ class GoToImpUnlock(RoomGridLevel):
         # Two distractors in every room but the locked one (:503-508).
         for i in range(c):
             for j in range(r):
-                locked_room = (id_ == i) & (jd == j)
                 before = s
                 s, _, _, _ = b.add_object(generator, s, i, j)
                 s, _, _, _ = b.add_object(generator, s, i, j)
-                s = tree_map(lambda a, old: torch.where(locked_room.reshape((n,) + (1,) * (a.dim() - 1)), old, a), s, before)
+                s = keep_where((id_ == i) & (jd == j), before, s)
         # The agent anywhere but the locked room (:511-518).
         aflat = (jd * c + id_ + s_.randint(generator, n, 1, r * c, device)) % (r * c)
         s = b.place_agent(generator, s, aflat % c, aflat // c)
@@ -208,7 +206,7 @@ class GoToDoor(RoomGridLevel):
             s, color, _ = b.add_door(generator, s, 1, 1)
             colors.append(color)
         s = b.place_agent(generator, s, 1, 1)
-        target, _ = _picked(generator, torch.stack(colors, dim=1), 4)
+        target, _ = picked(generator, torch.stack(colors, dim=1), 4)
         valid = torch.ones(n, dtype=torch.bool, device=device)
         return s, _single_goto(b, s, OBJ_DOOR, target), valid
 
@@ -232,6 +230,6 @@ class GoToObjDoor(RoomGridLevel):
         valid = self.check_objs_reachable(s)
         all_kinds = torch.cat([kinds, torch.full((n, 4), OBJ_DOOR, dtype=torch.int32, device=device)], dim=1)
         all_colors = torch.cat([colors, torch.stack(door_colors, dim=1)], dim=1)
-        kind, pick = _picked(generator, all_kinds, 12)
+        kind, pick = picked(generator, all_kinds, 12)
         color = all_colors[torch.arange(n, device=device), pick]
         return s, _single_goto(b, s, kind, color), valid

@@ -28,8 +28,8 @@ def make(env_id: str, **overrides: Any):
     """
     if env_id not in _REGISTRY:
         raise NotImplementedError(
-            f"{env_id!r} is not in this package yet: it holds every classic MiniGrid id but WFC's and BabyAI's "
-            "GoTo group; the rest of BabyAI and WFC follow ROADMAP.md queue 1"
+            f"{env_id!r} is not in this package yet: it holds every id of the JAX package but the six "
+            "MiniGrid-WFC-* ids, which follow ROADMAP.md queue 1"
         )
     cls, kwargs = _REGISTRY[env_id]
     env = cls(**{**kwargs, **overrides})

@@ -8,7 +8,9 @@ the reference) hold batches of one-step transitions: the state before
 ``extra_*`` arrays.  ``replay`` runs one fixture and raises where the port
 differs.  ``replay_wrappers`` holds the 8 wrapper outputs of a
 ``wrappers_*.npz`` fixture and ``replay_nodeath`` the ``NoDeath`` transitions
-of ``nodeath_lava.npz``.  None imports JAX, so they also run on the card.
+of ``nodeath_lava.npz``.  ``replay_verifier`` drives the recorded BabyAI
+episodes of a ``verifier_*.npz`` fixture through the rollout kernel one
+step at a time.  None imports JAX, so they also run on the card.
 """
 
 from __future__ import annotations
@@ -142,3 +144,74 @@ def replay_nodeath(path: str | Path, device="cpu") -> int:
     if not (d["reward"] < 0).any() or d["terminated"].all():
         raise AssertionError("nodeath: the fixture holds no cancelled death")
     return len(d["action"])
+
+
+def verifier_episodes(path: str | Path, device="cpu"):
+    """The episodes of a ``verifier_[done_]<level id>.npz`` fixture: the
+    level id, and per episode its start state [1] with the recorded
+    instruction (tests/test_verifier_parity.py's ``_build_instr``), its
+    actions, rewards and terminations."""
+    from minigrid_tpu_torch.core.roomgrid import RoomGridBuilder
+    from minigrid_tpu_torch.envs.babyai.core.instr import empty_instr, set_desc, set_leaf, set_top
+    from minigrid_tpu_torch.envs.babyai.core.text import encode_babyai_mission
+
+    d = _load(path)
+    name = Path(path).stem
+    env_id = name[len("verifier_done_") if name.startswith("verifier_done_") else len("verifier_") :]
+    done_mode = bool(d.get("done_mode", False))
+    episodes = []
+    for i in range(int(d["num_eps"])):
+        rec = {k[len(f"ep{i}_") :]: v for k, v in d.items() if k.startswith(f"ep{i}_")}
+        grid = torch.from_numpy(rec["grid"][None]).to(device)
+        state = new_state(grid, torch.from_numpy(rec["pos"]).to(device), int(rec["dir"]), int(rec["max_steps"]))
+        room = None
+        if int(rec["room_size"]) > 0:
+            b = RoomGridBuilder(int(rec["room_size"]), int(rec["num_rows"]), int(rec["num_cols"]))
+            room = b.room_interior_mask(*b.room_of_pos(state.agent_x, state.agent_y))
+        instr = empty_instr(1, *state.grid.shape[1:], device=device, done_mode=done_mode)
+        flags = {k: bool(rec[k]) for k in ("a_is_and", "b_is_and", "strict")}
+        instr = set_top(instr, int(rec["top"]), **flags)
+        leaves = rec["leaves"]  # per leaf: kind, strict, then (type, color, loc) of each descriptor
+        for leaf in range(4):
+            if (leaves[leaf] == -1).all():
+                continue
+            instr = set_leaf(instr, leaf, int(leaves[leaf, 0]), strict=bool(leaves[leaf, 1]))
+            for slot, first in ((0, 2), (1, 5)):
+                if slot == 0 or leaves[leaf, 5] >= 0:
+                    desc = [int(v) for v in leaves[leaf, first : first + 3]]
+                    args = (state.grid, state.agent_pos, state.agent_dir, *desc)
+                    instr = set_desc(instr, leaf, slot, *args, agent_room_mask=room)
+        state = state.replace(mission=encode_babyai_mission(instr), extra={"instr": instr})
+        episodes.append((state, rec["actions"], rec["rewards"], rec["terminated"]))
+    return env_id, episodes
+
+
+def replay_verifier(path: str | Path, device="cpu") -> int:
+    """The recorded episodes of a verifier fixture through the rollout
+    kernel on ``device`` (its plain version on the CPU), one step a call
+    with the recorded action, each episode alone, its start level as the
+    cache: the reward of every step to ``REWARD_RTOL``, and the episode's
+    end exactly where it was recorded, terminated unless the step limit
+    truncates it there.  Returns the number of steps replayed."""
+    from minigrid_tpu_torch.ops.fused_rollout import fused_rollout_core
+
+    env_id, episodes = verifier_episodes(path, device)
+    env = mgt.make(env_id)
+    name, steps = Path(path).name, 0
+    for i, (state, actions, rewards, terminated) in enumerate(episodes):
+        if (env.width, env.height) != tuple(state.grid.shape[1:]):
+            raise AssertionError(f"{name}: {env_id} is {env.width}x{env.height}, the fixture's grid is not")
+        cache = state.map(lambda a: a[:, None])
+        for t, action in enumerate(actions):
+            truncates = int(state.step_count) + 1 >= int(state.max_steps)
+            act = torch.full((1, 1), int(action), dtype=torch.int32, device=device)
+            state, reward, done, _, _ = fused_rollout_core(env, state, cache, act, False)
+            steps += 1
+            if not np.isclose(float(reward), rewards[t], rtol=REWARD_RTOL, atol=0):
+                raise AssertionError(f"{name}: episode {i} step {t}: reward {float(reward)} != {rewards[t]}")
+            ended = bool(terminated[t]) or truncates
+            if bool(int(done)) != ended or (ended and t != len(actions) - 1 and bool(terminated[t])):
+                raise AssertionError(f"{name}: episode {i} step {t}: ended {bool(int(done))}, recorded {ended}")
+            if ended:
+                break
+    return steps

@@ -11,14 +11,18 @@ package and the original's recorded episodes.
   recorded transitions: the instruction state, the reward and the
   termination at every step.
 * The rollout kernel's plain version against the JAX package's Pallas kernel
-  in interpret mode on GoToLocal (8 steps) and GoTo (4 steps), on JAX's
-  states and an R=2 cache, in both verifier modes: the final state with its
+  in interpret mode on GoToLocal (8 steps), GoTo (4 steps),
+  PutNextS5N2Carrying (8 steps: the agent starts with the object to move)
+  and MiniBossLevel (4 steps: every leaf kind and combinator), on the same
+  states and R=2 cache, in both verifier modes: the final state with its
   ``InstrState``, the done count, the checksum and ``max_used`` bit for bit,
-  the reward total to rtol 1e-6 (XLA's FMA, ROADMAP queue 3).
+  the reward total to rtol 1e-6 (XLA's FMA, ROADMAP queue 3).  JAX's
+  generator makes the levels, but MiniBossLevel's are the port's, carried
+  across by the bridge (JAX's LevelGen generator compiles for ~45 s).
 * The actor kernel's plain collector against JAX's interpreted actor kernel
   on GoToLocal, held to the three contracts of ``check_trajectory``.
-* Every one of the 32 GoTo ids resets and steps at N=4; mission text equal
-  to JAX's for the same instruction.
+* Every one of the 34 GoTo ids (GoToSeq's two from ``levelgen.py``) resets
+  and steps at N=4; mission text equal to JAX's for the same instruction.
 
 Each JAX reference runs once per module (module-scoped fixtures): its
 interpreted kernels take 10-16 s each on the CPU.
@@ -62,6 +66,8 @@ from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.chunked import cat_trees
+from babyai_port_util import one_torch_thread
+from babyai_port_util import to_jax as babyai_to_jax
 from torch_port_util import assert_states_equal, flax_params, jax_to_numpy, port_model
 from torch_port_util import to_port as _to_port
 
@@ -69,9 +75,16 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 VERIFIER_FILES = sorted(glob.glob(os.path.join(GOLDEN_DIR, "verifier_*.npz")))
 N, R = 1024, 2
 # (env id, steps, seed): tests/test_fused_rollout.py's BabyAI cases.
-K1_CASES = {"gotolocal": ("BabyAI-GoToLocal-v0", 8, 0), "goto": ("BabyAI-GoTo-v0", 4, 2)}
+K1_CASES = {
+    "gotolocal": ("BabyAI-GoToLocal-v0", 8, 0),
+    "goto": ("BabyAI-GoTo-v0", 4, 2),
+    "putnext_carrying": ("BabyAI-PutNextS5N2Carrying-v0", 8, 3),
+    "minibosslevel": ("BabyAI-MiniBossLevel-v0", 4, 4),
+}
+# Cases whose levels the port generates (see the module docstring).
+PORT_LEVELS = {"BabyAI-MiniBossLevel-v0"}
 ACTOR_STEPS = 6
-GOTO_IDS = sorted(i for i in mgt.registered_ids() if i.startswith("BabyAI-"))
+GOTO_IDS = sorted(i for i in mgt.registered_ids() if i.startswith("BabyAI-GoTo"))
 # The bridge's type for BabyAI's structured extra leaf.
 EXTRA_TYPES = {"instr": InstrState}
 
@@ -185,9 +198,14 @@ def _done_mode(state):
 @functools.cache
 def _jax_levels(env_id: str, seed: int):
     """JAX's states [N] and R=2 cache [N, R], from (R+1)N resets of one
-    compiled generator."""
-    jenv = mg.make(env_id)
-    _, levels = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(seed), (R + 1) * N))
+    compiled generator, or of the port's for the ``PORT_LEVELS``."""
+    if env_id in PORT_LEVELS:
+        with one_torch_thread():
+            _, port = mgt.make(env_id).reset((R + 1) * N, torch.Generator().manual_seed(seed))
+        levels = babyai_to_jax(port)
+    else:
+        jenv = mg.make(env_id)
+        _, levels = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(seed), (R + 1) * N))
     states = jax.tree.map(lambda a: a[:N], levels)
     return states, jax.tree.map(lambda a: a[N:].reshape((N, R) + a.shape[1:]), levels)
 

@@ -9,6 +9,7 @@ import no JAX, so they also run where JAX is not installed:
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,11 +27,13 @@ from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.ops._build import load_library
+from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.rl.rollout import collect_trajectory
+from minigrid_tpu_torch.utils import golden
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
 
@@ -423,7 +426,7 @@ def test_cached_ext_wrappers_reject_what_their_kernels_do_not_take(device):
 
 # BabyAI's verifier (K=8 scalars, P=2 planes): GoToLocal's 8x8 room and
 # GoTo's 22x22 maze of 3x3 rooms, with the env's own max_steps.
-BABYAI_IDS = ["BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0"]
+BABYAI_IDS = ["BabyAI-GoToLocal-v0", "BabyAI-GoTo-v0", "BabyAI-BossLevel-v0"]
 
 
 def _assert_extra_same(got, want):
@@ -923,3 +926,73 @@ def test_zoo_events_happen_in_the_posed_states(device):
         states = _zoo_states(env_id, env, states, gen)
         stepped, reward = env.step_env(states, torch.full((1024,), action, dtype=torch.int32, device=device))
         assert int(stepped.terminated.sum()) >= 128, env_id
+
+
+# -- the rest of BabyAI (chip_smoke.py phases 21, 23 and 24 at small sizes) ----------
+
+NEW_BABYAI_MODULES = ("open", "pickup", "putnext", "unlock", "other", "levelgen")
+NEW_BABYAI_IDS = sorted(
+    i for i in mgt.registered_ids()
+    if type(mgt.make(i)).__module__ in {f"minigrid_tpu_torch.envs.babyai.{m}" for m in NEW_BABYAI_MODULES}
+)
+NEW_BABYAI_ACTOR_IDS = [
+    "BabyAI-OpenDoorsOrderN4Debug-v0",
+    "BabyAI-PickupDistDebug-v0",
+    "BabyAI-PutNextS5N2Carrying-v0",
+    "BabyAI-KeyInBox-v0",
+    "BabyAI-ActionObjDoor-v0",
+    "BabyAI-MiniBossLevel-v0",
+]
+VERIFIER_FILES = sorted(str(p) for p in (Path(__file__).parent / "golden").glob("verifier_*.npz"))
+
+
+def test_the_new_babyai_modules_hold_64_ids():
+    assert len(NEW_BABYAI_IDS) == 64 and len(VERIFIER_FILES) == 16
+
+
+@pytest.mark.parametrize("env_id", NEW_BABYAI_IDS)
+def test_new_babyai_ids_take_k1_bit_for_bit(device, env_id):
+    # 512 envs x 32 steps, episode ages spread, R from learner_resets: the
+    # Carrying levels start with an object in hand, KeyInBox's box holds its
+    # key, the Debug levels fail strict leaves.
+    env = mgt.make(env_id)
+    n, steps = 512, 32
+    gen = torch.Generator(device=device).manual_seed(13)
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    r = learner_resets(env, steps)
+    cache = env.batch_reset_cache(n, r, gen)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, False)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, False)
+    _assert_same(got, want)
+    _assert_extra_same(got[0].extra, want[0].extra)
+    assert int(got[2]) > 0 and int(got[4]) <= r
+
+
+@pytest.mark.parametrize("env_id", NEW_BABYAI_ACTOR_IDS)
+def test_actor_kernel_runs_the_new_babyai_modules(device, env_id):
+    env = mgt.make(env_id)
+    n, t = 1024, 32
+    gen = torch.Generator(device=device).manual_seed(9)
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    weights = _biased_actor(env, gen, device)
+    cache = env.batch_reset_cache(n, learner_resets(env, t), gen)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert 0 < int(traj["done"].int().sum(dim=0).max()) <= cache.step_count.shape[1]
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
+
+
+@pytest.mark.parametrize("path", VERIFIER_FILES, ids=lambda p: Path(p).name)
+def test_verifier_fixtures_replay_through_k1(device, path):
+    before = fr.KERNEL_LAUNCHES
+    steps = golden.replay_verifier(path, device)
+    assert steps > 0 and fr.KERNEL_LAUNCHES - before == steps
