@@ -172,15 +172,34 @@ Phases, one output line each; any failure raises and exits non-zero:
    and done-actions mode: the OPEN, PICKUP and PUTNEXT leaves, the
    combinators and strict mode on the original's episodes) through the
    rollout kernel one step a launch: every step's end exact, its reward to
-   rtol 1e-6.
+   rtol 1e-6;
+25. WFC: ``MiniGrid-WFC-MazeSimple-v0`` (25x25, bench.py's
+   ``wfc_mazesimple_levels_per_sec`` preset) at 16384 envs x 256 steps as in
+   phase 11, its reset cache drawn by the WFC solver kernel (the launches
+   of the main path counted; the kernel == its plain version, grids,
+   outcomes and counters, on a chunk of the cache's waves), R covered; the
+   cache's generation and the solver's levels/s at bench.py's batch of 64
+   and at the cache's chunk timed apart; then the plain path's shared pool
+   of resets, ``rollout_random(fused=False)`` at 4096 x 64, certified
+   against its pool;
+26. PPO on ``MiniGrid-WFC-MazeSimple-v0`` as in phase 7 (three train steps,
+   launches 1/1/9/8, the last trajectory held to the contracts with its
+   cache, ``replayed`` 0, timed with its rollout/update split), with the
+   solver's share of a train step;
+27. the other five WFC ids through the rollout kernel at 1024 envs x 64
+   steps, exact with the plain version and held to R; then 48 levels of
+   each of the six presets at size 25 held to the original's corpus
+   (``tests/golden/wfc_ref_corpus.npz``) with the thresholds of
+   ``tests/test_wfc.py``: 2x2 wall-block TVD < 0.10, wall density within
+   max(4 se, 0.04), walls and floor only.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20, 22) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
 ``actor_rollout_reference`` and ``check_trajectory`` launch the observation
 kernel 0 times.  Every learner run on a reset-cache
-family (DoorKey, GoToLocal, KeyCorridor, BossLevel) is held to its reset budget: the learners size R
+family (DoorKey, GoToLocal, KeyCorridor, BossLevel, WFC-MazeSimple) is held to its reset budget: the learners size R
 from their own chunks (``rl/rollout.LearnerResets``) and report the resets
 past it, which must be 0 (``replayed``).  Every actor-kernel check on one
 (GoToDoor, Fetch and phase 20's and 23's) is held to the learners' first R
@@ -217,7 +236,7 @@ import torch
 import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch import wrappers as wr
 from minigrid_tpu_torch.core import obs as obs_lib
-from minigrid_tpu_torch.core.constants import see_behind, unpack_grid
+from minigrid_tpu_torch.core.constants import OBJ_EMPTY, OBJ_GOAL, OBJ_WALL, cell_type, see_behind, unpack_grid
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.obs import process_vis
 from minigrid_tpu_torch.core.sampling import randint
@@ -227,9 +246,12 @@ from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
+from minigrid_tpu_torch.ops import wfc_solve as wk
 from minigrid_tpu_torch.ops.prng import draw_seeds
+from minigrid_tpu_torch.envs.wfc import WFC_PRESETS
+from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
-from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
+from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
@@ -256,7 +278,7 @@ EMBED_SAMPLES = PPO_STEPS // PPOConfig().num_minibatches * PPO_ENVS
 BF16_ATOL = 2e-2
 # Sampled actions are compared where the top two Gumbel scores differ by more.
 TIE_MARGIN = 1e-2
-KERNELS = ("fused_rollout", "embed_dense", "actor_rollout", "obs_packed")
+KERNELS = ("fused_rollout", "embed_dense", "actor_rollout", "obs_packed", "wfc_solve")
 SOURCE = "minigrid_tpu_torch/ops/csrc/fused_rollout.cu"
 REPLACES = "minigrid_tpu/ops/fused_rollout.py:335"
 # The counter-reset slice: bench.py's TRACKED families with in-kernel resets.
@@ -354,6 +376,21 @@ NEW_BABYAI_ACTOR_IDS = (
 NEW_BABYAI_ENVS = 1024
 NEW_BABYAI_STEPS = 64
 NEW_BABYAI_ACTOR_STEPS = 32
+# WFC (phases 25-27): bench.py's preset at BabyAI's 16384 envs (625 cells, as
+# MultiRoom-N6), the plain path's pool at 4096 x 64, the other presets at
+# 1024 x 64 and 48 levels a preset against the original's corpus.
+WFC_ID = "MiniGrid-WFC-MazeSimple-v0"
+WFC_ENVS = 16384
+WFC_POOL_ENVS, WFC_POOL_STEPS = 4096, 64
+WFC_OTHER_IDS = tuple(f"MiniGrid-WFC-{p}-v0" for p in WFC_PRESETS if p != "MazeSimple")
+WFC_SMALL_ENVS, WFC_SMALL_STEPS = 1024, 64
+WFC_BENCH_BATCH = 64
+WFC_SOURCE = "minigrid_tpu_torch/ops/csrc/wfc_solve.cu"
+# The JAX solve the kernel twins: a jitted while_loop of XLA dots, no
+# pallas_call.
+WFC_REPLACES = "minigrid_tpu/envs/wfc/solver.py:223"
+# The solver kernel's launches in each cache_slice main path, by id.
+SOLVER_LAUNCHES: dict[str, int] = {}
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -1209,12 +1246,13 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     # successes, end episodes within 256 steps.
     states = states.replace(step_count=randint(gen, num_envs, 0, states.max_steps))
     snap_random = gen.get_state()
-    fr.KERNEL_LAUNCHES = 0
+    fr.KERNEL_LAUNCHES = wk.KERNEL_LAUNCHES = 0
     out_random = rollout_random(env, states, gen, NUM_STEPS)
     snap_obs = gen.get_state()
     out_obs = fr.fused_rollout(env, states, gen, NUM_STEPS, resets, compute_obs=True)
     torch.cuda.synchronize()
     launches = fr.KERNEL_LAUNCHES
+    SOLVER_LAUNCHES[env_id] = wk.KERNEL_LAUNCHES
     check(launches == 2, f"{env_id}: the slice launched the kernel {launches} times, expected 2")
 
     final, total_r, total_done, max_used = out_random
@@ -1695,6 +1733,165 @@ def verifier_replay(device) -> str:
     )
 
 
+def wfc_solve_args(env) -> tuple:
+    """The solver's arguments for one of ``env``'s chunks, after the waves'
+    count: its tables, shape and configuration (``WFCEnv._generate_chunk``)."""
+    t, inner, c = env._tables, env.width - 2, env.config
+    return (
+        t["adj"], t["weights"], (inner, inner), c.output_periodic, env.max_attempts, c.loc_heuristic,
+        c.choice_heuristic, c.backtracking,
+    )
+
+
+def wfc_solver_check(device, card: str, resets: int) -> dict:
+    """Phase 25, the solver: the kernel against its plain version on one
+    plain-version chunk (``WFCEnv.solver_lanes`` off the card) of the main
+    path's reset cache (the same seeds: grids, outcomes and counters
+    exact), both timed; the kernel's levels/s at bench.py's
+    batch and at that chunk; the plain version's host syncs."""
+    env = mgt.make(WFC_ID)
+    n = min(WFC_ENVS * resets, env.solver_lanes("cpu"))
+    adj, weights, shape, *config = wfc_solve_args(env)
+    gen = torch.Generator(device=device).manual_seed(25)
+    snapshot = gen.get_state()
+
+    def solve(count, plain=False):
+        gen.set_state(snapshot)
+        return wfc_solver.wfc_solve(gen, adj, weights, count, shape, *config, with_stats=True, plain=plain)
+
+    launches = SOLVER_LAUNCHES.get(WFC_ID, 0)
+    check(launches > 0, f"{WFC_ID}: the main path launched the solver kernel {launches} times")
+    got = solve(n)
+    syncs = wfc_solver.HOST_SYNCS
+    t0 = time.perf_counter()
+    want = solve(n, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    syncs = wfc_solver.HOST_SYNCS - syncs
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "wfc_solve: kernel grids differ from plain")
+    for k, v in want[2].items():
+        check(torch.equal(got[2][k], v), f"wfc_solve: kernel {k} differ from plain")
+    kernel_ms = min(time_ms(partial(solve, n), 2), time_ms(partial(solve, n), 2))
+    small_ms = min(time_ms(partial(solve, WFC_BENCH_BATCH), 5), time_ms(partial(solve, WFC_BENCH_BATCH), 5))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    solve(n)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t0 = time.perf_counter()
+    solve(WFC_BENCH_BATCH, plain=True)
+    torch.cuda.synchronize()
+    small_plain_s = time.perf_counter() - t0
+    collapses = int(want[2]["collapses"].sum(dtype=torch.int64))
+    print(
+        f"wfc_solve ({card}) MazeSimple 23x23: {n} waves kernel {kernel_ms:.4f} ms ({n / kernel_ms * 1e3:.6g} "
+        f"levels/s, peak {peak_gb:.4f} GB beyond what was allocated), plain {plain_s * 1e3:.4f} ms "
+        f"({n / plain_s:.6g} levels/s, {syncs} host syncs); "
+        f"{WFC_BENCH_BATCH} waves kernel {small_ms:.4f} ms ({WFC_BENCH_BATCH / small_ms * 1e3:.6g} levels/s), plain "
+        f"{small_plain_s * 1e3:.4f} ms; ok {float(want[1].float().mean()):.4f}, mean collapses "
+        f"{collapses / n:.2f}, attempts max {int(want[2]['attempts'].max())}",
+        flush=True,
+    )
+    # Bytes: the seeds in and each wave's grid, outcome and counters out
+    # (the tables are a few KB).  Operations: at least the location scan,
+    # one pass over the cells a collapse, integer work at the CUDA cores'
+    # rate (propagation's sweeps and the barriers come on top).
+    cells = shape[0] * shape[1]
+    nbytes = n * (8 + 4 * cells + 20)
+    return kernel_entry(
+        "wfc_solve", WFC_SOURCE, WFC_REPLACES, launches, 0.0, kernel_ms, plain_s * 1e3,
+        bound(nbytes, collapses * cells / CUDA_CORE_OPS_PER_S),
+    )
+
+
+def wfc_pool_check(device, card: str) -> None:
+    """Phase 25, the plain path: ``rollout_random(fused=False)`` of WFC at
+    ``WFC_POOL_ENVS`` x ``WFC_POOL_STEPS``, its resets from one shared pool
+    (``make_pool_stepper``), certified against the pool's size over the
+    run and a chain of two chunks."""
+    env = mgt.make(WFC_ID)
+    n, steps = WFC_POOL_ENVS, WFC_POOL_STEPS
+    gen = torch.Generator(device=device).manual_seed(26)
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    capacity = rollout_capacity(env, steps, device, fused=False, num_envs=n)
+    fr.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    final, total_r, done, consumed = rollout_random(env, states, gen, steps, fused=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(fr.KERNEL_LAUNCHES == 0, "the plain path launched the rollout kernel")
+    check(int(consumed) == int(done) > 0, f"pool: {int(consumed)} levels consumed for {int(done)} episodes")
+    check(int(consumed) <= capacity, f"pool: {int(consumed)} levels consumed from a pool of {capacity}: replayed")
+
+    def chunk(carry):
+        st, g = carry
+        st, r, d, used = rollout_random(env, st, g, steps, fused=False)
+        return (st, g), (r, d, used)
+
+    chain = assert_chain_covered(chunk, (final, gen), capacity, env, chunks=2, pool=True)
+    phase(
+        25,
+        f"{WFC_ID} plain path {n} envs x {steps} steps: {int(done)} episodes took {int(consumed)} of the pool's "
+        f"{capacity} levels (chain {chain}), reward {float(total_r)}, {seconds * 1e3:.1f} ms ({card})",
+    )
+
+
+def wfc_solver_share(device, card: str) -> None:
+    """Phase 26: the reset cache a PPO train step draws on WFC-MazeSimple
+    (``PPO_ENVS`` x the learner's R), timed apart: the solver's share of a
+    train step is this over the step's time above."""
+    env = mgt.make(WFC_ID)
+    resets = learner_resets(env, PPO_STEPS)
+    gen = torch.Generator(device=device).manual_seed(27)
+    ms = min(event_ms(lambda: env.batch_reset_cache(PPO_ENVS, resets, gen, device)) for _ in range(3))
+    print(f"wfc reset cache ({card}) {PPO_ENVS} x R={resets} for a PPO train step: {ms:.4f} ms", flush=True)
+
+
+def wfc_others_check(device) -> None:
+    """Phase 27: the other five WFC ids through the rollout kernel at
+    ``WFC_SMALL_ENVS`` x ``WFC_SMALL_STEPS`` (episode ages spread, R from
+    ``learner_resets``), exact with the plain version, no level replayed;
+    then every preset's levels against the original's corpus."""
+    n, steps = WFC_SMALL_ENVS, WFC_SMALL_STEPS
+    for env_id in WFC_OTHER_IDS:
+        env = mgt.make(env_id)
+        check(fused_eligible(env, device), f"{env_id} must take the kernel on {device}")
+        gen = torch.Generator(device=device).manual_seed(23)
+        resets = learner_resets(env, steps)
+        _, states = env.reset(n, gen)
+        states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+        cache = env.batch_reset_cache(n, resets, gen, device)
+        actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+        before = fr.KERNEL_LAUNCHES
+        got = fr.fused_rollout_core(env, states, cache, actions, False)
+        torch.cuda.synchronize()
+        check(fr.KERNEL_LAUNCHES == before + 1, f"{env_id}: the rollout kernel did not launch once")
+        err = compare(got, fr.fused_rollout_reference(env, states, cache, actions, False), env_id)
+        used = int(got[4])
+        check(used <= resets, f"{env_id}: an env used {used} slots with R={resets}: levels replayed")
+        phase(
+            27,
+            f"{env_id} {n}x{steps}: 1 launch, outputs == plain version (reward max abs err {err}), "
+            f"{int(got[2])} episodes, slots used {used} of R={resets}",
+        )
+    corpus = np.load(GOLDEN / "wfc_ref_corpus.npz")
+    for preset in WFC_PRESETS:
+        ref = corpus[f"{preset}_walls"]
+        env = mgt.make(f"MiniGrid-WFC-{preset}-v0")
+        _, states = env.reset(ref.shape[0], torch.Generator(device=device).manual_seed(11))
+        types = cell_type(states.grid).cpu().numpy()
+        check(set(np.unique(types[:, 1:-1, 1:-1])) <= {OBJ_EMPTY, OBJ_WALL, OBJ_GOAL}, f"{preset}: a tile past walls and floor")
+        tvd, density, ref_density, limit = golden.wfc_corpus_check(types[:, 1:-1, 1:-1] == OBJ_WALL, ref)
+        check(tvd < 0.10, f"{preset}: 2x2 wall-block TVD {tvd:.4f} against the corpus")
+        check(abs(density - ref_density) < limit, f"{preset}: wall density {density:.4f} against {ref_density:.4f}")
+        phase(
+            27,
+            f"{preset}: {ref.shape[0]} levels at size 25 against the original's corpus: 2x2 block TVD {tvd:.4f} "
+            f"(< 0.10), wall density {density:.4f} against {ref_density:.4f} (within {limit:.4f})",
+        )
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
@@ -1845,11 +2042,20 @@ def main() -> None:
     boss_actor_entry, _ = ppo_slice(device, card, BOSS_ID, 22)
     new_babyai_check(device)
     phase(24, verifier_replay(device))
+    print(f"phase 25 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    wfc_entry = cache_slice(WFC_ID, device, card, WFC_ENVS, 25)
+    solver_entry = wfc_solver_check(device, card, resets_for(mgt.make(WFC_ID), NUM_STEPS))
+    wfc_pool_check(device, card)
+    print(f"phase 26 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    wfc_actor_entry, _ = ppo_slice(device, card, WFC_ID, 26)
+    wfc_solver_share(device, card)
+    print(f"phase 27 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    wfc_others_check(device)
     summary = {
         "kernels": [
-            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, actor_entry,
-            actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
-            keycorridor_entry, boss_actor_entry, *embed_entries, obs_entry,
+            rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
+            actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
+            keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, solver_entry,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -1,5 +1,5 @@
 """Environment families; importing this package registers their ids, with
-the JAX package's kwargs (``minigrid_tpu/envs/__init__.py:38-194``;
+the JAX package's kwargs (``minigrid_tpu/envs/__init__.py:38-197``;
 reference registration table: minigrid/__init__.py:24-569)."""
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from minigrid_tpu_torch.envs.playground import PlaygroundEnv
 from minigrid_tpu_torch.envs.putnear import PutNearEnv
 from minigrid_tpu_torch.envs.redbluedoors import RedBlueDoorEnv
 from minigrid_tpu_torch.envs.unlock import BlockedUnlockPickupEnv, UnlockEnv, UnlockPickupEnv
+from minigrid_tpu_torch.envs.wfc import WFC_PRESETS, WFCEnv
 from minigrid_tpu_torch.registry import register
 
 # -- Empty --
@@ -169,3 +170,7 @@ __all__ = [
     "UnlockEnv",
     "UnlockPickupEnv",
 ]
+
+# -- WFC presets (reference: minigrid/envs/wfc/config.py:226-233) --
+for _name in WFC_PRESETS:
+    register(f"MiniGrid-WFC-{_name}-v0", WFCEnv, wfc_config=_name)

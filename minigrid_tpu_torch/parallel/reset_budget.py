@@ -146,6 +146,19 @@ MEASURED_MAX_EPISODES_256: dict[str, int] = {
     "BabyAI-MiniBossLevel-v0": 5,
     "BabyAI-BossLevel-v0": 4,
     "BabyAI-BossLevelNoUnlock-v0": 3,
+    # WFC's six presets (25x25): `python -m minigrid_tpu_torch.tools.
+    # measure_reset_budget --env MiniGrid-WFC-<preset>-v0 --num-envs 16384
+    # --chunks 32` on an NVIDIA H100 80GB HBM3 (700.00 W power limit),
+    # chained from spread episode ages, every chunk certified at the tool's
+    # first R (10-14).  A random walk rarely reaches the goal of a 23x23
+    # maze, but start and goal can lie a step apart, and the 500-step limit
+    # ends an episode at most once a chunk.
+    "MiniGrid-WFC-MazeSimple-v0": 4,
+    "MiniGrid-WFC-DungeonMazeScaled-v0": 4,
+    "MiniGrid-WFC-RoomsFabric-v0": 4,
+    "MiniGrid-WFC-ObstaclesBlackdots-v0": 4,
+    "MiniGrid-WFC-ObstaclesAngular-v0": 4,
+    "MiniGrid-WFC-ObstaclesHogs3-v0": 4,
 }
 
 # Fallback for ids without a measured entry; deliberately generous.
@@ -252,6 +265,13 @@ MEASURED_MEAN_EPISODES_256: dict[str, float] = {
     "BabyAI-MiniBossLevel-v0": 1.195,
     "BabyAI-BossLevel-v0": 0.2009,
     "BabyAI-BossLevelNoUnlock-v0": 0.2132,
+    # WFC (the runs above).
+    "MiniGrid-WFC-MazeSimple-v0": 0.5412,
+    "MiniGrid-WFC-DungeonMazeScaled-v0": 0.5463,
+    "MiniGrid-WFC-RoomsFabric-v0": 0.5313,
+    "MiniGrid-WFC-ObstaclesBlackdots-v0": 0.5295,
+    "MiniGrid-WFC-ObstaclesAngular-v0": 0.5410,
+    "MiniGrid-WFC-ObstaclesHogs3-v0": 0.5287,
 }
 
 
@@ -299,12 +319,25 @@ def learner_resets(env, rollout_steps: int) -> int:
     return resets_for(env, max(rollout_steps, 256))
 
 
-def assert_chain_covered(step, carry, resets: int, env, chunks: int = 8) -> int:
+def check_pool(consumed: int, size: int) -> None:
+    """Raise where a chunk consumed more than the ``size`` levels of its
+    shared pool (``parallel/vector.make_pool_stepper``), which then served
+    its last level again."""
+    if consumed > size:
+        raise AssertionError(
+            f"reset pool exhausted: a chunk consumed {consumed} pool levels but the pool holds {size}, "
+            "so levels were replayed, which the reference's reset contract forbids.  Raise this id's entry "
+            "in MEASURED_MEAN_EPISODES_256, or pass a larger resets_per_chunk."
+        )
+
+
+def assert_chain_covered(step, carry, resets: int, env, chunks: int = 8, pool: bool = False) -> int:
     """Run ``chunks`` chained calls of ``step`` (``carry -> (carry, live)``,
-    the consumed-slot maximum being the last element of ``live``) and assert
-    that no chunk consumed more than ``resets`` cache slots.
-    ``deterministic_generation`` families are exempt.  Returns the observed
-    maximum."""
+    the consumed budget being the last element of ``live``) and assert that
+    no chunk consumed more than ``resets``: cache slots of an env, or with
+    ``pool=True`` rows of the shared pool (``parallel/vector.
+    make_pool_stepper``).  ``deterministic_generation`` families are exempt.
+    Returns the observed maximum."""
     if getattr(env, "deterministic_generation", False):
         return 0
     observed = 0
@@ -312,6 +345,8 @@ def assert_chain_covered(step, carry, resets: int, env, chunks: int = 8) -> int:
         carry, live = step(carry)
         observed = max(observed, int(live[-1]))
     if observed > resets:
+        if pool:
+            check_pool(observed, resets)
         raise AssertionError(
             f"reset cache exhausted: an env consumed {observed} slots in one chunk "
             f"but R={resets}, so levels were replayed, which the reference's reset "

@@ -27,10 +27,7 @@ def make(env_id: str, **overrides: Any):
         >>> obs, state, reward, term, trunc = env.step(state, torch.full((4,), 2))
     """
     if env_id not in _REGISTRY:
-        raise NotImplementedError(
-            f"{env_id!r} is not in this package yet: it holds every id of the JAX package but the six "
-            "MiniGrid-WFC-* ids, which follow ROADMAP.md queue 1"
-        )
+        raise KeyError(f"unknown env id {env_id!r}; see minigrid_tpu_torch.registry.registered_ids()")
     cls, kwargs = _REGISTRY[env_id]
     env = cls(**{**kwargs, **overrides})
     # Stamp the id so tables keyed by registry id (parallel/reset_budget)

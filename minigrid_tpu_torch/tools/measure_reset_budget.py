@@ -96,6 +96,10 @@ CONFIGS = (
         "BabyAI-SynthLoc-v0", "BabyAI-SynthSeq-v0", "BabyAI-MiniBossLevel-v0", "BabyAI-BossLevel-v0",
         "BabyAI-BossLevelNoUnlock-v0",
     )),
+    # WFC's six presets (25x25), at chip_smoke.py's size.
+    *((f"MiniGrid-WFC-{preset}-v0", 16384) for preset in (
+        "MazeSimple", "DungeonMazeScaled", "RoomsFabric", "ObstaclesBlackdots", "ObstaclesAngular", "ObstaclesHogs3",
+    )),
 )
 
 

@@ -10,7 +10,9 @@ differs.  ``replay_wrappers`` holds the 8 wrapper outputs of a
 ``wrappers_*.npz`` fixture and ``replay_nodeath`` the ``NoDeath`` transitions
 of ``nodeath_lava.npz``.  ``replay_verifier`` drives the recorded BabyAI
 episodes of a ``verifier_*.npz`` fixture through the rollout kernel one
-step at a time.  None imports JAX, so they also run on the card.
+step at a time.  ``wfc_corpus_check`` measures WFC levels against the
+original's corpus ``wfc_ref_corpus.npz``.  None imports JAX, so they also
+run on the card.
 """
 
 from __future__ import annotations
@@ -215,3 +217,23 @@ def replay_verifier(path: str | Path, device="cpu") -> int:
             if ended:
                 break
     return steps
+
+
+def wfc_corpus_check(ours: np.ndarray, ref: np.ndarray) -> tuple[float, float, float, float]:
+    """WFC levels' inner wall bitmaps bool [N, w, h] against the reference
+    corpus's (``tests/golden/wfc_ref_corpus.npz``, ``<preset>_walls``), by
+    the measures of ``tests/test_wfc.py::test_distribution_matches_reference``:
+    returns (the total variation distance of the two 16-bin 2x2 wall-block
+    distributions, our wall density, the corpus's, the density bound
+    max(4 se, 0.04) of the two means).  The test's thresholds: TVD < 0.10
+    and |density - corpus density| < the bound."""
+    ours, ref = np.asarray(ours, bool), np.asarray(ref, bool)
+
+    def block_hist(w):
+        b = w[:, :-1, :-1].astype(int) * 8 + w[:, :-1, 1:] * 4 + w[:, 1:, :-1] * 2 + w[:, 1:, 1:]
+        return np.bincount(b.reshape(-1), minlength=16) / b.size
+
+    tvd = 0.5 * np.abs(block_hist(ours) - block_hist(ref)).sum()
+    d_ours, d_ref = ours.mean(axis=(1, 2)), ref.mean(axis=(1, 2))
+    se = np.sqrt(d_ref.var() / len(d_ref) + d_ours.var() / len(d_ours))
+    return float(tvd), float(d_ours.mean()), float(d_ref.mean()), float(max(4 * se, 0.04))

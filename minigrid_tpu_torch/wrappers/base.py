@@ -8,7 +8,7 @@ wrappers override ``observation(state)``; wrappers with memory of their own
 (the exploration bonuses) carry it beside the env state
 (``wrappers/control.CountingState``).
 
-A wrapped env takes the plain per-step path of ``rollout_random``: the
+A wrapped env takes the plain path of ``rollout_random``: the
 whole-rollout kernel runs only the default observation
 (``ops/fused_rollout.supports_fused``), and a wrapper's ``observation`` is
 not that.

@@ -59,11 +59,11 @@ def test_steps_are_exact_on_jax_levels(levels):
 
 
 def test_the_registry_holds_every_jax_id_but_wfc():
-    want = {i for i in jax_registry.registered_ids() if not i.startswith("MiniGrid-WFC-")}
-    assert set(mgt.registered_ids()) == want and len(want) == 171
+    # Every JAX id, WFC's six included: the registry is whole.
+    want = set(jax_registry.registered_ids())
+    assert set(mgt.registered_ids()) == want and len(want) == 177
     assert sum(i.startswith("BabyAI-") for i in want) == 96
-    with pytest.raises(NotImplementedError, match="six MiniGrid-WFC"):
-        mgt.make("MiniGrid-WFC-MazeSimple-v0")
+    assert sum(i.startswith("MiniGrid-WFC-") for i in want) == 6
 
 
 class _RarelyValid(GoToObj):

@@ -112,7 +112,8 @@ def test_port_imports_no_jax():
         "import sys, minigrid_tpu_torch, minigrid_tpu_torch.parallel.vector, "
         "minigrid_tpu_torch.utils.bridge, minigrid_tpu_torch.utils.synthetic, "
         "minigrid_tpu_torch.rl, minigrid_tpu_torch.ops.actor_rollout, "
-        "minigrid_tpu_torch.ops.embed_dense; "
+        "minigrid_tpu_torch.ops.embed_dense, minigrid_tpu_torch.envs.wfc, "
+        "minigrid_tpu_torch.envs.wfc.graphtransforms, minigrid_tpu_torch.ops.wfc_solve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'minigrid_tpu')]; "
         "assert not bad, bad"
     )

@@ -37,6 +37,7 @@ from minigrid_tpu_torch.core.state import FIELDS
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.parallel.reset_budget import pool_size
 from minigrid_tpu_torch.parallel.vector import fused_eligible, make_cached_stepper, rollout_capacity
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.rollout import collect_trajectory
@@ -220,7 +221,9 @@ def test_cache_families_take_the_kernels_on_cuda_and_the_plain_loop_on_cpu(env_i
     # The measured rows of parallel/reset_budget.py (the port's FourRooms
     # correction, its own GoTo and Fetch rows), else its fallback (DoorKey-5x5).
     assert rollout_capacity(env, 256, "cuda") == COVERING_R_256[env_id]
-    assert rollout_capacity(env, 256, "cpu") == 0
+    # The plain path: the shared pool for an expensive_reset family.
+    want = pool_size(env, 256, N) if env.expensive_reset else 0
+    assert rollout_capacity(env, 256, "cpu", num_envs=N) == want
 
 
 def test_fused_rollout_draws_actions_then_the_cache_with_its_extra():

@@ -20,12 +20,18 @@ from minigrid_tpu_torch import wrappers as wr
 from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.sampling import randint
+from minigrid_tpu_torch.core.constants import OBJ_WALL, cell_type
 from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
+from minigrid_tpu_torch.envs.wfc import WFC_PRESETS
+from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
+from minigrid_tpu_torch.envs.wfc import wfcenv
+from minigrid_tpu_torch.envs.wfc.preprocess import WFC_PRESETS_ALL, build_tables
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
 from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
+from minigrid_tpu_torch.ops import wfc_solve as wk
 from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
@@ -332,12 +338,14 @@ def test_actor_kernel_runs_the_counter_reset_families(device, env_id):
         assert int((traj["action"] >= 3).sum()) > 0 and float(traj["reward"].min()) == -1.0
 
 
+WFC_IDS = [f"MiniGrid-WFC-{preset}-v0" for preset in sorted(WFC_PRESETS)]
 CACHE_IDS = [
     "MiniGrid-DoorKey-8x8-v0",
     "MiniGrid-FourRooms-v0",
     "MiniGrid-GoToObject-8x8-N2-v0",
     "MiniGrid-GoToDoor-8x8-v0",
     "MiniGrid-Fetch-8x8-N3-v0",
+    *WFC_IDS,
 ]
 
 
@@ -376,7 +384,9 @@ def test_cache_kernel_matches_plain_version(device, env_id, compute_obs):
     assert int(got[2]) >= n and int(got[4]) >= 1
 
 
-@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-Fetch-8x8-N3-v0"])
+@pytest.mark.parametrize(
+    "env_id", ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-GoToDoor-8x8-v0", "MiniGrid-Fetch-8x8-N3-v0", *WFC_IDS]
+)
 def test_actor_kernel_runs_the_cache_families(device, env_id):
     env = mgt.make(env_id, max_steps=24)
     n, t = 4096, 64
@@ -996,3 +1006,90 @@ def test_verifier_fixtures_replay_through_k1(device, path):
     before = fr.KERNEL_LAUNCHES
     steps = golden.replay_verifier(path, device)
     assert steps > 0 and fr.KERNEL_LAUNCHES - before == steps
+
+
+WFC_HEURISTICS = [
+    ("entropy", "weighted", False),
+    ("anti-entropy", "random", False),
+    ("random", "rarest", False),
+    ("simple", "most-common", False),
+    ("lexical", "lexical", False),
+    ("spiral", "weighted", False),
+    ("hilbert", "random", False),
+    ("entropy", "weighted", True),
+]
+
+
+def _wfc_both(device, preset, n, shape, loc="entropy", choice="weighted", backtracking=False):
+    t = build_tables(WFC_PRESETS_ALL[preset])
+    periodic = WFC_PRESETS_ALL[preset].output_periodic
+    gen = torch.Generator(device=device).manual_seed(7)
+    snapshot = gen.get_state()
+    before = wk.KERNEL_LAUNCHES
+    args = (t["adj"], t["weights"], n, shape, periodic, 8, loc, choice, backtracking)
+    got = wfc_solver.wfc_solve(gen, *args, with_stats=True)
+    torch.cuda.synchronize()
+    assert wk.KERNEL_LAUNCHES == before + 1
+    gen.set_state(snapshot)
+    want = wfc_solver.wfc_solve(gen, *args, with_stats=True, plain=True)
+    assert wk.KERNEL_LAUNCHES == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("loc,choice,backtracking", WFC_HEURISTICS)
+def test_wfc_kernel_matches_plain_version_on_every_heuristic(device, loc, choice, backtracking):
+    got, want = _wfc_both(device, "MazeSimple", 96, (13, 11), loc, choice, backtracking)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k, v in want[2].items():
+        assert torch.equal(got[2][k], v), k
+
+
+@pytest.mark.parametrize("preset", sorted(WFC_PRESETS_ALL))
+def test_wfc_kernel_matches_plain_version_on_every_preset(device, preset):
+    # Up to 229 patterns (Maze): four 64-bit words a cell.
+    got, want = _wfc_both(device, preset, 8, (12, 12))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k, v in want[2].items():
+        assert torch.equal(got[2][k], v), k
+
+
+def test_wfc_kernel_rejects_what_it_does_not_take(device):
+    adj = np.ones((4, 300, 300), bool)
+    seeds = torch.zeros((4, 2), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="patterns"):
+        wk.wfc_solve_kernel(seeds, adj, torch.ones(300), None, (5, 5), False, 1, "entropy", "weighted", False)
+    t = build_tables(WFC_PRESETS_ALL["Maze"])
+    with pytest.raises(ValueError, match="shared memory"):
+        wk.wfc_solve_kernel(seeds, t["adj"], torch.ones(229), None, (200, 200), False, 1, "entropy", "weighted", True)
+    with pytest.raises(ValueError, match="plain=True"):
+        wfc_solver.wfc_solve(None, t["adj"], t["weights"], 1, (5, 5), False, on_backtrack=lambda: None, device=device)
+
+
+def test_execute_wfc_takes_its_hooks_to_the_plain_version_only_when_asked(device):
+    # On the card the hooks reach the kernel's wrapper, which refuses them,
+    # unless the caller asks for the plain version; the two solves agree.
+    config = WFC_PRESETS_ALL["MazeSimple"]
+    before = wk.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="plain=True"):
+        wfcenv.execute_wfc(torch.Generator(device=device).manual_seed(0), config, (9, 9), on_choice=lambda *c: None)
+    choices = []
+    grid, stats = wfcenv.execute_wfc(
+        torch.Generator(device=device).manual_seed(0), config, (9, 9), on_choice=lambda *c: choices.append(c), plain=True
+    )
+    assert wk.KERNEL_LAUNCHES == before and len(choices) == stats["collapses"]
+    kgrid, kstats = wfcenv.execute_wfc(torch.Generator(device=device).manual_seed(0), config, (9, 9))
+    assert wk.KERNEL_LAUNCHES == before + 1
+    assert (grid is None) == (kgrid is None) and (grid is None or np.array_equal(grid, kgrid))
+    assert all(stats[k] == kstats[k] for k in stats if k != "solve duration")
+
+
+@pytest.mark.parametrize("preset", sorted(WFC_PRESETS))
+def test_wfc_levels_on_the_card_match_the_reference_corpus(device, preset):
+    ref = np.load(Path(__file__).parent / "golden" / "wfc_ref_corpus.npz")[f"{preset}_walls"]
+    env = mgt.make(f"MiniGrid-WFC-{preset}-v0")
+    before = wk.KERNEL_LAUNCHES
+    _, states = env.reset(ref.shape[0], torch.Generator(device=device).manual_seed(11))
+    assert wk.KERNEL_LAUNCHES == before + 1
+    ours = (cell_type(states.grid) == OBJ_WALL).cpu().numpy()[:, 1:-1, 1:-1]
+    tvd, density, ref_density, limit = golden.wfc_corpus_check(ours, ref)
+    assert tvd < 0.10 and abs(density - ref_density) < limit, (tvd, density, ref_density, limit)

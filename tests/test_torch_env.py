@@ -4,6 +4,8 @@ the reset-budget tables."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,10 +35,8 @@ EMPTY_IDS = [
 ]
 
 
-# Every family of the JAX package but WFC.
+# Every family of the JAX package.
 PORTED_FAMILIES = ("MiniGrid-", "BabyAI-")
-# WFC's presets.
-UNPORTED_PREFIXES = ("MiniGrid-WFC-",)
 SHARED_ATTRS = (
     "width", "height", "max_steps", "see_through_walls", "agent_view_size", "deterministic_generation",
     "fused_no_objects", "fused_static_mission", "agent_start_pos", "agent_start_dir", "n_obstacles",
@@ -46,7 +46,7 @@ SHARED_ATTRS = (
     "goal_pos", "size", "l_wall", "r_wall", "room_size_wh", "min_rooms", "max_rooms", "max_room_size",
     "debug", "select_by", "first_color", "second_color", "strict", "num_doors", "objs_per_room",
     "start_carrying", "distractors", "locked_room_prob", "locations", "implicit_unlock", "action_kinds",
-    "instr_kinds",
+    "instr_kinds", "ensure_connected", "max_attempts",
 )
 # The BabyAI classes that take the JAX package's pool factor; the others set
 # theirs from their validity measured in the port (ROADMAP.md queue 3).
@@ -54,16 +54,19 @@ JAX_POOL_FACTOR_MODULE = "minigrid_tpu_torch.envs.babyai.goto"
 
 
 def test_registered_ids_are_the_fixed_start_empty_subset():
-    # Every id but WFC's, with the JAX package's kwargs and kernel flags.
-    ported = {
-        i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES) and not i.startswith(UNPORTED_PREFIXES)
-    }
-    assert set(mgt.registered_ids()) == ported and len(ported) == 171
+    # Every id of the JAX package, with its kwargs and kernel flags.
+    ported = {i for i in mg.registered_ids() if i.startswith(PORTED_FAMILIES)}
+    assert set(mgt.registered_ids()) == ported and len(ported) == 177
     assert set(EMPTY_IDS) < ported
     for env_id in sorted(ported):
         jenv, tenv = mg.make(env_id), mgt.make(env_id)
         for attr in SHARED_ATTRS:
             assert getattr(tenv, attr, None) == getattr(jenv, attr, None), (env_id, attr)
+        # WFC's configuration: the same fields, each class its package's own.
+        jconfig, tconfig = getattr(jenv, "config", None), getattr(tenv, "config", None)
+        assert (jconfig is None) == (tconfig is None), env_id
+        if jconfig is not None:
+            assert dataclasses.asdict(tconfig) == dataclasses.asdict(jconfig), env_id
         assert (tenv.fused_ext is None) == (getattr(jenv, "fused_ext", None) is None), env_id
         if type(tenv).__module__ == JAX_POOL_FACTOR_MODULE or not hasattr(jenv, "pool_factor"):
             assert getattr(tenv, "pool_factor", None) == getattr(jenv, "pool_factor", None), env_id
@@ -71,10 +74,12 @@ def test_registered_ids_are_the_fixed_start_empty_subset():
             assert 1.0 <= tenv.pool_factor <= 4.0, env_id
 
 
-@pytest.mark.parametrize("env_id", ["MiniGrid-WFC-DungeonMazeScaled-v0", "MiniGrid-WFC-MazeSimple-v0"])
+@pytest.mark.parametrize("env_id", ["MiniGrid-WFC-NoSuchPreset-v0", "MiniGrid-Empty-7x7-v0"])
 def test_unported_ids_raise(env_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgt.make(env_id)
+    # An unknown id raises KeyError in both packages.
+    for make in (mg.make, mgt.make):
+        with pytest.raises(KeyError, match="unknown env id"):
+            make(env_id)
 
 
 def test_entry_points_default_to_cuda():

@@ -25,6 +25,7 @@ from minigrid_tpu.ops.fused_rollout import fused_rollout_core as j_fused_rollout
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.parallel.reset_budget import pool_size
 from minigrid_tpu_torch.parallel.vector import VectorEnv, fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.utils.synthetic import random_states
 from torch_port_util import assert_states_equal, to_port
@@ -202,13 +203,17 @@ def test_counter_families_take_the_kernel_on_cuda_and_the_plain_loop_on_cpu(env_
     assert fr.supports_fused(env) and fr.compiled_ext(env) and fr.counter_reset(env)
     assert fused_eligible(env, "cuda") and not fused_eligible(env, "cpu")
     assert supports_fused_actor(env, "cuda", 1024, 64)  # K2 runs the ext hooks too
-    assert rollout_capacity(env, 256, "cpu") == 0
+    # The plain path: the shared pool for an expensive_reset family, per-step
+    # regeneration (nothing to run out) for Empty-Random.
+    capacity = rollout_capacity(env, 64, "cpu", num_envs=64)
+    assert capacity == (pool_size(env, 64, 64) if env.expensive_reset else 0)
     gen = torch.Generator().manual_seed(1)
     _, states = VectorEnv(env, 64, "cpu").reset(gen)
     before = fr.KERNEL_LAUNCHES
     final, total_r, total_done, max_used = rollout_random(env, states, gen, 64)
     assert fr.KERNEL_LAUNCHES == before
-    assert int(total_done) > 0 and int(max_used) == 0 and torch.isfinite(total_r)
+    assert int(total_done) > 0 and torch.isfinite(total_r)
+    assert int(max_used) == (int(total_done) if env.expensive_reset else 0) and int(max_used) <= capacity
     assert (final.extra is None) == (env.fused_ext.n_scalars == 0)
     assert int(final.step_count.max()) < env.max_steps
 

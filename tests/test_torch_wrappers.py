@@ -134,7 +134,8 @@ def test_reseed_cycles_its_seeds_as_jax_does():
 def test_wrapped_envs_take_the_plain_path():
     # supports_fused refuses a wrapper (its observation is not the
     # default one) without tripping over the delegation, and
-    # rollout_random then runs the per-step path through the wrapper.
+    # rollout_random then runs the plain path through the wrapper (the
+    # shared pool of resets: LavaCrossing is an expensive_reset family).
     env = mgt.make("MiniGrid-LavaCrossingS9N1-v0")
     for wrapped in (twr.ImgObsWrapper(env), twr.NoDeath(env, ("lava",)), twr.ViewSizeWrapper(env, 5)):
         assert not supports_fused(wrapped)
@@ -143,7 +144,7 @@ def test_wrapped_envs_take_the_plain_path():
     gen = torch.Generator().manual_seed(5)
     _, states = nodeath.reset(64, gen, "cpu")
     final, total_r, done, max_used = rollout_random(nodeath, states, gen, 32)
-    assert final.grid.shape == (64, 9, 9) and int(max_used) == 0 and np.isfinite(float(total_r))
+    assert final.grid.shape == (64, 9, 9) and int(max_used) == int(done) and np.isfinite(float(total_r))
 
 
 def test_observation_wrappers_reset_and_step_batches():
