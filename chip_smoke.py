@@ -191,7 +191,22 @@ Phases, one output line each; any failure raises and exits non-zero:
    each of the six presets at size 25 held to the original's corpus
    (``tests/golden/wfc_ref_corpus.npz``) with the thresholds of
    ``tests/test_wfc.py``: 2x2 wall-block TVD < 0.10, wall density within
-   max(4 se, 0.04), walls and floor only.
+   max(4 se, 0.04), walls and floor only;
+28. the gymnasium shim (``compat/gym.py``) in parity mode on every one of
+   the 177 ids: ``gym_make(id, parity=True)`` on the card, ``reset(seed=
+   the id's index)``, 64 numpy-seeded steps, an unseeded reset and 16 more
+   steps, held to the same episode on the CPU (computed by spawned worker
+   processes meanwhile): images, directions, missions and flags exact,
+   rewards to rtol 1e-6; the observation kernel launched once per reset
+   and step; the shim's steps/s on the card by env module; the observation
+   kernel at N = 1 on shim states against its plain version, with its
+   wrapper's host time;
+29. the shim's normal mode on the first id of each env module and every
+   WFC id: ``reset(seed=3)`` twice the same level (a WFC reset launches the
+   solver kernel once), the rgb_array frame equal to the CPU's of the same
+   state, a mid-episode pickle that continues the episode and its next
+   reset on the card, one observation-kernel launch a reset, step or
+   frame; the solver at that one wave against its plain version, timed.
 
 Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
@@ -226,7 +241,9 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+import pickle
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -235,6 +252,8 @@ import torch
 
 import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch import wrappers as wr
+from minigrid_tpu_torch.compat import gym_make
+from minigrid_tpu_torch.compat.parity import parity_reset
 from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.constants import OBJ_EMPTY, OBJ_GOAL, OBJ_WALL, cell_type, see_behind, unpack_grid
 from minigrid_tpu_torch.core.env import MiniGridEnv
@@ -393,6 +412,16 @@ WFC_REPLACES = "minigrid_tpu/envs/wfc/solver.py:223"
 SOLVER_LAUNCHES: dict[str, int] = {}
 ACTOR_SOURCE = "minigrid_tpu_torch/ops/csrc/actor_rollout.cu"
 ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:164"
+# The gymnasium shim (phases 28-29): every id in parity mode on the card and
+# on the CPU, each episode reset(seed=its index), 64 numpy-seeded steps, one
+# unseeded reset and 16 more steps (the CPU's episodes in worker processes,
+# side by side with the card's); then normal mode on the first id of each
+# env module and on every WFC id.
+SHIM_STEPS, SHIM_MORE_STEPS = 64, 16
+SHIM_WORKERS = 4
+SHIM_REWARD_RTOL = 1e-6
+SHIM_NORMAL_STEPS = 6
+SHIM_TIMED_IDS = ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-WFC-MazeSimple-v0")
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
 # CUDA cores' 32-bit rate (taken for integer ALU work too) and bf16 on the
 # tensor cores.
@@ -1892,6 +1921,234 @@ def wfc_others_check(device) -> None:
         )
 
 
+def env_module(env) -> str:
+    """The module of an env's class, its family (``doorkey``,
+    ``babyai.goto``, ``wfc.wfcenv``)."""
+    return type(env).__module__.removeprefix("minigrid_tpu_torch.envs.")
+
+
+def shim_episode(env_id: str, index: int, device) -> dict:
+    """Phase 28's episode of ``env_id`` through the shim in parity mode on
+    ``device``: ``reset(seed=index)``, ``SHIM_STEPS`` steps of actions drawn
+    by numpy from ``index``, an unseeded reset and ``SHIM_MORE_STEPS`` more.
+    Returns every call's image, direction, mission, reward and flags (a
+    reset's reward 0 and flags false), the calls, the family and the host
+    seconds of the steps and of the resets."""
+    env = gym_make(env_id, parity=True, device=device)
+    actions = np.random.default_rng(index).integers(0, env.env.num_actions, SHIM_STEPS + SHIM_MORE_STEPS)
+    out = {"images": [], "directions": [], "missions": [], "rewards": [], "flags": [], "step_s": 0.0, "reset_s": 0.0}
+
+    def keep(obs, reward=0.0, terminated=False, truncated=False):
+        out["images"].append(obs["image"])
+        out["directions"].append(obs["direction"])
+        out["missions"].append(obs["mission"])
+        out["rewards"].append(reward)
+        out["flags"].append((terminated, truncated))
+
+    for k, action in enumerate([None, *actions[:SHIM_STEPS], None, *actions[SHIM_STEPS:]]):
+        t0 = time.perf_counter()
+        if action is None:
+            obs, _ = env.reset(seed=index if k == 0 else None)
+            out["reset_s"] += time.perf_counter() - t0
+            keep(obs)
+        else:
+            obs, reward, terminated, truncated, _ = env.step(int(action))
+            out["step_s"] += time.perf_counter() - t0
+            keep(obs, reward, terminated, truncated)
+    out["images"] = np.stack(out["images"])
+    out["calls"] = len(out["rewards"])
+    out["family"] = env_module(env.env)
+    return out
+
+
+def cpu_shim_episodes(cases: list[tuple[str, int]]) -> dict[str, dict]:
+    """``shim_episode`` of each (id, index) on the CPU, in a worker process
+    of phase 28 (one torch thread: the card's process shares the cores)."""
+    torch.set_num_threads(1)
+    return {env_id: shim_episode(env_id, index, "cpu") for env_id, index in cases}
+
+
+def shim_parity_check(device, card: str) -> dict:
+    """Phase 28: every id's parity episode through the shim on the card,
+    held to the same episode on the CPU (images, directions, missions and
+    flags exact, rewards to rtol 1e-6), the observation kernel launched once
+    per reset and step; the shim's steps/s on the card by family, timed on
+    the last id of each family (warm: its family ran before it) once the
+    CPU workers have exited, beside the same episode's rate in the pass
+    they shared the host with (the shim is host-bound); and the kernel at
+    N = 1 on shim states against its plain version, with its wrapper's host
+    time."""
+    ids = mgt.registered_ids()
+    cases = list(enumerate(ids))
+    chunks = [[(env_id, k) for k, env_id in cases[w::SHIM_WORKERS]] for w in range(SHIM_WORKERS)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=SHIM_WORKERS, mp_context=ctx) as pool:
+        futures = [pool.submit(cpu_shim_episodes, chunk) for chunk in chunks]
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        card_runs = {env_id: shim_episode(env_id, k, device) for k, env_id in cases}
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = op.KERNEL_LAUNCHES
+        cpu_runs: dict[str, dict] = {}
+        for future in futures:
+            cpu_runs.update(future.result())
+    calls = sum(r["calls"] for r in card_runs.values())
+    check(launches == calls, f"the shim's {calls} resets and steps launched the observation kernel {launches} times")
+    check(sorted(cpu_runs) == ids, "the CPU workers ran other ids")
+    print(f"phase 28 ids: {', '.join(ids)}", flush=True)
+    err, ended = 0, 0
+    for env_id in ids:
+        got, want = card_runs[env_id], cpu_runs[env_id]
+        check(np.array_equal(got["images"], want["images"]), f"{env_id}: an image differs from the CPU's")
+        err = max(err, int(np.abs(got["images"].astype(np.int32) - want["images"]).max()))
+        for key in ("directions", "missions", "flags"):
+            check(got[key] == want[key], f"{env_id}: {key} differ from the CPU's")
+        for a, b in zip(got["rewards"], want["rewards"]):
+            check(np.isfinite(a) and abs(a - b) <= SHIM_REWARD_RTOL * abs(b), f"{env_id}: reward {a} != {b}")
+        ended += sum(t or u for t, u in got["flags"])
+    phase(
+        28,
+        f"{len(ids)} ids in parity mode through gym_make on {device} (reset(seed=index), {SHIM_STEPS} steps, an "
+        f"unseeded reset, {SHIM_MORE_STEPS} steps) == the same episodes on the CPU: images, directions, missions "
+        f"and flags exact, rewards to rtol {SHIM_REWARD_RTOL}, {ended} step calls with an episode over; "
+        f"{launches} observation-kernel launches for {calls} resets and steps; the card's side {card_s:.1f} s "
+        f"beside {SHIM_WORKERS} busy CPU workers",
+    )
+    last = {card_runs[env_id]["family"]: env_id for env_id in ids}
+    quiet = {}
+    for f, env_id in sorted(last.items()):
+        quiet[f] = shim_episode(env_id, ids.index(env_id), device)
+        check(np.array_equal(quiet[f]["images"], card_runs[env_id]["images"]), f"{env_id}: the timed rerun differs")
+    busy = {f: card_runs[last[f]] for f in quiet}
+    steps = SHIM_STEPS + SHIM_MORE_STEPS
+
+    def rates(runs: list[dict]) -> str:
+        step_s, reset_s = sum(r["step_s"] for r in runs), sum(r["reset_s"] for r in runs)
+        return f"{steps * len(runs) / step_s:.6g}; {reset_s / (2 * len(runs)) * 1e3:.4g}"
+
+    print(
+        f"shim steps/s on the card ({card}), host-bound, parity mode, the last id of each family with no other "
+        f"work on the host, and in brackets the same episode beside the {SHIM_WORKERS} CPU workers (family, id: "
+        f"steps/s; ms a reset): "
+        + "; ".join(f"{f}, {last[f]}: {rates([r])} ({rates([busy[f]])})" for f, r in quiet.items())
+        + f"; all {len(quiet)}: {rates(list(quiet.values()))} ({rates(list(busy.values()))})",
+        flush=True,
+    )
+    timed = []
+    for env_id in SHIM_TIMED_IDS:
+        env, state = parity_reset(env_id, 0, device)
+        args = (*obs_args(state), env.agent_view_size, env.see_through_walls)
+        k = partial(op.fused_obs_packed, *args)
+        p = partial(op.fused_obs_packed_reference, *args)
+        check(torch.equal(k(), p()), f"{env_id}: the observation kernel differs from the plain version at N = 1")
+        tp1, tk1, tk2, tp2 = time_ms(p, 20), device_ms(k, 50), device_ms(k, 50), time_ms(p, 20)
+        timed.append((env_id, env, state, min(tk1, tk2), min(tp1, tp2), host_us(k, 200)))
+    print(
+        f"obs_packed at N = 1 on shim states ({card}): "
+        + "; ".join(
+            f"{env_id} {state.grid.shape[1]}x{state.grid.shape[2]}: kernel {k_ms:.5f} ms, plain {p_ms:.4f} ms a "
+            f"call, the wrapper's host time {us:.1f} us a call"
+            for env_id, _, state, k_ms, p_ms, us in timed
+        ),
+        flush=True,
+    )
+    _, env, state, k_ms, p_ms, _ = timed[0]
+    return kernel_entry(
+        "obs_packed (gym shim, N=1)", "minigrid_tpu_torch/ops/csrc/obs_packed.cu", "minigrid_tpu/ops/obs_pallas.py:96",
+        launches, err, k_ms, p_ms, bound(obs_bytes(state, env.agent_view_size, env.see_through_walls), 0.0),
+    )
+
+
+def shim_normal_ids() -> list[str]:
+    """The first id of each env module, and every WFC id."""
+    first: dict[str, str] = {}
+    for env_id in mgt.registered_ids():
+        first.setdefault(env_module(mgt.make(env_id)), env_id)
+    wfc = [f"MiniGrid-WFC-{p}-v0" for p in WFC_PRESETS]
+    return sorted(set(first.values()) | set(wfc))
+
+
+def shim_normal_check(device, card: str) -> dict:
+    """Phase 29: normal mode on the card.  ``reset(seed=3)`` twice gives the
+    same level (a WFC reset launches the solver kernel once, for one wave);
+    the rgb_array frame equals the CPU's frame of the same state; a pickle
+    taken mid-episode continues the same episode and the reset after it,
+    its state back on the card.  Every reset, step and frame on the card
+    launches the observation kernel once.  Then the solver at that one
+    wave against its plain version, both timed."""
+    ids = shim_normal_ids()
+    rng = np.random.default_rng(29)
+    calls, solves = 0, 0
+    zero_launch_counts()
+    for env_id in ids:
+        env = gym_make(env_id, device=device, render_mode="rgb_array")
+        before = wk.KERNEL_LAUNCHES
+        first, _ = env.reset(seed=3)
+        level = env.hash()
+        solved = wk.KERNEL_LAUNCHES - before
+        if env_id.startswith("MiniGrid-WFC-"):
+            check(solved == 1, f"{env_id}: a normal-mode reset launched the WFC solver {solved} times")
+        solves += solved
+        actions = rng.integers(0, env.env.num_actions, 2 * SHIM_NORMAL_STEPS)
+        for a in actions[:SHIM_NORMAL_STEPS]:
+            env.step(int(a))
+        again, _ = env.reset(seed=3)
+        check(env.hash() == level and np.array_equal(first["image"], again["image"]), f"{env_id}: reset(seed=3) twice differs")
+        check(first["mission"] == again["mission"], f"{env_id}: reset(seed=3) twice gives two missions")
+        for a in actions[:SHIM_NORMAL_STEPS]:
+            env.step(int(a))
+        frame = env.render()
+        cpu_frame = env.env.get_frame(env.state.map(lambda t: t.cpu()))[0].numpy()
+        check(frame.shape == cpu_frame.shape and np.array_equal(frame, cpu_frame), f"{env_id}: the card's frame differs")
+        clone = pickle.loads(pickle.dumps(env))
+        check(clone.state.grid.is_cuda and clone.hash() == env.hash(), f"{env_id}: the pickled state")
+        for a in actions[SHIM_NORMAL_STEPS:]:
+            o1, r1, t1, u1, _ = env.step(int(a))
+            o2, r2, t2, u2, _ = clone.step(int(a))
+            check(np.array_equal(o1["image"], o2["image"]) and (r1, t1, u1) == (r2, t2, u2), f"{env_id}: the clone's step")
+        o1, o2 = env.reset()[0], clone.reset()[0]
+        check(np.array_equal(o1["image"], o2["image"]) and env.hash() == clone.hash(), f"{env_id}: the clone's next reset")
+        # Two seeded resets, 2 x SHIM_NORMAL_STEPS steps, a frame, the
+        # clone's and the original's steps and next resets.
+        calls += 2 + 2 * SHIM_NORMAL_STEPS + 1 + 2 * SHIM_NORMAL_STEPS + 2
+    torch.cuda.synchronize()
+    check(op.KERNEL_LAUNCHES == calls, f"normal mode launched the observation kernel {op.KERNEL_LAUNCHES} times, expected {calls}")
+    phase(
+        29,
+        f"normal mode on {device}, {len(ids)} ids (the first of each env module and the 6 WFC ids): reset(seed=3) "
+        f"twice the same level, rgb_array frames == the CPU's, a mid-episode pickle continues the episode and its "
+        f"next reset; {solves} WFC solver launches for the WFC resets, {op.KERNEL_LAUNCHES} observation-kernel "
+        f"launches (one a reset, step or frame)",
+    )
+    env = mgt.make(WFC_ID)
+    adj, weights, shape, *config = wfc_solve_args(env)
+    gen = torch.Generator(device=device).manual_seed(29)
+    snapshot = gen.get_state()
+
+    def solve(plain=False):
+        gen.set_state(snapshot)
+        return wfc_solver.wfc_solve(gen, adj, weights, 1, shape, *config, with_stats=True, plain=plain)
+
+    got, want = solve(), solve(plain=True)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "wfc_solve at one wave: kernel != plain")
+    for k, v in want[2].items():
+        check(torch.equal(got[2][k], v), f"wfc_solve at one wave: kernel {k} differ from plain")
+    k_ms = min(time_ms(solve, 20), time_ms(solve, 20))
+    p_ms = time_ms(partial(solve, True), 2)
+    collapses = int(want[2]["collapses"].sum(dtype=torch.int64))
+    print(
+        f"wfc_solve ({card}) MazeSimple 23x23, one wave (a normal-mode shim reset): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, {collapses} collapses",
+        flush=True,
+    )
+    cells = shape[0] * shape[1]
+    return kernel_entry(
+        "wfc_solve (gym shim normal mode, 1 wave)", WFC_SOURCE, WFC_REPLACES, solves, 0.0, k_ms, p_ms,
+        bound(8 + 4 * cells + 20, collapses * cells / CUDA_CORE_OPS_PER_S),
+    )
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
@@ -2051,11 +2308,15 @@ def main() -> None:
     wfc_solver_share(device, card)
     print(f"phase 27 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
     wfc_others_check(device)
+    print(f"phase 28 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    shim_entry = shim_parity_check(device, card)
+    shim_solver_entry = shim_normal_check(device, card)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
             actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
-            keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, solver_entry,
+            keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, shim_entry,
+            solver_entry, shim_solver_entry,
         ]
     }
     print(json.dumps(summary), flush=True)

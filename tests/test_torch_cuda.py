@@ -1093,3 +1093,100 @@ def test_wfc_levels_on_the_card_match_the_reference_corpus(device, preset):
     ours = (cell_type(states.grid) == OBJ_WALL).cpu().numpy()[:, 1:-1, 1:-1]
     tvd, density, ref_density, limit = golden.wfc_corpus_check(ours, ref)
     assert tvd < 0.10 and abs(density - ref_density) < limit, (tvd, density, ref_density, limit)
+
+
+# The gymnasium shim on the card (compat/gym.py): six ids of every kind,
+# the Dynamic-Obstacles host walk, a RoomGrid maze, BabyAI with a carried
+# object and the boss level, and a WFC preset solved on the host.
+SHIM_IDS = (
+    "MiniGrid-DoorKey-8x8-v0",
+    "MiniGrid-Dynamic-Obstacles-8x8-v0",
+    "MiniGrid-ObstructedMaze-2Dlh-v0",
+    "BabyAI-PutNextS5N2Carrying-v0",
+    "BabyAI-BossLevel-v0",
+    "MiniGrid-WFC-MazeSimple-v0",
+)
+
+
+def _shim_run(env, seed: int, actions) -> list:
+    """reset(seed), the actions with an unseeded reset where an episode
+    ends: every call's observation, reward and flags."""
+    out = [env.reset(seed=seed)[0]]
+    for a in actions:
+        obs, reward, terminated, truncated, _ = env.step(int(a))
+        out.append((obs, reward, terminated, truncated))
+        if terminated or truncated:
+            out.append(env.reset()[0])
+    return out
+
+
+def _same_call(a, b) -> bool:
+    if isinstance(a, dict):
+        a, b = (a, 0.0, False, False), (b, 0.0, False, False)
+    (oa, ra, ta, ua), (ob, rb, tb, ub) = a, b
+    return (
+        np.array_equal(oa["image"], ob["image"])
+        and oa["direction"] == ob["direction"]
+        and oa["mission"] == ob["mission"]
+        and (ta, ua) == (tb, ub)
+        and abs(ra - rb) <= 1e-6 * abs(rb)
+    )
+
+
+@pytest.mark.parametrize("env_id", SHIM_IDS)
+def test_shim_parity_episode_on_the_card_equals_the_cpu(device, env_id):
+    """The shim's parity episode on the card equals the same episode on the
+    CPU, and each reset and step on the card launches the observation
+    kernel exactly once."""
+    from minigrid_tpu_torch.compat import gym_make
+
+    actions = np.random.default_rng(4).integers(0, 7, 48)
+    card = gym_make(env_id, parity=True, device=device)
+    before = op.KERNEL_LAUNCHES
+    got = _shim_run(card, 21, actions)
+    torch.cuda.synchronize()
+    assert op.KERNEL_LAUNCHES - before == len(got)
+    assert card.state.grid.is_cuda
+    want = _shim_run(gym_make(env_id, parity=True, device="cpu"), 21, actions)
+    assert len(got) == len(want)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same_call(a, b), (env_id, k)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_shim_pickles_on_the_card(device, parity):
+    """A mid-episode pickle of the shim on the card continues the episode
+    and the reset after it, its state back on the card."""
+    import pickle
+
+    from minigrid_tpu_torch.compat import gym_make
+
+    env = gym_make("BabyAI-GoToLocal-v0", parity=parity, device=device)
+    env.reset(seed=5)
+    for a in (2, 0, 2):
+        env.step(a)
+    clone = pickle.loads(pickle.dumps(env))
+    assert clone.state.grid.is_cuda and clone.hash() == env.hash()
+    for a in (2, 1, 2, 2, 5, 2):
+        assert _same_call(env.step(a)[:4], clone.step(a)[:4])
+    assert _same_call(env.reset()[0], clone.reset()[0])
+
+
+def test_shim_normal_mode_on_the_card(device):
+    """Normal mode: reset(seed=3) twice gives the same level; a WFC reset
+    launches the solver kernel for its one wave; the frame equals the CPU's
+    frame of the same state."""
+    from minigrid_tpu_torch.compat import gym_make
+
+    for env_id in ("BabyAI-GoToLocal-v0", "MiniGrid-WFC-MazeSimple-v0"):
+        env = gym_make(env_id, device=device, render_mode="rgb_array")
+        before = wk.KERNEL_LAUNCHES
+        first = env.reset(seed=3)[0]
+        level = env.hash()
+        assert wk.KERNEL_LAUNCHES - before == (1 if "WFC" in env_id else 0)
+        for a in (1, 2, 2):
+            env.step(a)
+        again = env.reset(seed=3)[0]
+        assert env.hash() == level and np.array_equal(first["image"], again["image"])
+        cpu_frame = env.env.get_frame(env.state.map(lambda t: t.cpu()))[0].numpy()
+        assert np.array_equal(env.render(), cpu_frame)
