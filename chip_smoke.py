@@ -207,8 +207,35 @@ Phases, one output line each; any failure raises and exits non-zero:
    state, a mid-episode pickle that continues the episode and its next
    reset on the card, one observation-kernel launch a reset, step or
    frame; the solver at that one wave against its plain version, timed.
+30. the oracle bot (``utils/babyai_bot.py``) on the six ids of
+   ``tests/test_babyai_bot.py``'s ``FAST_IDS`` (seeds 0-3) and on
+   ``BabyAI-BossLevel-v0`` at 22x22 (seed 0): each level drawn by a CPU
+   generator and copied to the card, the bot and ``step_env`` run on the
+   card copy and on the CPU copy for up to 300 steps, their actions equal
+   step for step, their outcomes and final states (``state_hash`` and
+   every leaf) equal; the host ms a ``replan`` takes on the card;
+31. expert demos (``utils/demos.generate_demos``) of
+   ``BabyAI-GoToRedBallGrey-v0`` on the card, one observation-kernel launch
+   an observation; each demo replayed from its seed's reset on the card,
+   its images, directions and missions equal to the plain observation of
+   the replayed states, its last step the reward it recorded; the
+   observation kernel at N = 1 on a demo state, timed;
+32. checkpoint and resume (``utils/checkpoint``): PPO on Empty-8x8 at 8192
+   envs x 128 steps, hidden 256, one train step, ``save``, ``load``, and one
+   more step from both copies (the resumed one through a learner built
+   anew): metrics, parameters, optimizer state, envs and generator bit for
+   bit equal, or the phase names the library calls that
+   ``torch.use_deterministic_algorithms`` reports and prints the largest
+   difference; save and load ms and the file's size;
+33. the CLIs: ``python -m minigrid_tpu_torch.benchmark``'s ``main`` at its
+   defaults (LavaGapS7, 4096 x 128) with its five numbers, two launches of
+   the rollout kernel and one observation-kernel launch a reset or frame;
+   ``ManualControl`` on Empty-5x5 (seed 42) through a key sequence with the
+   display stubbed, its frames equal to a CPU controller's; the rollout
+   kernel at the CLI's shape against its plain version, and the
+   observation kernel at N = 1 on its states, timed.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
@@ -235,6 +262,7 @@ import argparse
 import contextlib
 import ctypes
 import copy
+import io
 import json
 import re
 import statistics
@@ -243,6 +271,8 @@ import sys
 import time
 import multiprocessing
 import pickle
+import tempfile
+import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
@@ -251,6 +281,7 @@ import numpy as np
 import torch
 
 import minigrid_tpu_torch as mgt
+from minigrid_tpu_torch import benchmark as cli_benchmark
 from minigrid_tpu_torch import wrappers as wr
 from minigrid_tpu_torch.compat import gym_make
 from minigrid_tpu_torch.compat.parity import parity_reset
@@ -269,14 +300,18 @@ from minigrid_tpu_torch.ops import wfc_solve as wk
 from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.envs.wfc import WFC_PRESETS
 from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
+from minigrid_tpu_torch.manual_control import ManualControl
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
 from minigrid_tpu_torch.tools import rollout_split
-from minigrid_tpu_torch.utils import golden
+from minigrid_tpu_torch.utils import checkpoint, golden
+from minigrid_tpu_torch.utils.babyai_bot import BabyAIBot, DisappearedBoxError
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
+from minigrid_tpu_torch.utils.debug import state_hash
+from minigrid_tpu_torch.utils.demos import generate_demos
 from minigrid_tpu_torch.utils.synthetic import random_states
 
 ROOT = Path(__file__).resolve().parent
@@ -422,6 +457,28 @@ SHIM_WORKERS = 4
 SHIM_REWARD_RTOL = 1e-6
 SHIM_NORMAL_STEPS = 6
 SHIM_TIMED_IDS = ("MiniGrid-DoorKey-8x8-v0", "MiniGrid-WFC-MazeSimple-v0")
+# The rest of the user surface (phases 30-33): the oracle bot on
+# tests/test_babyai_bot.py's FAST_IDS and on BossLevel, the demos of
+# tests/test_babyai_bot.py::test_demo_generation, a PPO checkpoint at the
+# learner's main shape, and the two CLIs at their defaults.
+BOT_IDS = (
+    "BabyAI-GoToObjS4-v0",
+    "BabyAI-OpenRedDoor-v0",
+    "BabyAI-PickupLoc-v0",
+    "BabyAI-PutNextLocalS5N3-v0",
+    "BabyAI-UnlockLocal-v0",
+    "BabyAI-KeyCorridorS3R1-v0",
+)
+BOT_SEEDS = 4
+BOT_MAX_STEPS = 300
+DEMO_ID = "BabyAI-GoToRedBallGrey-v0"
+DEMO_COUNT = 3
+CLI_ID = "MiniGrid-LavaGapS7-v0"
+CLI_ENVS, CLI_STEPS, CLI_RESETS, CLI_FRAMES = 4096, 128, 200, 200
+MANUAL_ID = "MiniGrid-Empty-5x5-v0"
+MANUAL_KEYS = ("left", "up", "up", "right", "up", "tab", "space", "f1", "backspace", "right", "up", "up", "escape")
+OBS_SOURCE = "minigrid_tpu_torch/ops/csrc/obs_packed.cu"
+OBS_REPLACES = "minigrid_tpu/ops/obs_pallas.py:96"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
 # CUDA cores' 32-bit rate (taken for integer ALU work too) and bf16 on the
 # tensor cores.
@@ -600,15 +657,15 @@ def synthetic_check(device) -> float:
     return err
 
 
-def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int):
+def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int, steps: int = NUM_STEPS):
     """The plain version on the actions and cache that ``fused_rollout``
-    drew from a generator in state ``snapshot``."""
+    drew from a generator in state ``snapshot`` for ``steps`` steps."""
     device = states.device
     gen = torch.Generator(device=device)
     gen.set_state(snapshot)
     n = states.step_count.shape[0]
     actions = torch.randint(
-        0, env.num_actions, (NUM_STEPS, n), generator=gen, device=device, dtype=torch.int32
+        0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32
     )
     cache = env.batch_reset_cache(n, resets, gen, device)
     return actions, cache, fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
@@ -2149,6 +2206,305 @@ def shim_normal_check(device, card: str) -> dict:
     )
 
 
+def bot_episode(env, state, device):
+    """The oracle bot and ``step_env`` on ``state`` (a batch of one on
+    ``device``) for up to ``BOT_MAX_STEPS`` steps.  Returns (actions, how
+    the episode ended, the final state, host seconds of each replan)."""
+    bot = BabyAIBot(env, state)
+    actions, replan_s = [], []
+    last, outcome = None, "step limit"
+    for _ in range(BOT_MAX_STEPS):
+        t0 = time.perf_counter()
+        try:
+            action = bot.replan(state, last)
+        except (DisappearedBoxError, RuntimeError, AssertionError) as e:
+            outcome = f"{type(e).__name__}: {e}"
+            break
+        finally:
+            replan_s.append(time.perf_counter() - t0)
+        actions.append(action)
+        state, reward = env.step_env(state, torch.tensor([action], dtype=torch.int32, device=device))
+        last = action
+        terminated, truncated = torch.stack([state.terminated[0], state.truncated[0]]).tolist()
+        if terminated or truncated:
+            outcome = f"reward {float(reward[0]):.4f}" if terminated else "truncated"
+            break
+    return actions, outcome, state, replan_s
+
+
+def bot_check(device) -> None:
+    """Phase 30: the bot on the card and on the CPU from the same levels
+    (drawn by a CPU generator, copied to the card), step for step."""
+    cases = [(env_id, seed) for env_id in BOT_IDS for seed in range(BOT_SEEDS)] + [(BOSS_ID, 0)]
+    replans, card_s, rows = [], 0.0, []
+    for env_id, seed in cases:
+        env = mgt.make(env_id)
+        _, cpu_state = env.reset(1, torch.Generator().manual_seed(seed), "cpu")
+        card_state = cpu_state.map(lambda t: t.to(device))
+        t0 = time.perf_counter()
+        got = bot_episode(env, card_state, device)
+        card_s += time.perf_counter() - t0
+        want = bot_episode(env, cpu_state, "cpu")
+        what = f"{env_id} seed {seed}"
+        check(got[0] == want[0], f"{what}: the card's bot took {got[0]}, the CPU's {want[0]}")
+        check(got[1] == want[1], f"{what}: the card's episode ended in {got[1]}, the CPU's in {want[1]}")
+        check(state_hash(got[2]) == state_hash(want[2]), f"{what}: the final states' hashes differ")
+        for (k, a), (_, b) in zip(tree_leaves(got[2]), tree_leaves(want[2])):
+            check(torch.equal(a.cpu(), b), f"{what}: the final state's {k} differs")
+        replans += got[3]
+        if seed == 0:
+            w, h = env.width, env.height
+            rows.append(f"{env_id} {w}x{h}: {len(got[0])} steps, {got[1]}, {statistics.mean(got[3]) * 1e3:.3f} ms")
+    phase(
+        30,
+        f"the oracle bot on {device} == on the CPU on {len(cases)} levels ({len(BOT_IDS)} ids x {BOT_SEEDS} seeds "
+        f"and {BOSS_ID} 22x22 seed 0), actions step for step, outcomes and final states; {len(replans)} replans "
+        f"on the card, {statistics.mean(replans) * 1e3:.3f} ms host time each (median "
+        f"{statistics.median(replans) * 1e3:.3f}), {card_s:.2f} s the card's episodes; seed 0 of each (steps, "
+        f"outcome, ms a replan): " + "; ".join(rows),
+    )
+
+
+def demo_check(device, card: str) -> dict:
+    """Phase 31: ``generate_demos`` on the card, one observation-kernel
+    launch an observation (the reset's and one a step); each demo replayed
+    from its seed's reset, its images equal to the plain observation of the
+    replayed states; the kernel at N = 1 on a demo state against its plain
+    version."""
+    env = mgt.make(DEMO_ID)
+    v, stw = env.agent_view_size, env.see_through_walls
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    demos = generate_demos(env, DEMO_COUNT, device=device)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = op.KERNEL_LAUNCHES
+    observed = sum(len(d.actions) + 1 for d in demos)
+    tried = demos[-1].seed + 1
+    if tried == DEMO_COUNT:
+        check(launches == observed, f"{DEMO_COUNT} demos made {observed} observations, {launches} K4 launches")
+    else:
+        check(launches > observed, f"{tried} seeds tried: {launches} K4 launches, {observed} in the demos alone")
+    err = 0
+    state = None
+    for d in demos:
+        with obs_lib.plain_observations():
+            _, state = env.reset(1, torch.Generator(device=device).manual_seed(d.seed))
+        for t, action in enumerate(d.actions):
+            image = unpack_grid(obs_lib.gen_obs_packed(state, v, stw, plain=True))[0].cpu().numpy()
+            err = max(err, int(np.abs(image.astype(np.int32) - d.images[t]).max()))
+            check(np.array_equal(image, d.images[t]), f"demo seed {d.seed} step {t}: the image differs")
+            check(int(state.agent_dir[0]) == d.directions[t], f"demo seed {d.seed} step {t}: direction")
+            check(np.array_equal(state.mission[0].cpu().numpy(), d.missions[t]), f"demo seed {d.seed}: mission")
+            state, reward = env.step_env(state, torch.tensor([int(action)], dtype=torch.int32, device=device))
+        check(bool(state.terminated[0]) and float(reward[0]) == d.reward, f"demo seed {d.seed}: its last step")
+    check(op.KERNEL_LAUNCHES == launches, "the replays launched the observation kernel")
+    phase(
+        31,
+        f"{DEMO_COUNT} demos of {DEMO_ID} on {device} (seeds {[d.seed for d in demos]}, "
+        f"{[len(d.actions) for d in demos]} steps, rewards {[round(d.reward, 4) for d in demos]}) in "
+        f"{demo_s:.3f} s, {demo_s / sum(len(d.actions) for d in demos) * 1e3:.3f} ms a step; {launches} "
+        f"observation-kernel launches for {observed} observations; replayed from their seeds' resets, images, "
+        f"directions and missions == the plain observation, each last step its reward",
+    )
+    args = (*obs_args(state), v, stw)
+    k = partial(op.fused_obs_packed, *args)
+    p = partial(op.fused_obs_packed_reference, *args)
+    check(torch.equal(k(), p()), "the observation kernel differs from the plain version on a demo state")
+    tp1, tk1, tk2, tp2 = time_ms(p, 20), device_ms(k, 50), device_ms(k, 50), time_ms(p, 20)
+    k_ms, p_ms = min(tk1, tk2), min(tp1, tp2)
+    print(
+        f"obs_packed at N = 1 on a demo state ({card}) {DEMO_ID}: kernel {k_ms:.5f} ms, plain {p_ms:.4f} ms, the "
+        f"wrapper's host time {host_us(k, 200):.1f} us a call",
+        flush=True,
+    )
+    return kernel_entry(
+        "obs_packed (demos, N=1)", OBS_SOURCE, OBS_REPLACES, launches, err, k_ms, p_ms,
+        bound(obs_bytes(state, v, stw), 0.0),
+    )
+
+
+def largest_difference(a, b) -> float:
+    """The largest absolute difference between two trees' tensor leaves."""
+    diffs = [
+        float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+        for (_, x), (_, y) in zip(tree_leaves(a), tree_leaves(b))
+    ]
+    return max(diffs, default=0.0)
+
+
+def checkpoint_check(device, card: str, actor_entry: dict, embed_entries: list[dict]) -> list[dict]:
+    """Phase 32: a PPO train state at the learner's main shape saved after
+    one step, loaded, and continued one step from both copies (the resumed
+    one by a learner built anew); bit for bit, or the library calls that
+    deterministic mode reports are named.  Returns the kernels' entries of
+    this path, with the times of phases 6 and 7 (the same shapes)."""
+    env = mgt.make(ENV_ID)
+    config = PPOConfig(rollout_steps=PPO_STEPS)
+    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+    state = init_fn(torch.Generator(device=device).manual_seed(32), PPO_ENVS)
+    zero_launch_counts()
+    state, _ = train_step(state)
+    with tempfile.TemporaryDirectory(prefix=".checkpoint-", dir=ROOT) as tmp:
+        path = str(Path(tmp) / "train_state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = Path(path + ".npz").stat().st_size
+        t0 = time.perf_counter()
+        resumed = checkpoint.load(path, state)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        _, resumed_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+        cont, m_cont = train_step(state)
+        res, m_res = resumed_step(resumed)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = tuple(3 * x for x in learner_launches(config.num_minibatches))
+        check(launches == want, f"three train steps launched {launches}, expected {want}")
+        trees = {
+            "metrics": (m_cont, m_res),
+            "parameters": (dict(cont.params.state_dict()), dict(res.params.state_dict())),
+            "optimizer": ((cont.opt_state.mu, cont.opt_state.nu), (res.opt_state.mu, res.opt_state.nu)),
+            "envs": (cont.env_states, res.env_states),
+            "generator": (cont.generator.get_state(), res.generator.get_state()),
+        }
+        diffs = {name: largest_difference(a, b) for name, (a, b) in trees.items()}
+        check(cont.opt_state.count == res.opt_state.count, "the optimizer's counts differ")
+        named = []
+        if any(diffs.values()):
+            # Name the calls that have no deterministic implementation on the
+            # card: the resumed step once more under deterministic mode.
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    resumed_step(checkpoint.load(path, state))
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            named = sorted({str(w.message).splitlines()[0] for w in caught if "determinis" in str(w.message)})
+            print(f"phase 32: resume NOT bit-exact, largest differences {diffs}; deterministic mode names: {named}")
+            check(bool(named), f"the resumed run differs ({diffs}) and no library call was named")
+    verdict = "bit for bit equal" if not named else f"NOT bit-exact (largest differences {diffs}; named {named})"
+    phase(
+        32,
+        f"PPO {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN} on {device}: one train step, "
+        f"save {save_ms:.1f} ms ({size} bytes), load {load_ms:.1f} ms, one more step from both copies: metrics, "
+        f"parameters, optimizer, envs and generator {verdict}; launches (actor, observation, embed fwd, embed "
+        f"bwd) {launches}",
+    )
+    names = ("actor_rollout (PPO checkpoint resume)", "embed_dense fwd (PPO checkpoint resume)",
+             "embed_dense bwd (PPO checkpoint resume)")
+    counts = (launches[0], launches[2], launches[3])
+    return [
+        dict(entry, name=name, launches=count)
+        for entry, name, count in zip((actor_entry, *embed_entries), names, counts)
+    ]
+
+
+class _Key:
+    """A key event as ``ManualControl.key_handler`` reads it."""
+
+    def __init__(self, key: str):
+        self.key = key
+
+
+def manual_frames(device) -> tuple[list[np.ndarray], str]:
+    """``ManualControl`` on ``MANUAL_ID`` (seed 42) through ``MANUAL_KEYS``,
+    its display stubbed: every frame it would draw, and what it printed."""
+    mc = ManualControl(mgt.make(MANUAL_ID), seed=42, device=device)
+    frames = []
+    mc.render = lambda: frames.append(mc.frame())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mc.reset()
+        for key in MANUAL_KEYS:
+            mc.key_handler(_Key(key))
+    check(mc.closed, "escape did not close the controller")
+    return frames, out.getvalue()
+
+
+def cli_check(device, card: str) -> list[dict]:
+    """Phase 33: the benchmark CLI at its defaults, its launches counted;
+    manual control on the card against the CPU; then the rollout kernel at
+    the CLI's shape against its plain version and the observation kernel at
+    N = 1 on its states, timed."""
+    fr.KERNEL_LAUNCHES = op.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = cli_benchmark.main([])
+    cli_s = time.perf_counter() - t0
+    k1, k4_cli = fr.KERNEL_LAUNCHES, op.KERNEL_LAUNCHES
+    check(k1 == 2, f"the benchmark launched the rollout kernel {k1} times, expected 2")
+    # One a reset (a warm one and the timed ones), one a frame of each kind
+    # (likewise), and the batch's reset.
+    want_k4 = (CLI_RESETS + 1) + 2 * (CLI_FRAMES + 1) + 1
+    check(k4_cli == want_k4, f"the benchmark launched the observation kernel {k4_cli} times, expected {want_k4}")
+    numbers = [r[k] for k in ("reset_ms", "world_render_fps", "agent_view_fps", "env_steps_per_sec")]
+    check(all(np.isfinite(x) and x > 0 for x in numbers), f"the benchmark's numbers {numbers}")
+
+    op.KERNEL_LAUNCHES = 0
+    card_frames, text = manual_frames(device)
+    k4_manual = op.KERNEL_LAUNCHES
+    cpu_frames, _ = manual_frames("cpu")
+    # One a frame, and one a reset's observation.
+    resets = text.count("mission:")
+    check(k4_manual == len(card_frames) + resets, f"{len(card_frames)} frames and {resets} resets, {k4_manual} K4 launches")
+    check(len(card_frames) == len(cpu_frames), "the card's and the CPU's controllers drew different frame counts")
+    err = 0
+    for i, (a, b) in enumerate(zip(card_frames, cpu_frames)):
+        err = max(err, int(np.abs(a.astype(np.int32) - b).max()))
+        check(np.array_equal(a, b), f"manual control frame {i} differs from the CPU's")
+    phase(
+        33,
+        f"benchmark CLI ({card}) {r['env_id']} at its defaults in {cli_s:.2f} s: reset {r['reset_ms']:.6g} ms, "
+        f"world render {r['world_render_fps']:.6g} FPS, agent view {r['agent_view_fps']:.6g} FPS, "
+        f"{r['env_steps_per_sec']:.6g} env-steps/s ({CLI_ENVS} envs x {CLI_STEPS}); {k1} rollout-kernel and "
+        f"{k4_cli} observation-kernel launches; manual control on {MANUAL_ID} (seed 42, {len(MANUAL_KEYS)} keys, "
+        f"{resets} resets): {len(card_frames)} frames == the CPU's, {k4_manual} observation-kernel launches (one a "
+        f"frame and one a reset)",
+    )
+
+    env = mgt.make(CLI_ID)
+    check(fused_eligible(env, device), f"{CLI_ID} must take the kernel on {device}")
+    resets = resets_for(env, CLI_STEPS)
+    gen = torch.Generator(device=device).manual_seed(33)
+    _, states = env.reset(CLI_ENVS, gen)
+    snapshot = gen.get_state()
+    final, total_r, total_done, max_used = rollout_random(env, states, gen, CLI_STEPS)
+    actions, cache, plain = replay_rollout(env, states, snapshot, False, resets, CLI_STEPS)
+    rollout_err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain, f"{CLI_ID} CLI rollout")
+    k = partial(fr.fused_rollout_core, env, states, cache, actions, False)
+    p = partial(fr.fused_rollout_reference, env, states, cache, actions, False)
+    tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
+    k1_ms, p1_ms = min(tk1, tk2), min(tp1, tp2)
+    episodes = int(k()[2])
+    one = states.map(lambda t: t[:1])
+    args = (*obs_args(one), env.agent_view_size, env.see_through_walls)
+    k4 = partial(op.fused_obs_packed, *args)
+    p4 = partial(op.fused_obs_packed_reference, *args)
+    check(torch.equal(k4(), p4()), "the observation kernel differs from the plain version at N = 1")
+    tp1, tk1, tk2, tp2 = time_ms(p4, 20), device_ms(k4, 50), device_ms(k4, 50), time_ms(p4, 20)
+    k4_ms, p4_ms = min(tk1, tk2), min(tp1, tp2)
+    print(
+        f"the CLI's kernels ({card}) {CLI_ID}: fused_rollout {CLI_ENVS}x{CLI_STEPS} obs off kernel {k1_ms:.4f} ms, "
+        f"plain {p1_ms:.4f} ms (== plain, {int(total_done)} episodes, R={resets}); obs_packed at N = 1 kernel "
+        f"{k4_ms:.5f} ms, plain {p4_ms:.4f} ms",
+        flush=True,
+    )
+    return [
+        kernel_entry(
+            f"fused_rollout (benchmark CLI)[{CLI_ID}]", SOURCE, REPLACES, k1, rollout_err, k1_ms, p1_ms,
+            bound(rollout_bytes(env, states, CLI_STEPS, levels_read(episodes, CLI_ENVS, resets)), 0.0),
+        ),
+        kernel_entry(
+            "obs_packed (benchmark CLI and manual control, N=1)", OBS_SOURCE, OBS_REPLACES, k4_cli + k4_manual,
+            err, k4_ms, p4_ms, bound(obs_bytes(one, env.agent_view_size, env.see_through_walls), 0.0),
+        ),
+    ]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
@@ -2311,12 +2667,17 @@ def main() -> None:
     print(f"phase 28 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
     shim_entry = shim_parity_check(device, card)
     shim_solver_entry = shim_normal_check(device, card)
+    print(f"phase 30 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    bot_check(device)
+    demo_entry = demo_check(device, card)
+    resume_entries = checkpoint_check(device, card, actor_entry, embed_entries)
+    cli_entries = cli_check(device, card)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
             actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
             keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, shim_entry,
-            solver_entry, shim_solver_entry,
+            solver_entry, shim_solver_entry, demo_entry, *resume_entries, *cli_entries,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -1,8 +1,8 @@
 """BabyAI levels; importing this package registers their 96 ids with the JAX
 package's kwargs (``minigrid_tpu/envs/babyai/__init__.py:61-171``;
-reference registration table: minigrid/__init__.py:576-1135).  With them the
-port holds every id of the JAX package's registry but WFC's six (ROADMAP.md
-queue 1)."""
+reference registration table: minigrid/__init__.py:576-1135).  With the
+classic families and WFC's six (``envs/wfc``) the port holds every id of the
+JAX package's registry, 177 in all."""
 
 from __future__ import annotations
 

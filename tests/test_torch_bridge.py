@@ -113,7 +113,11 @@ def test_port_imports_no_jax():
         "minigrid_tpu_torch.utils.bridge, minigrid_tpu_torch.utils.synthetic, "
         "minigrid_tpu_torch.rl, minigrid_tpu_torch.ops.actor_rollout, "
         "minigrid_tpu_torch.ops.embed_dense, minigrid_tpu_torch.envs.wfc, "
-        "minigrid_tpu_torch.envs.wfc.graphtransforms, minigrid_tpu_torch.ops.wfc_solve; "
+        "minigrid_tpu_torch.envs.wfc.graphtransforms, minigrid_tpu_torch.ops.wfc_solve, "
+        "minigrid_tpu_torch.utils.babyai_bot, minigrid_tpu_torch.utils.demos, "
+        "minigrid_tpu_torch.utils.checkpoint, minigrid_tpu_torch.manual_control, "
+        "minigrid_tpu_torch.benchmark; "
+        "from minigrid_tpu_torch.utils import BabyAIBot, DisappearedBoxError, pprint_grid, state_hash, save, load; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'minigrid_tpu')]; "
         "assert not bad, bad"
     )

@@ -1190,3 +1190,94 @@ def test_shim_normal_mode_on_the_card(device):
         assert env.hash() == level and np.array_equal(first["image"], again["image"])
         cpu_frame = env.env.get_frame(env.state.map(lambda t: t.cpu()))[0].numpy()
         assert np.array_equal(env.render(), cpu_frame)
+
+
+# -- the rest of the user surface: the bot, demos, checkpoints, the CLIs --
+
+
+def _bot_run(env, state, device):
+    """The oracle bot and ``step_env`` for up to 300 steps: (actions, the
+    final state)."""
+    from minigrid_tpu_torch.utils.babyai_bot import BabyAIBot
+
+    bot, actions, last = BabyAIBot(env, state), [], None
+    for _ in range(300):
+        last = bot.replan(state, last)
+        actions.append(last)
+        state, _ = env.step_env(state, torch.tensor([last], dtype=torch.int32, device=device))
+        if bool(state.terminated[0] | state.truncated[0]):
+            break
+    return actions, state
+
+
+@pytest.mark.parametrize("env_id", ["BabyAI-PickupLoc-v0", "BabyAI-BossLevel-v0"])
+def test_bot_on_the_card_equals_the_cpu(device, env_id):
+    env = mgt.make(env_id)
+    _, cpu_state = env.reset(1, torch.Generator().manual_seed(0), "cpu")
+    got = _bot_run(env, cpu_state.map(lambda t: t.to(device)), device)
+    want = _bot_run(env, cpu_state, "cpu")
+    assert got[0] == want[0]
+    for (k, a), (_, b) in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+        assert torch.equal(a.cpu(), b), k
+
+
+def test_demos_on_the_card_launch_the_observation_kernel_once_an_observation(device):
+    from minigrid_tpu_torch.utils.demos import generate_demo
+
+    env = mgt.make("BabyAI-GoToRedBallGrey-v0")
+    before = op.KERNEL_LAUNCHES
+    demo = generate_demo(env, 0)
+    torch.cuda.synchronize()
+    assert demo is not None and demo.reward > 0
+    assert op.KERNEL_LAUNCHES - before == len(demo.actions) + 1
+
+
+def test_checkpoint_resume_on_the_card_is_bit_exact(device, tmp_path):
+    from minigrid_tpu_torch.utils import checkpoint
+
+    env = mgt.make("MiniGrid-Empty-8x8-v0")
+    config = PPOConfig(rollout_steps=16, num_minibatches=2)
+    init_fn, train_step = make_ppo(env, config, hidden=64)
+    state, _ = train_step(init_fn(torch.Generator(device=device).manual_seed(1), 256))
+    checkpoint.save(str(tmp_path / "state"), state)
+    resumed = checkpoint.load(str(tmp_path / "state"), state)
+    assert resumed.params.Dense_0.kernel.is_cuda and resumed.generator.device.type == "cuda"
+    _, resumed_step = make_ppo(env, config, hidden=64)
+    cont, m_cont = train_step(state)
+    res, m_res = resumed_step(resumed)
+    assert all(torch.equal(m_cont[k], m_res[k]) for k in m_cont)
+    for name, p in cont.params.state_dict().items():
+        assert torch.equal(p, res.params.state_dict()[name]), name
+
+
+def test_benchmark_cli_on_the_card_takes_the_rollout_kernel(device):
+    from minigrid_tpu_torch.benchmark import benchmark
+
+    before = fr.KERNEL_LAUNCHES
+    r = benchmark("MiniGrid-LavaGapS7-v0", num_resets=2, num_frames=2, num_envs=256, num_steps=16)
+    assert fr.KERNEL_LAUNCHES - before == 2
+    assert all(r[k] > 0 for k in ("reset_ms", "world_render_fps", "agent_view_fps", "env_steps_per_sec"))
+
+
+def test_manual_control_frames_on_the_card_equal_the_cpu(device):
+    """Every frame the controller draws on the card equals the CPU's frame
+    of the same state (the levels themselves differ between the card's and
+    the CPU's generators), and each frame and each reset's observation
+    launches the observation kernel once."""
+    from minigrid_tpu_torch.manual_control import ManualControl
+
+    class Key:
+        def __init__(self, key):
+            self.key = key
+
+    env = mgt.make("MiniGrid-DoorKey-5x5-v0")
+    mc = ManualControl(env, seed=3, device=device)
+    shots = []
+    mc.render = lambda: shots.append((mc.frame(), mc.state.map(lambda t: t.cpu())))
+    before = op.KERNEL_LAUNCHES
+    mc.reset()
+    for key in ("left", "up", "right", "up", "tab", "space", "backspace"):
+        mc.key_handler(Key(key))
+    assert op.KERNEL_LAUNCHES - before == len(shots) + 2 == 10
+    for frame, state in shots:
+        assert np.array_equal(frame, env.get_frame(state)[0].numpy())

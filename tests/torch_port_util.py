@@ -16,7 +16,7 @@ import minigrid_tpu as mg
 from minigrid_tpu.core.env import MiniGridEnv as JEnv
 from minigrid_tpu.core.state import EnvState as JState
 from minigrid_tpu.rl import model as jmodel
-from minigrid_tpu_torch.core.state import FIELDS
+from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.rl import model as tmodel
 from minigrid_tpu_torch.utils.bridge import params_from_flax, state_from_numpy, state_to_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
@@ -53,6 +53,16 @@ def assert_states_equal(port_state, jax_state, what: str = "") -> None:
             got_leaf = got_leaves[name]
             assert got_leaf.dtype == want_leaf.dtype, f"{what}: extra {k}{name} dtype"
             np.testing.assert_array_equal(got_leaf, want_leaf, err_msg=f"{what}: extra {k}{name}")
+
+
+def assert_trees_equal(got, want) -> None:
+    """Two trees of the port's tensors (``core/state.tree_leaves``) equal
+    leaf for leaf: paths, dtypes, devices and values."""
+    a, b = tree_leaves(got), tree_leaves(want)
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.device == y.device, path
+        assert torch.equal(x, y), path
 
 
 def _fields(value) -> dict:
