@@ -233,9 +233,28 @@ Phases, one output line each; any failure raises and exits non-zero:
    ``ManualControl`` on Empty-5x5 (seed 42) through a key sequence with the
    display stubbed, its frames equal to a CPU controller's; the rollout
    kernel at the CLI's shape against its plain version, and the
-   observation kernel at N = 1 on its states, timed.
+   observation kernel at N = 1 on its states, timed;
+34. the mesh (``parallel/mesh.py``): PPO on Empty-8x8 at 8192 envs x 128
+   steps, hidden 256, over a one-rank NCCL mesh in this process, three
+   train steps (launches 1/1/9/8 a step) and the mesh-less learner's timed
+   alike, in turns whose order alternates, the next collection bit for bit ``collect_trajectory``'s without a
+   mesh and its update the mesh-less update's (bit for bit, else within
+   rtol 1e-5, the largest difference printed), one IMPALA step (1/1/16/8),
+   and the modelled NVLink efficiency at 2, 4 and 8 GPUs from that step;
+   then two gloo ranks spawned on this card (gloo asked for: NCCL refuses
+   two ranks on one device), 4096 envs a rank, three PPO steps and one
+   IMPALA step, each rank's launches as above, parameters and Adam state
+   bit for bit equal on both after every step (MAX and MIN of a checksum),
+   the collectives logged equal to ``scaling.expected_collectives`` (8
+   gradient all-reduces of 1280032 bytes a PPO step, nothing as large as a
+   trajectory leaf), each rank's step and split timed and the gradient
+   all-reduces inside each step; ``sharded_rollout_fused`` at 65536 x 256 over the two,
+   one rollout-kernel launch a rank, each shard equal to ``rollout_random``
+   of it from its rank generator, episodes and ``max_used`` the ranks' sum
+   and maximum, the reward their sum to rtol 1e-5; then each kernel at the
+   ranks' shapes against its plain version, timed alone; its elapsed time.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
@@ -279,6 +298,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import minigrid_tpu_torch as mgt
 from minigrid_tpu_torch import benchmark as cli_benchmark
@@ -301,6 +321,8 @@ from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.envs.wfc import WFC_PRESETS
 from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
 from minigrid_tpu_torch.manual_control import ManualControl
+from minigrid_tpu_torch.parallel import mesh as pmesh
+from minigrid_tpu_torch.parallel import mp_worker, scaling
 from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
@@ -477,6 +499,11 @@ CLI_ID = "MiniGrid-LavaGapS7-v0"
 CLI_ENVS, CLI_STEPS, CLI_RESETS, CLI_FRAMES = 4096, 128, 200, 200
 MANUAL_ID = "MiniGrid-Empty-5x5-v0"
 MANUAL_KEYS = ("left", "up", "up", "right", "up", "tab", "space", "f1", "backspace", "right", "up", "up", "escape")
+# Multi-GPU (phase 34): the learner at the PPO size on one NCCL rank in this
+# process, then on two gloo ranks sharing the card (NCCL refuses two ranks on
+# one device), and the random rollout at bench.py's size over those two.
+MESH_RANKS = 2
+MESH_TIMEOUT = 300
 OBS_SOURCE = "minigrid_tpu_torch/ops/csrc/obs_packed.cu"
 OBS_REPLACES = "minigrid_tpu/ops/obs_pallas.py:96"
 # The H100's peaks (NVIDIA's data sheet, SXM, dense): device memory, the
@@ -876,10 +903,26 @@ def embed_inputs(device, m: int, seed: int):
 
 def embed_dense_check(device, card: str) -> list[dict]:
     """Phase 6: the embed + dense-1 kernels against their plain versions."""
-    packed, direction, w1, b1, dy = embed_inputs(device, EMBED_SAMPLES, 11)
+    entries, fwd_err, bwd_err = embed_at(device, card, EMBED_SAMPLES)
+    phase(
+        6,
+        f"embed_dense1 at M={EMBED_SAMPLES}, H={PPO_HIDDEN}: forward max abs err {fwd_err}, "
+        f"backward max abs err {bwd_err}, forward and backward bit-identical across calls",
+    )
+    for v in WIDE_VIEWS:
+        print(embed_wide_view(device, card, v), flush=True)
+    return entries
+
+
+def embed_at(device, card: str, m: int, name_suffix: str = "") -> tuple[list[dict], float, float]:
+    """The embed + dense-1 kernels at ``m`` samples against their plain
+    versions (each twice bit-identical), timed with their library
+    yardsticks; returns the two kernel entries (launches 0) and the
+    forward's and backward's largest errors."""
+    packed, direction, w1, b1, dy = embed_inputs(device, m, 11)
     out_k = ed.embed_dense1(w1, b1, packed, direction)
     out_p = ed.embed_dense1_reference(w1, b1, packed, direction)
-    check(out_k.dtype == torch.bfloat16 and out_k.shape == (EMBED_SAMPLES, PPO_HIDDEN), "forward output")
+    check(out_k.dtype == torch.bfloat16 and out_k.shape == (m, PPO_HIDDEN), "forward output")
     fwd_err = float((out_k.float() - out_p.float()).abs().max())
     check(fwd_err <= BF16_ATOL, f"embed_dense1 forward differs from the plain version by {fwd_err}")
     check(torch.equal(out_k, ed.embed_dense1(w1, b1, packed, direction)), "the forward is not deterministic")
@@ -908,7 +951,7 @@ def embed_dense_check(device, card: str) -> list[dict]:
         tp1, tk1, tk2, tp2 = time_ms(p, 10), device_ms(k, 10), device_ms(k, 10), time_ms(p, 10)
         times[name] = (min(tk1, tk2), min(tp1, tp2))
         print(
-            f"embed_dense1 {name} ({card}) M={EMBED_SAMPLES} H={PPO_HIDDEN}: kernel {times[name][0]:.4f} ms, "
+            f"embed_dense1 {name} ({card}) M={m} H={PPO_HIDDEN}: kernel {times[name][0]:.4f} ms, "
             f"plain {times[name][1]:.4f} ms, the wrapper's host time {host_us(k, 20):.1f} us a call",
             flush=True,
         )
@@ -925,7 +968,7 @@ def embed_dense_check(device, card: str) -> list[dict]:
 
     lib_bwd = partial(torch.autograd.grad, lib_out, (w1l,), dy.float(), retain_graph=True)
     library = {"fwd": time_ms(lib_fwd, 10), "bwd": time_ms(lib_bwd, 10)}
-    m, v2 = packed.shape
+    v2 = packed.shape[1]
     # Each sample adds its 148 selected rows of H columns (forward) or adds
     # dy into them (backward), in f32 on the CUDA cores.
     ops = m * rows.shape[1] * PPO_HIDDEN
@@ -934,23 +977,16 @@ def embed_dense_check(device, card: str) -> list[dict]:
         "bwd": m * (v2 + 1) * 4 + m * PPO_HIDDEN * 2 + (w1.numel() + b1.numel()) * 4,
     }
     for name in times:
-        print(f"embed_dense1 {name} ({card}) library call {library[name]:.4f} ms", flush=True)
-    phase(
-        6,
-        f"embed_dense1 at M={EMBED_SAMPLES}, H={PPO_HIDDEN}: forward max abs err {fwd_err}, "
-        f"backward max abs err {bwd_err}, forward and backward bit-identical across calls",
-    )
+        print(f"embed_dense1 {name} ({card}) M={m} library call {library[name]:.4f} ms", flush=True)
 
     def entry(name, line, err):
         return kernel_entry(
-            f"embed_dense1_{name}", "minigrid_tpu_torch/ops/csrc/embed_dense.cu",
+            f"embed_dense1_{name}{name_suffix}", "minigrid_tpu_torch/ops/csrc/embed_dense.cu",
             f"minigrid_tpu/ops/embed_dense.py:{line}", 0, err, *times[name],
             bound(moved[name], ops / CUDA_CORE_OPS_PER_S), library[name],
         )
 
-    for v in WIDE_VIEWS:
-        print(embed_wide_view(device, card, v), flush=True)
-    return [entry("fwd", 103, fwd_err), entry("bwd", 115, bwd_err)]
+    return [entry("fwd", 103, fwd_err), entry("bwd", 115, bwd_err)], fwd_err, bwd_err
 
 
 def embed_wide_view(device, card: str, v: int) -> str:
@@ -2467,42 +2503,253 @@ def cli_check(device, card: str) -> list[dict]:
     )
 
     env = mgt.make(CLI_ID)
-    check(fused_eligible(env, device), f"{CLI_ID} must take the kernel on {device}")
-    resets = resets_for(env, CLI_STEPS)
-    gen = torch.Generator(device=device).manual_seed(33)
-    _, states = env.reset(CLI_ENVS, gen)
-    snapshot = gen.get_state()
-    final, total_r, total_done, max_used = rollout_random(env, states, gen, CLI_STEPS)
-    actions, cache, plain = replay_rollout(env, states, snapshot, False, resets, CLI_STEPS)
-    rollout_err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain, f"{CLI_ID} CLI rollout")
-    k = partial(fr.fused_rollout_core, env, states, cache, actions, False)
-    p = partial(fr.fused_rollout_reference, env, states, cache, actions, False)
-    tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
-    k1_ms, p1_ms = min(tk1, tk2), min(tp1, tp2)
-    episodes = int(k()[2])
+    (k1_ms, p1_ms, rollout_bound, rollout_err, episodes, resets), states = k1_at(env, CLI_ENVS, CLI_STEPS, 33, device)
     one = states.map(lambda t: t[:1])
-    args = (*obs_args(one), env.agent_view_size, env.see_through_walls)
-    k4 = partial(op.fused_obs_packed, *args)
-    p4 = partial(op.fused_obs_packed_reference, *args)
-    check(torch.equal(k4(), p4()), "the observation kernel differs from the plain version at N = 1")
-    tp1, tk1, tk2, tp2 = time_ms(p4, 20), device_ms(k4, 50), device_ms(k4, 50), time_ms(p4, 20)
-    k4_ms, p4_ms = min(tk1, tk2), min(tp1, tp2)
+    k4_ms, p4_ms, obs_bound = k4_at(env, one)
     print(
         f"the CLI's kernels ({card}) {CLI_ID}: fused_rollout {CLI_ENVS}x{CLI_STEPS} obs off kernel {k1_ms:.4f} ms, "
-        f"plain {p1_ms:.4f} ms (== plain, {int(total_done)} episodes, R={resets}); obs_packed at N = 1 kernel "
+        f"plain {p1_ms:.4f} ms (== plain, {episodes} episodes, R={resets}); obs_packed at N = 1 kernel "
         f"{k4_ms:.5f} ms, plain {p4_ms:.4f} ms",
         flush=True,
     )
     return [
         kernel_entry(
-            f"fused_rollout (benchmark CLI)[{CLI_ID}]", SOURCE, REPLACES, k1, rollout_err, k1_ms, p1_ms,
-            bound(rollout_bytes(env, states, CLI_STEPS, levels_read(episodes, CLI_ENVS, resets)), 0.0),
+            f"fused_rollout (benchmark CLI)[{CLI_ID}]", SOURCE, REPLACES, k1, rollout_err, k1_ms, p1_ms, rollout_bound,
         ),
         kernel_entry(
             "obs_packed (benchmark CLI and manual control, N=1)", OBS_SOURCE, OBS_REPLACES, k4_cli + k4_manual,
-            err, k4_ms, p4_ms, bound(obs_bytes(one, env.agent_view_size, env.see_through_walls), 0.0),
+            err, k4_ms, p4_ms, obs_bound,
         ),
     ]
+
+
+def k1_at(env, n: int, steps: int, seed: int, device):
+    """The rollout kernel at ``n`` x ``steps`` (observations off) from a
+    reset drawn from ``seed``: ``rollout_random`` held to the plain version
+    on the replayed actions and cache, then the kernel and the plain version
+    timed in turns.  Returns ((kernel ms, plain ms, bound, max abs err,
+    episodes, R), the states it started from)."""
+    check(fused_eligible(env, device), f"{env.env_id} must take the kernel on {device}")
+    resets = resets_for(env, steps)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, states = env.reset(n, gen)
+    snapshot = gen.get_state()
+    final, total_r, total_done, max_used = rollout_random(env, states, gen, steps)
+    actions, cache, plain = replay_rollout(env, states, snapshot, False, resets, steps)
+    err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain, f"{env.env_id} {n}x{steps} rollout")
+    k = partial(fr.fused_rollout_core, env, states, cache, actions, False)
+    p = partial(fr.fused_rollout_reference, env, states, cache, actions, False)
+    tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
+    episodes = int(k()[2])
+    moved = bound(rollout_bytes(env, states, steps, levels_read(episodes, n, resets)), 0.0)
+    return (min(tk1, tk2), min(tp1, tp2), moved, err, int(total_done), resets), states
+
+
+def k2_at(env, n: int, steps: int, seed: int, device):
+    """The actor kernel at ``n`` x ``steps``, hidden 256 with nonzero
+    biases, on a reset and a reset cache of the learners' R drawn from
+    ``seed``: held to its three contracts against the plain versions, then
+    the kernel and the plain version timed in turns.  Returns (kernel ms,
+    plain ms, bound, max abs err, near-ties)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    weights = biased_weights(env, gen, device)
+    _, states = env.reset(n, gen)
+    cache = env.batch_reset_cache(n, learner_resets(env, steps), gen, device)
+    noise = ar.draw_bits(gen, (steps, env.num_actions, n), device)
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    err, ties = plain_only(ar.check_trajectory, env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
+    k = partial(ar.fused_actor_rollout_core, env, weights, states, cache, noise)
+    p = partial(plain_only, ar.actor_rollout_reference, env, weights, states, cache, noise)
+    tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
+    episodes = int(traj["done"].sum())
+    return min(tk1, tk2), min(tp1, tp2), actor_bound(env, states, cache, weights, noise, episodes), err, ties
+
+
+def k4_at(env, states) -> tuple[float, float, tuple[float, str]]:
+    """The observation kernel on ``states`` held bit for bit to its plain
+    version, both timed (the kernel behind a spin); returns (kernel ms,
+    plain ms, bound)."""
+    args = (*obs_args(states), env.agent_view_size, env.see_through_walls)
+    k4 = partial(op.fused_obs_packed, *args)
+    p4 = partial(op.fused_obs_packed_reference, *args)
+    check(torch.equal(k4(), p4()), f"the observation kernel differs from the plain version at N = {states.grid.shape[0]}")
+    tp1, tk1, tk2, tp2 = time_ms(p4, 20), device_ms(k4, 50), device_ms(k4, 50), time_ms(p4, 20)
+    return min(tk1, tk2), min(tp1, tp2), bound(obs_bytes(states, env.agent_view_size, env.see_through_walls), 0.0)
+
+
+def mesh_launches(step: dict) -> tuple[int, int, int, int]:
+    """A worker's launches of one train step as ``launch_counts`` orders
+    them (actor, observation, embed fwd, embed bwd)."""
+    n = step["launches"]
+    return n["K2"], n["K4"], n["K3 fwd"], n["K3 bwd"]
+
+
+def mesh_check(device, card: str, actor_entry: dict, embed_entries: list[dict]) -> list[dict]:
+    """Phase 34, data-parallel training (``parallel/mesh.py``): PPO on
+    Empty-8x8 at 8192 envs x 128 steps, hidden 256, over a one-rank NCCL
+    mesh in this process (three steps, launches 1/1/9/8 a step; the next
+    collection held bit for bit to ``collect_trajectory`` without a mesh,
+    its update to the mesh-less update), then one IMPALA step; then over two
+    gloo ranks spawned on this card, 4096 envs a rank (the same steps, the
+    ranks' parameters and Adam state bit for bit equal after each, the
+    collectives those ``parallel/scaling.expected_collectives`` lists), and
+    ``sharded_rollout_fused`` at 65536 x 256 over the two (one rollout-kernel
+    launch a rank, each rank's shard equal to ``rollout_random`` of it from
+    its rank generator, the totals the sums).  Then the kernels at the
+    ranks' shapes, timed here alone.  Returns their entries."""
+    t0 = time.perf_counter()
+    config = PPOConfig(rollout_steps=PPO_STEPS)
+    case = dict(env_id=ENV_ID, num_envs=PPO_ENVS, rollout_steps=PPO_STEPS, num_minibatches=config.num_minibatches,
+                hidden=PPO_HIDDEN, seed=34)
+    wants = {"ppo": learner_launches(config.num_minibatches), "impala": learner_launches(config.num_minibatches, True)}
+
+    def check_losses(what: str, step: dict) -> None:
+        losses = [step["metrics"][k] for k in ("pg_loss", "value_loss", "entropy")]
+        check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+
+    mesh = pmesh.make_mesh()
+    try:
+        check(mesh.world_size == 1 and dist.get_backend() == "nccl", f"a one-rank NCCL mesh, not {dist.get_backend()}")
+        one = mp_worker.MODES["meshless"](mesh, dict(case, ppo_steps=PPO_TRAIN_STEPS))
+        one_impala = mp_worker.MODES["learners"](mesh, dict(case, impala_steps=1))["impala"]
+    finally:
+        dist.destroy_process_group()
+    per_step = [mesh_launches(s) for s in one["ppo"]]
+    check(all(p == wants["ppo"] for p in per_step), f"one NCCL rank: PPO launches per step {per_step}")
+    check(mesh_launches(one_impala[0]) == wants["impala"], f"one NCCL rank: IMPALA launches {mesh_launches(one_impala[0])}")
+    for i, step in enumerate(one["ppo"] + one_impala):
+        check_losses(f"one NCCL rank, step {i}", step)
+    check(one["collection_equal"], "the one-rank mesh learner's collection differs from collect_trajectory's")
+    diffs = one["update_differences"]
+    check(one["update_close"], f"the one-rank mesh update differs from the mesh-less update beyond rtol 1e-5: {diffs}")
+    verdict = "bit for bit" if not any(diffs.values()) else f"within rtol 1e-5, largest differences {diffs}"
+    phase(
+        34,
+        f"one NCCL rank on {device}: PPO {ENV_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}, "
+        f"{PPO_TRAIN_STEPS} train steps, launches per step (actor, observation, embed fwd, embed bwd) {per_step}, "
+        "train steps " + ", ".join(f"{s['rollout_ms'] + s['update_ms']:.4f} ms (rollout {s['rollout_ms']:.4f} + "
+                                   f"update {s['update_ms']:.4f})" for s in one["ppo"])
+        + "; the mesh-less learner's, timed alike in turns (the mesh step first in turns 1 and 3, second in 2): "
+        + ", ".join(f"{s['rollout_ms'] + s['update_ms']:.4f} ms" for s in one["meshless_ppo"])
+        + f" ({card}); the next collection == collect_trajectory without a mesh bit for bit, its update == the "
+        f"mesh-less update {verdict}; one IMPALA step, launches {mesh_launches(one_impala[0])}, "
+        f"{one_impala[0]['rollout_ms'] + one_impala[0]['update_ms']:.4f} ms",
+    )
+
+    # A model, not a measurement: this rank's step (8192 envs, one GPU's
+    # share) with its gradients' ring all-reduce at NVLink's datasheet rate.
+    t_step = statistics.median(s["rollout_ms"] + s["update_ms"] for s in one["ppo"]) / 1e3
+    model = ActorCritic(PPO_HIDDEN, mgt.make(ENV_ID).num_actions, device="cpu")
+    modelled = {
+        w: scaling.modeled_ppo_efficiency(t_step, model, config.num_minibatches, config.update_epochs, w)
+        for w in (2, 4, 8)
+    }
+    print(
+        f"mesh ({card}) modelled data-parallel efficiency (parallel/scaling.modeled_ppo_efficiency, a model: NVLink "
+        f"{scaling.NVLINK_BYTES_PER_SEC:.3g} bytes/s a direction from the H100 SXM datasheet, "
+        f"{scaling.param_bytes(model)} gradient bytes a minibatch) from the one-rank step of {t_step * 1e3:.4f} ms: "
+        + ", ".join(f"{w} GPUs {e:.6f}" for w, e in modelled.items()),
+        flush=True,
+    )
+
+    spec = {
+        "learners": dict(case, ppo_steps=PPO_TRAIN_STEPS, impala_steps=1, time_allreduce=True),
+        "rollout": dict(env_id=ENV_ID, num_envs=NUM_ENVS, steps=NUM_STEPS, reset_seed=34, seed=35),
+    }
+    t_spawn = time.perf_counter()
+    run = mp_worker.run_workers(spec, MESH_RANKS, backend="gloo", device=str(device), timeout=MESH_TIMEOUT)
+    spawned_s = time.perf_counter() - t_spawn
+    outs, rolls = [r["learners"] for r in run.results], [r["rollout"] for r in run.results]
+    grads = [e for e in outs[0]["ppo_expected"] if e[1] == 1_280_032]
+
+    def gradient_ms(step: dict) -> float:
+        return sum(ms for (_, size), ms in zip(step["log"], step["collective_ms"]) if size == 1_280_032)
+
+    check(len(grads) == config.num_minibatches, f"expected {config.num_minibatches} gradient all-reduces of 1280032 bytes")
+    for rank, out in enumerate(outs):
+        for learner in ("ppo", "impala"):
+            for i, step in enumerate(out[learner]):
+                what = f"gloo rank {rank} {learner} step {i}"
+                check(mesh_launches(step) == wants[learner], f"{what}: launches {mesh_launches(step)}")
+                check(step["same"], f"{what}: the ranks' parameters or Adam state differ")
+                check(step["log"] == out[f"{learner}_expected"], f"{what}: collectives {step['log']}")
+                check(len(step["collective_ms"]) == len(step["log"]), f"{what}: {step['collective_ms']} timed")
+                leaf = min(b for k, b in step["traj_bytes"].items() if k != "done")
+                check(max(b for _, b in step["log"]) < leaf, f"{what}: a collective as large as a trajectory leaf")
+                check_losses(what, step)
+        print(
+            f"mesh ({card}) gloo rank {rank} of {MESH_RANKS} on {device}, {PPO_ENVS // MESH_RANKS} envs: PPO train "
+            "steps " + ", ".join(f"{s['rollout_ms'] + s['update_ms']:.4f} ms (rollout {s['rollout_ms']:.4f} + "
+                                 f"update {s['update_ms']:.4f})" for s in out["ppo"])
+            + f"; IMPALA {out['impala'][0]['rollout_ms'] + out['impala'][0]['update_ms']:.4f} ms; the "
+            f"{len(grads)} gloo all-reduces of the 1280032 gradient bytes inside each PPO step (a synchronize "
+            "before and after each, the wait for the other rank included) "
+            + ", ".join(f"{gradient_ms(s):.4f} ms" for s in out["ppo"])
+            + ", every collective of the step " + ", ".join(f"{sum(s['collective_ms']):.4f} ms" for s in out["ppo"]),
+            flush=True,
+        )
+    local = [r["local"] for r in rolls]
+    deterministic = mgt.make(ENV_ID).deterministic_generation
+    for rank, r in enumerate(rolls):
+        what = f"sharded_rollout_fused rank {rank}"
+        check(r["equal"], f"{what}: the shard differs from rollout_random of it from the rank generator")
+        check(r["launches"]["K1"] == 1, f"{what}: {r['launches']['K1']} rollout-kernel launches")
+        # Each rank's total against its shard's mesh-less run, a second
+        # launch that sums its rewards in another order.
+        sums = local[0][0] + local[1][0]
+        check(abs(r["total_reward"] - sums) <= REWARD_RTOL * abs(sums), f"{what}: reward {r['total_reward']} != {local}")
+        check(r["episodes"] == local[0][1] + local[1][1], f"{what}: episodes {r['episodes']} != {local}")
+        check(r["max_used"] == max(x[2] for x in local), f"{what}: max_used {r['max_used']} != the ranks' {local}")
+        # A deterministic family's levels are all alike: reset_budget exempts
+        # it from its R (fixed-start Empty takes R=1).
+        check(deterministic or r["max_used"] <= r["capacity"], f"{what}: max_used {r['max_used']} > {r['capacity']}")
+    phase(
+        34,
+        f"{MESH_RANKS} gloo ranks on {device} (gloo asked for: NCCL refuses two ranks on one device), spawned and "
+        f"joined in {spawned_s:.1f} s: PPO {PPO_ENVS} envs ({PPO_ENVS // MESH_RANKS} a rank) x {PPO_STEPS}, "
+        f"{PPO_TRAIN_STEPS} steps and one IMPALA step, launches a step as above on each rank, parameters and Adam "
+        f"state bit for bit equal on both after each step, collectives == scaling.expected_collectives "
+        f"({len(grads)} gradient all-reduces of 1280032 bytes a PPO step); sharded_rollout_fused {NUM_ENVS} x "
+        f"{NUM_STEPS}: one launch a rank ({rolls[0]['ms']:.4f} / {rolls[1]['ms']:.4f} ms with the reduction), each "
+        f"shard == rollout_random of it, {rolls[0]['episodes']} episodes == the ranks' sum and reward "
+        f"{rolls[0]['total_reward']} == it to rtol {REWARD_RTOL}, max_used {rolls[0]['max_used']} == the ranks' "
+        f"most, R={rolls[0]['capacity']}" + (" (levels all alike: exempt)" if deterministic else ""),
+    )
+
+    # The kernels at this phase's shapes, here alone.
+    env = mgt.make(ENV_ID)
+    local_envs = PPO_ENVS // MESH_RANKS
+    _, states = env.reset(PPO_ENVS, torch.Generator(device=device).manual_seed(34))
+    k4_one = k4_at(env, states)
+    k4_two = k4_at(env, states.map(lambda t: t[:local_envs]))
+    k2_ms, p2_ms, k2_bound, k2_err, ties = k2_at(env, local_envs, PPO_STEPS, 34, device)
+    embed_two, _, _ = embed_at(device, card, PPO_STEPS // config.num_minibatches * local_envs, " (mesh: 2 gloo ranks)")
+    (k1_ms, p1_ms, k1_bound, k1_err, _, _), _ = k1_at(env, NUM_ENVS // MESH_RANKS, NUM_STEPS, 35, device)
+    one_launches = [sum(x) for x in zip(*(mesh_launches(s) for s in one["ppo"] + one_impala))]
+    two_launches = [sum(x) for x in zip(*(mesh_launches(s) for out in outs for s in out["ppo"] + out["impala"]))]
+    print(
+        f"mesh kernels ({card}) at the ranks' shapes: actor_rollout {local_envs}x{PPO_STEPS} kernel {k2_ms:.4f} ms, "
+        f"plain {p2_ms:.4f} ms ({ties} near-ties); obs_packed {PPO_ENVS} / {local_envs} envs kernel "
+        f"{k4_one[0]:.5f} / {k4_two[0]:.5f} ms; fused_rollout {NUM_ENVS // MESH_RANKS}x{NUM_STEPS} kernel "
+        f"{k1_ms:.4f} ms, plain {p1_ms:.4f} ms",
+        flush=True,
+    )
+    one_rank, two_ranks = " (mesh: 1 NCCL rank)", " (mesh: 2 gloo ranks)"
+    entries = [
+        dict(actor_entry, name="actor_rollout" + one_rank, launches=one_launches[0]),
+        kernel_entry("obs_packed" + one_rank, OBS_SOURCE, OBS_REPLACES, one_launches[1], 0, *k4_one),
+        dict(embed_entries[0], name=embed_entries[0]["name"] + one_rank, launches=one_launches[2]),
+        dict(embed_entries[1], name=embed_entries[1]["name"] + one_rank, launches=one_launches[3]),
+        kernel_entry("actor_rollout" + two_ranks, ACTOR_SOURCE, ACTOR_REPLACES, two_launches[0], k2_err, k2_ms, p2_ms,
+                     k2_bound),
+        kernel_entry("obs_packed" + two_ranks, OBS_SOURCE, OBS_REPLACES, two_launches[1], 0, *k4_two),
+        dict(embed_two[0], launches=two_launches[2]),
+        dict(embed_two[1], launches=two_launches[3]),
+        kernel_entry("fused_rollout" + two_ranks, SOURCE, REPLACES, sum(r["launches"]["K1"] for r in rolls), k1_err,
+                     k1_ms, p1_ms, k1_bound),
+    ]
+    phase(34, f"took {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 def main() -> None:
@@ -2672,12 +2919,14 @@ def main() -> None:
     demo_entry = demo_check(device, card)
     resume_entries = checkpoint_check(device, card, actor_entry, embed_entries)
     cli_entries = cli_check(device, card)
+    print(f"phase 34 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    mesh_entries = mesh_check(device, card, actor_entry, embed_entries)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
             actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
             keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, shim_entry,
-            solver_entry, shim_solver_entry, demo_entry, *resume_entries, *cli_entries,
+            solver_entry, shim_solver_entry, demo_entry, *resume_entries, *cli_entries, *mesh_entries,
         ]
     }
     print(json.dumps(summary), flush=True)

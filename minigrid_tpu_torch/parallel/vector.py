@@ -158,6 +158,7 @@ def rollout_random(
     num_steps: int,
     resets_per_chunk: int | None = None,
     fused="auto",
+    check: bool = True,
 ):
     """``num_steps`` uniform-random steps of every env in ``states``.
 
@@ -173,8 +174,9 @@ def rollout_random(
     ``step_env``: an ``expensive_reset`` family draws its resets from one
     shared pool (``make_pool_stepper``, sized by ``plain_pool_size``, drawn
     from ``generator`` before the first step; ``AssertionError`` where the
-    chunk ran it out, one host read at the end), the others regenerate every
-    ended episode's level at every step.
+    chunk ran it out, one host read at the end, unless ``check=False``, as
+    ``parallel/mesh`` asks, which checks after reducing over the ranks), the
+    others regenerate every ended episode's level at every step.
     """
     if fused == "auto":
         fused = fused_eligible(env, states.device)
@@ -205,6 +207,6 @@ def rollout_random(
             terminated, truncated = stepped.terminated, stepped.truncated
         total_r = total_r + reward.sum()
         total_done = total_done + (terminated | truncated).sum()
-    if env.expensive_reset:
+    if env.expensive_reset and check:
         check_pool(int(consumed), size)
     return states, total_r, total_done.to(torch.int32), consumed

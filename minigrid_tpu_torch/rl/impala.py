@@ -16,6 +16,11 @@ The collection and every first layer of the update run where PPO's do
 device, their plain versions on the CPU.  The bootstrap forward runs
 without a graph, since no gradient flows through V-trace's targets, so the
 embed + dense-1 backward runs once per minibatch.
+
+With a ``mesh``, every rank runs the update on its shard of the envs.  The
+V-trace recursion runs along each env's time axis and the loss is a mean
+over samples, so, unlike PPO's advantage normalisation, nothing but the
+gradients (one all-reduce a minibatch) and the metrics crosses ranks.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from minigrid_tpu_torch.rl.ppo import (
     apply_gradients,
     bootstrap_observation,
     init_train_state,
-    mesh_not_ported,
+    reduce_gradients,
+    reduce_learner_metrics,
     update_apply,
 )
 from minigrid_tpu_torch.rl.rollout import LearnerResets, collect_trajectory
@@ -101,18 +107,18 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
     ``train_step.rollout`` and ``.update`` its phases and
     ``.loss_fn(apply, batch)`` its minibatch loss.  The parameters are
     updated in place.  ``_plain=True`` is ``chip_smoke.py``'s timing
-    reference: the plain versions on a CUDA device too.
+    reference: the plain versions on a CUDA device too.  ``mesh`` as in
+    ``make_ppo``.
     """
-    mesh_not_ported(mesh)
     resets = LearnerResets(env, config.rollout_steps, config.resets_per_chunk)
 
     def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:
-        return init_train_state(env, hidden, generator, num_envs)
+        return init_train_state(env, hidden, generator, num_envs, mesh)
 
     def rollout(model, env_states, generator):
         return collect_trajectory(
             env, model, env_states, generator, config.rollout_steps, resets.r,
-            fused_actor=not _plain, plain_obs=_plain,
+            fused_actor=not _plain, mesh=mesh, plain_obs=_plain,
         )
 
     def loss_fn(apply, batch):
@@ -155,7 +161,7 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
                 boot = (traj.obs[end], traj.direction[end]) if end < num_steps else (last_obs, env_states.agent_dir)
                 batch = tuple(x[b * mb_t : end] for x in data) + boot
                 loss, aux = loss_fn(apply, batch)
-                grads = torch.autograd.grad(loss, params)
+                grads = reduce_gradients(torch.autograd.grad(loss, params), mesh)
                 opt_state = apply_gradients(
                     model, dict(zip(names, grads)), opt_state, config.learning_rate, config.max_grad_norm
                 )
@@ -168,9 +174,9 @@ def make_impala(env, config: IMPALAConfig = IMPALAConfig(), hidden: int = 256, m
             "reward_per_step": traj.reward.mean(),
             "episodes": traj.done.sum(),
             # Reset-budget certification and R's growth, as in rl/ppo.py.
-            **resets.observe(traj.done),
+            **resets.observe(traj.done, mesh),
         }
-        return model, opt_state, metrics
+        return model, opt_state, reduce_learner_metrics(metrics, mesh)
 
     def train_step(state: TrainState):
         env_states, traj = rollout(state.params, state.env_states, state.generator)

@@ -12,6 +12,14 @@ losses and the bootstrap value alike, runs through the fused embed +
 dense-1 kernels (ops/embed_dense.py); a configuration the kernels do not
 take raises.  On a CPU device the same calls run their plain PyTorch
 versions.
+
+With a ``mesh`` (``parallel/mesh.Mesh``, one process per device), every
+rank collects and updates its shard of the envs through the same kernels,
+and the update reduces over the ranks what the JAX package's partitioner
+reduces: each minibatch's advantage mean and standard deviation (two
+all-reduces of a [num_minibatches] vector an update), the gradients (one
+all-reduce of a flat buffer a minibatch, before the global-norm clip) and
+the metrics (one all-reduce, and ``LearnerResets``' two).
 """
 
 from __future__ import annotations
@@ -20,6 +28,13 @@ from typing import Any, NamedTuple
 
 import torch
 
+from minigrid_tpu_torch.parallel.mesh import (
+    all_reduce,
+    all_reduce_mean,
+    local_count,
+    rank_generator,
+    replicate,
+)
 from minigrid_tpu_torch.rl.model import ActorCritic, apply_packed_fused
 from minigrid_tpu_torch.rl.rollout import LearnerResets, collect_trajectory
 
@@ -90,13 +105,44 @@ def apply_gradients(model: ActorCritic, grads: dict[str, torch.Tensor], state: A
     return AdamState(count, mu, nu)
 
 
-def init_train_state(env, hidden: int, generator: torch.Generator, num_envs: int) -> TrainState:
+def init_train_state(env, hidden: int, generator: torch.Generator, num_envs: int, mesh=None) -> TrainState:
     """``num_envs`` fresh envs, a fresh network and its Adam state, on the
-    generator's device."""
-    device = generator.device
-    _, env_states = env.reset(num_envs, generator, device)
-    model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, device)
-    return TrainState(model, adam_init(model), env_states, generator)
+    generator's device.
+
+    With a ``mesh``, ``num_envs`` counts every rank's envs: the network is
+    drawn from ``generator`` and rank 0's copy broadcast
+    (``mesh.replicate``), then this rank's ``num_envs / W`` envs are reset
+    from its rank generator, which the state keeps."""
+    if mesh is None:
+        device = generator.device
+        _, env_states = env.reset(num_envs, generator, device)
+        model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, device)
+        return TrainState(model, adam_init(model), env_states, generator)
+    if generator.device != mesh.device:
+        raise ValueError(f"the generator is on {generator.device}, the mesh's device is {mesh.device}")
+    n = local_count(mesh, num_envs)
+    model = replicate(mesh, ActorCritic(hidden, env.num_actions, env.agent_view_size, generator, mesh.device))
+    gen = rank_generator(generator, mesh.rank, mesh.device)
+    _, env_states = env.reset(n, gen, mesh.device)
+    return TrainState(model, adam_init(model), env_states, gen)
+
+
+def advantage_stats(adv: torch.Tensor, num_minibatches: int, mesh=None):
+    """Each minibatch's advantage mean and population standard deviation
+    (``adv`` [T, N], minibatches the contiguous time slices): the sum over
+    the count, then the sum of squared deviations over the count, as XLA's
+    ``mean`` and ``std``.  With a mesh both sums run over every rank's envs,
+    one all-reduce of a [num_minibatches] vector each."""
+    rows = adv.reshape(num_minibatches, -1)
+    count = rows.shape[1] * (1 if mesh is None else mesh.world_size)
+    sums = rows.sum(dim=1)
+    if mesh is not None:
+        all_reduce(mesh, sums)
+    mean = sums / count
+    squares = torch.square(rows - mean[:, None]).sum(dim=1)
+    if mesh is not None:
+        all_reduce(mesh, squares)
+    return mean, torch.sqrt(squares / count)
 
 
 def update_apply(model: ActorCritic, plain: bool):
@@ -116,11 +162,23 @@ def bootstrap_observation(env, env_states, plain: bool) -> torch.Tensor:
     return env.observation_packed(env_states, plain=plain)
 
 
-def mesh_not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
-        )
+def reduce_gradients(grads, mesh):
+    """The gradients averaged over the ranks (one all-reduce), or as they
+    are without a mesh."""
+    return grads if mesh is None else all_reduce_mean(mesh, grads)
+
+
+def reduce_learner_metrics(metrics: dict, mesh) -> dict:
+    """A learner's metrics over every rank, in one float64 all-reduce: the
+    loss and reward means averaged (every rank averages over as many
+    samples), ``episodes`` summed; each keeps its dtype.  ``LearnerResets``
+    has reduced its own."""
+    if mesh is None:
+        return metrics
+    means, names = 4, ("pg_loss", "value_loss", "entropy", "reward_per_step", "episodes")
+    buf = all_reduce(mesh, torch.stack([metrics[k].double() for k in names]))
+    buf[:means] /= mesh.world_size
+    return {**metrics, **{k: buf[i].to(metrics[k].dtype) for i, k in enumerate(names)}}
 
 
 def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None, *, _plain: bool = False):
@@ -135,8 +193,12 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
     updated in place.  ``_plain=True`` is a timing reference, not a
     learner option: it runs the plain versions on a CUDA device too, which
     ``chip_smoke.py`` times the kernels against.
+
+    With a ``mesh`` (``parallel/mesh.make_mesh``), ``init_fn(generator,
+    num_envs)`` takes the global env count and every rank's state holds its
+    shard; ``train_step`` runs on each rank and reduces over the ranks (see
+    the module's docstring), so the ranks' parameters stay equal.
     """
-    mesh_not_ported(mesh)
     resets = LearnerResets(env, config.rollout_steps, config.resets_per_chunk)
     steps_per_update = config.num_minibatches * config.update_epochs
 
@@ -150,12 +212,12 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
         return config.learning_rate * (1.0 - frac)
 
     def init_fn(generator: torch.Generator, num_envs: int) -> TrainState:
-        return init_train_state(env, hidden, generator, num_envs)
+        return init_train_state(env, hidden, generator, num_envs, mesh)
 
     def rollout(model: ActorCritic, env_states, generator):
         return collect_trajectory(
             env, model, env_states, generator, config.rollout_steps, resets.r,
-            fused_actor=not _plain, plain_obs=_plain,
+            fused_actor=not _plain, mesh=mesh, plain_obs=_plain,
         )
 
     def gae(values, rewards, dones, last_value):
@@ -172,13 +234,16 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
             advs[t] = adv
         return advs
 
-    def loss_fn(apply, batch):
+    def loss_fn(apply, batch, adv_stats=None):
+        """The minibatch loss; ``adv_stats`` is the (mean, std) its
+        advantages are normalised with, where None those of ``batch``."""
         obs, direction, action, old_logp, adv, target = batch
         logits, value = apply(obs, direction)
         logp_all = torch.log_softmax(logits, dim=-1)
         logp = logp_all.gather(-1, action.long()[..., None])[..., 0]
         ratio = torch.exp(logp - old_logp)
-        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        adv_mean, adv_std = (s[0] for s in advantage_stats(adv, 1)) if adv_stats is None else adv_stats
+        adv_n = (adv - adv_mean) / (adv_std + 1e-8)
         pg = -torch.minimum(
             ratio * adv_n, torch.clamp(ratio, 1 - config.clip_eps, 1 + config.clip_eps) * adv_n
         ).mean()
@@ -203,14 +268,15 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
                 f"{config.num_minibatches} (time-axis slicing)"
             )
         mb_t = num_steps // config.num_minibatches
+        adv_mean, adv_std = advantage_stats(adv, config.num_minibatches, mesh)
         data = (obs, direction, action, logp, adv, target)
         names, params = zip(*model.named_parameters())
         auxes = []
         for _ in range(config.update_epochs):
             for b in range(config.num_minibatches):
                 batch = tuple(x[b * mb_t : (b + 1) * mb_t] for x in data)
-                loss, aux = loss_fn(apply, batch)
-                grads = torch.autograd.grad(loss, params)
+                loss, aux = loss_fn(apply, batch, (adv_mean[b], adv_std[b]))
+                grads = reduce_gradients(torch.autograd.grad(loss, params), mesh)
                 opt_state = apply_gradients(
                     model, dict(zip(names, grads)), opt_state,
                     learning_rate(opt_state.count), config.max_grad_norm,
@@ -228,9 +294,9 @@ def make_ppo(env, config: PPOConfig = PPOConfig(), hidden: int = 256, mesh=None,
             # resets past it, which replayed the cache's last level (0 for
             # a family that cannot replay one); R grows for the next chunk
             # when the chunk comes near it.
-            **resets.observe(done),
+            **resets.observe(done, mesh),
         }
-        return model, opt_state, metrics
+        return model, opt_state, reduce_learner_metrics(metrics, mesh)
 
     def train_step(state: TrainState):
         env_states, traj = rollout(state.params, state.env_states, state.generator)

@@ -18,6 +18,7 @@ from minigrid_tpu_torch.ops.actor_rollout import (
     sample_actions,
 )
 from minigrid_tpu_torch.ops.fused_rollout import counter_reset
+from minigrid_tpu_torch.parallel.mesh import all_reduce
 from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import make_cached_stepper
 
@@ -36,6 +37,9 @@ class LearnerResets:
     the next chunk draws max(2 * maximum, R + 1) levels.  A family that
     cannot replay a level (a counter-reset family has no cache, and a
     deterministic one's levels are all alike) keeps its R and reports 0.
+    On a mesh (``parallel/mesh``), ``observe(done, mesh)`` takes the maximum
+    over the ranks (one all-reduce) and sums ``replayed`` (another) before R
+    grows, so every rank's R stays the same.
     """
 
     def __init__(self, env, rollout_steps: int, resets_per_chunk: int | None = None):
@@ -43,11 +47,16 @@ class LearnerResets:
         self.r = resets_per_chunk if self.fixed else learner_resets(env, rollout_steps)
         self.can_replay = not counter_reset(env) and not env.deterministic_generation
 
-    def observe(self, done: torch.Tensor) -> dict[str, torch.Tensor]:
+    def observe(self, done: torch.Tensor, mesh=None) -> dict[str, torch.Tensor]:
         episodes = done.int().sum(dim=0)
         most = episodes.max()
         r = self.r
         replayed = (episodes - r).clamp(min=0).sum() if self.can_replay else torch.zeros_like(most)
+        if mesh is not None:
+            # Every rank's chunk is one of the same run: R grows from the
+            # most of any rank, so that the ranks keep one R.
+            most = all_reduce(mesh, most, "max")
+            replayed = all_reduce(mesh, replayed.int(), "sum")
         if self.can_replay and not self.fixed and int(most) > r - max(2, r // 4):
             self.r = max(2 * int(most), r + 1)
         return {
@@ -102,11 +111,14 @@ def collect_trajectory(
     family regenerates ended episodes at every step.  Both routes sample
     with ``ops/actor_rollout.sample_actions``; the kernel's actor rounds as
     the TPU kernel does, the plain loop as ``model`` does.
+
+    With a ``mesh`` (``parallel/mesh.Mesh``), ``env_states`` are this rank's
+    shard and ``generator`` the rank's (``mesh.rank_generator``; the
+    learners keep it in their ``TrainState``): the rank collects its shard
+    by the same routes, and the trajectory stays on the rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "collection over a device mesh comes with multi-GPU support (ROADMAP.md queue 1, item 9)"
-        )
+    if mesh is not None and env_states.device != mesh.device:
+        raise ValueError(f"this rank's envs are on {env_states.device}, its mesh on {mesh.device}")
     num_envs = env_states.step_count.shape[0]
     if resets_per_chunk is None:
         resets_per_chunk = learner_resets(env, rollout_steps)

@@ -1281,3 +1281,42 @@ def test_manual_control_frames_on_the_card_equal_the_cpu(device):
     assert op.KERNEL_LAUNCHES - before == len(shots) + 2 == 10
     for frame, state in shots:
         assert np.array_equal(frame, env.get_frame(state)[0].numpy())
+
+
+MESH_CASE = dict(env_id="MiniGrid-Empty-8x8-v0", rollout_steps=16, num_minibatches=2, hidden=64, seed=4)
+
+
+def test_one_nccl_rank_trains_as_the_mesh_less_learner(device):
+    # One spawned rank on cuda:0: its steps take the kernels, and its
+    # collection and update equal the mesh-less learner's bit for bit (an
+    # all-reduce over one rank and the division by 1 change nothing).
+    from minigrid_tpu_torch.parallel.mp_worker import run_workers
+
+    case = dict(MESH_CASE, num_envs=1024, ppo_steps=2)
+    out = run_workers({"meshless": case}, 1, backend="nccl", device="cuda:0", timeout=300).results[0]["meshless"]
+    want = {"K1": 0, "K2": 1, "K4": 1, "K3 fwd": 3, "K3 bwd": 2}
+    assert all(s["launches"] == want for s in out["ppo"])
+    assert out["collection_equal"]
+    assert out["update_differences"] == {"params": 0.0, "mu": 0.0, "nu": 0.0, "metrics": 0.0}
+
+
+def test_two_gloo_ranks_share_the_card_and_keep_equal_parameters(device):
+    from minigrid_tpu_torch.parallel.mp_worker import run_workers
+
+    case = dict(MESH_CASE, num_envs=2048, ppo_steps=2, impala_steps=1)
+    results = run_workers({"learners": case}, 2, backend="gloo", device="cuda:0", timeout=300).results
+    for out in (r["learners"] for r in results):
+        assert all(s["same"] for s in out["ppo"] + out["impala"])
+        assert all(s["log"] == out["ppo_expected"] for s in out["ppo"])
+        assert all(s["launches"] == {"K1": 0, "K2": 1, "K4": 1, "K3 fwd": 3, "K3 bwd": 2} for s in out["ppo"])
+        assert out["impala"][0]["launches"] == {"K1": 0, "K2": 1, "K4": 1, "K3 fwd": 4, "K3 bwd": 2}
+    assert results[0]["learners"]["ppo"][-1]["metrics"] == results[1]["learners"]["ppo"][-1]["metrics"]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(device, tmp_path):
+    from minigrid_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two cards: two NCCL ranks take one each")
+    with pytest.raises(ValueError, match="two\\s+ranks would share one"):
+        make_mesh(backend="nccl", rank=0, world_size=2, init_method=f"file://{tmp_path / 'store'}")

@@ -176,8 +176,3 @@ def test_learners_train_on_dynamic_obstacles_on_the_cpu(learner):
     # Collisions end episodes at -1 and the counter stream regenerates them.
     assert int(metrics["episodes"]) > 0 and float(metrics["reward_per_step"]) < 0
     assert set(state.env_states.extra) == {"obstacles", "front_not_clear", "walk_seed"}
-
-
-def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        timpala.make_impala(mgt.make(ENV_ID), mesh=object())

@@ -20,7 +20,7 @@ import minigrid_tpu_torch as mgt
 from minigrid_tpu.rl import ppo as jppo
 from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.model import apply_packed_fused
-from minigrid_tpu_torch.rl.rollout import Trajectory, collect_trajectory
+from minigrid_tpu_torch.rl.rollout import Trajectory
 from minigrid_tpu_torch.utils.bridge import params_from_flax, params_to_flax
 from torch_port_util import one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
 
@@ -164,12 +164,3 @@ def test_make_train_loop_and_lr_anneal():
     _, train_step = tppo.make_ppo(env, tppo.PPOConfig(rollout_steps=16, num_minibatches=2, lr_anneal_updates=2), hidden=32)
     state, _ = train_step(state)
     assert all(torch.equal(p, before[k]) for k, p in state.params.named_parameters())
-
-
-def test_mesh_is_not_ported_yet():
-    env = mgt.make("MiniGrid-Empty-5x5-v0")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tppo.make_ppo(env, mesh=object())
-    _, states = env.reset(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        collect_trajectory(env, None, states, None, 4, mesh=object())
