@@ -12,8 +12,10 @@ Phases, one output line each; any failure raises and exits non-zero:
    stages per ext and hidden size, the embed + dense-1 backward's
    registers, spills and shared memory per warpgroup count, and its
    forward's registers and spills per slab width with the slab and
-   warpgroups it runs at a PPO minibatch; the rollout kernel's instrumented
-   copy (phase 17) is built beside them;
+   warpgroups it runs at a PPO minibatch, the WFC solver's registers and
+   spills per words-a-cell instantiation and its waves a block for
+   MazeSimple and Maze; the rollout kernel's instrumented copy (phase 17) is
+   built beside them;
 3. replay the recorded reference transitions (``tests/golden/steps_*.npz``,
    ``process_vis.npz``, and the step overlays ``overlay_*.npz`` of Fetch,
    GoToDoor, GoToObject, Memory, PutNear and RedBlueDoors with their
@@ -136,8 +138,9 @@ Phases, one output line each; any failure raises and exits non-zero:
    BabyAI-GoTo at the shapes above, with the wrapper's device work before
    and after the kernel apart, one JSON line a row;
 18. with ``--parent DIR`` (a checkout, e.g. a ``git archive`` of the parent
-   commit), every rollout-kernel row above and two actor-kernel rows timed
-   in that tree and this one in turns, parent, change, change, parent
+   commit), every rollout-kernel row above, two actor-kernel rows and the
+   WFC solver at 20480, 64 and 1 MazeSimple waves timed in that tree and
+   this one in turns, parent, change, change, parent
    (``tools/torch_kernel_ab.py``); without it, nothing;
 19. the rest of the classic zoo through the rollout kernel, as in phase 11:
    ``MiniGrid-ObstructedMaze-2Dlh-v0`` (the one ``TRACKED`` id of bench.py
@@ -178,14 +181,16 @@ Phases, one output line each; any failure raises and exits non-zero:
    phase 11, its reset cache drawn by the WFC solver kernel (the launches
    of the main path counted; the kernel == its plain version, grids,
    outcomes and counters, on a chunk of the cache's waves), R covered; the
-   cache's generation and the solver's levels/s at bench.py's batch of 64
-   and at the cache's chunk timed apart; then the plain path's shared pool
-   of resets, ``rollout_random(fused=False)`` at 4096 x 64, certified
-   against its pool;
+   cache's generation and the solver's levels/s at bench.py's batch of 64,
+   at the cache's chunk and at one wave timed apart; then the plain path's
+   shared pool of resets, ``rollout_random(fused=False)`` at 4096 x 64,
+   certified against its pool;
 26. PPO on ``MiniGrid-WFC-MazeSimple-v0`` as in phase 7 (three train steps,
    launches 1/1/9/8, the last trajectory held to the contracts with its
    cache, ``replayed`` 0, timed with its rollout/update split), with the
-   solver's share of a train step;
+   reset cache's share of a train step and the cache split into the
+   solver, the largest-component filter, the start and goal draws and the
+   rest;
 27. the other five WFC ids through the rollout kernel at 1024 envs x 64
    steps, exact with the plain version and held to R; then 48 levels of
    each of the six presets at size 25 held to the original's corpus
@@ -320,6 +325,7 @@ from minigrid_tpu_torch.ops import wfc_solve as wk
 from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.envs.wfc import WFC_PRESETS
 from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
+from minigrid_tpu_torch.envs.wfc import wfcenv
 from minigrid_tpu_torch.manual_control import ManualControl
 from minigrid_tpu_torch.parallel import mesh as pmesh
 from minigrid_tpu_torch.parallel import mp_worker, scaling
@@ -572,6 +578,31 @@ def ptxas_report(name: str, log: str) -> str:
         f"stack frame up to {max(f for _, f, _ in v)} bytes, {sum(sp for _, _, sp in v)} bytes spilled"
         for key, v in sorted(groups.items())
     )
+
+
+def wfc_solver_report(log: str, device) -> str:
+    """Phase 2, the WFC solver: ptxas' registers, stack frame and spills of
+    each words-a-cell instantiation, and the waves a block of MazeSimple and
+    Maze (with and without backtracking) at 23x23 for a cache chunk."""
+    rows = []
+    for block in log.split("Compiling entry function")[1:]:
+        nw = re.search(r"wfc_solve_kernelILi(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
+        if nw and regs:
+            stack, spill = (frame.group(1), frame.group(2)) if frame else ("0", "0")
+            rows.append(f"NW={nw.group(1)} {regs.group(1)} registers, stack frame {stack} bytes, {spill} bytes spilled")
+    props = torch.cuda.get_device_properties(device)
+    waves = []
+    for preset, p, backtracking in (("MazeSimple", 12, False), ("Maze", 229, False), ("Maze", 229, True)):
+        layout = wk.wfc_solve_layout(
+            p, 23, 23, backtracking, 20480, props.multi_processor_count, props.shared_memory_per_block_optin
+        )
+        waves.append(
+            f"{preset}{' backtracking' if backtracking else ''} {layout['waves_per_block']} waves a block "
+            f"({layout['smem_bytes']} bytes)"
+        )
+    return "wfc_solve instantiations: " + "; ".join(rows) + "; 23x23, 20480 waves: " + "; ".join(waves)
 
 
 def replay_goldens(device) -> tuple[int, int]:
@@ -1895,6 +1926,7 @@ def wfc_solver_check(device, card: str, resets: int) -> dict:
         check(torch.equal(got[2][k], v), f"wfc_solve: kernel {k} differ from plain")
     kernel_ms = min(time_ms(partial(solve, n), 2), time_ms(partial(solve, n), 2))
     small_ms = min(time_ms(partial(solve, WFC_BENCH_BATCH), 5), time_ms(partial(solve, WFC_BENCH_BATCH), 5))
+    one_ms = min(time_ms(partial(solve, 1), 10), time_ms(partial(solve, 1), 10))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1910,14 +1942,15 @@ def wfc_solver_check(device, card: str, resets: int) -> dict:
         f"levels/s, peak {peak_gb:.4f} GB beyond what was allocated), plain {plain_s * 1e3:.4f} ms "
         f"({n / plain_s:.6g} levels/s, {syncs} host syncs); "
         f"{WFC_BENCH_BATCH} waves kernel {small_ms:.4f} ms ({WFC_BENCH_BATCH / small_ms * 1e3:.6g} levels/s), plain "
-        f"{small_plain_s * 1e3:.4f} ms; ok {float(want[1].float().mean()):.4f}, mean collapses "
+        f"{small_plain_s * 1e3:.4f} ms; 1 wave kernel {one_ms:.4f} ms; ok {float(want[1].float().mean()):.4f}, mean collapses "
         f"{collapses / n:.2f}, attempts max {int(want[2]['attempts'].max())}",
         flush=True,
     )
     # Bytes: the seeds in and each wave's grid, outcome and counters out
     # (the tables are a few KB).  Operations: at least the location scan,
     # one pass over the cells a collapse, integer work at the CUDA cores'
-    # rate (propagation's sweeps and the barriers come on top).
+    # rate (propagation comes on top).  At 64 waves and one the serial chain
+    # of a wave's collapses bounds it instead, which this bound cannot see.
     cells = shape[0] * shape[1]
     nbytes = n * (8 + 4 * cells + 20)
     return kernel_entry(
@@ -1959,15 +1992,53 @@ def wfc_pool_check(device, card: str) -> None:
     )
 
 
+def wfc_cache_split(env, n: int, resets: int, gen, device) -> tuple[float, dict[str, float]]:
+    """One reset cache of ``env`` (n x ``resets``) and its ms in the solver,
+    ``wfcenv._largest_component``, the start and goal draws
+    (``sample_mask_cell``) and the rest (the grid's assembly, the state):
+    CUDA events around each call, the calls wrapped for this one cache."""
+    marks: dict[str, list] = {"solver": [], "largest component": [], "start and goal": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks[name].append((start, end))
+            return out
+
+        return call
+
+    saved = wfc_solver.wfc_solve, wfcenv._largest_component, wfcenv.sample_mask_cell
+    wfc_solver.wfc_solve = timed("solver", saved[0])
+    wfcenv._largest_component = timed("largest component", saved[1])
+    wfcenv.sample_mask_cell = timed("start and goal", saved[2])
+    try:
+        total = event_ms(lambda: env.batch_reset_cache(n, resets, gen, device))
+    finally:
+        wfc_solver.wfc_solve, wfcenv._largest_component, wfcenv.sample_mask_cell = saved
+    parts = {name: sum(a.elapsed_time(b) for a, b in pairs) for name, pairs in marks.items()}
+    parts["rest"] = total - sum(parts.values())
+    return total, parts
+
+
 def wfc_solver_share(device, card: str) -> None:
     """Phase 26: the reset cache a PPO train step draws on WFC-MazeSimple
     (``PPO_ENVS`` x the learner's R), timed apart: the solver's share of a
-    train step is this over the step's time above."""
+    train step is this over the step's time above; then one cache split
+    into the solver, the largest-component filter, the start and goal
+    draws and the rest."""
     env = mgt.make(WFC_ID)
     resets = learner_resets(env, PPO_STEPS)
     gen = torch.Generator(device=device).manual_seed(27)
     ms = min(event_ms(lambda: env.batch_reset_cache(PPO_ENVS, resets, gen, device)) for _ in range(3))
-    print(f"wfc reset cache ({card}) {PPO_ENVS} x R={resets} for a PPO train step: {ms:.4f} ms", flush=True)
+    total, parts = wfc_cache_split(env, PPO_ENVS, resets, gen, device)
+    print(
+        f"wfc reset cache ({card}) {PPO_ENVS} x R={resets} for a PPO train step: {ms:.4f} ms; split of one "
+        f"({total:.4f} ms): " + ", ".join(f"{k} {v:.4f} ms ({v / total:.3g})" for k, v in parts.items()),
+        flush=True,
+    )
 
 
 def wfc_others_check(device) -> None:
@@ -2756,7 +2827,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
         "--parent", type=Path, default=None,
-        help="a checkout to time the rollout kernels against (tools/torch_kernel_ab.py, phase 18)",
+        help="a checkout to time the rollout kernels and the WFC solver against (tools/torch_kernel_ab.py, phase 18)",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2794,6 +2865,8 @@ def main() -> None:
     for name in ("fused_rollout", "actor_rollout"):
         if name in _build.BUILD_INFO:
             print(ptxas_report(name, _build.BUILD_INFO[name][1]), flush=True)
+    if "wfc_solve" in _build.BUILD_INFO:
+        print(wfc_solver_report(_build.BUILD_INFO["wfc_solve"][1], device), flush=True)
     print(tensor_core_report(), flush=True)
 
     n_files, n_overlays = replay_goldens(device)
@@ -2891,10 +2964,10 @@ def main() -> None:
         + "; ".join(f"{r['row']}: reset {r['share']['reset']:.3g}, wait {r['share']['wait']:.3g}" for r in records),
     )
     if args.parent is None:
-        phase(18, "no --parent checkout given: the rollout kernels are not timed against one")
+        phase(18, "no --parent checkout given: the rollout kernels and the WFC solver are not timed against one")
     else:
         subprocess.run([sys.executable, str(ROOT / "tools" / "torch_kernel_ab.py"), str(args.parent), str(ROOT)], check=True)
-        phase(18, f"the rollout kernels timed against {args.parent} in turns (tools/torch_kernel_ab.py)")
+        phase(18, f"the rollout kernels and the WFC solver timed against {args.parent} in turns (tools/torch_kernel_ab.py)")
     zoo_entries = [cache_slice(env_id, device, card, n, 19) for env_id, n in ZOO_IDS]
     zoo_actor_entries = [actor_cache_check(env_id, device, card, 20) for env_id in ZOO_ACTOR_IDS]
     keycorridor_entry, _ = ppo_slice(device, card, KEYCORRIDOR_ID, 20)

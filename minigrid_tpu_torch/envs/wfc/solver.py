@@ -326,15 +326,17 @@ def wfc_solve(
     hooks = (on_choice, on_observe, on_propagate, on_backtrack)
     device = resolve_device(generator, device)
     w, h = shape
-    adj = torch.as_tensor(np.asarray(adj) if not isinstance(adj, torch.Tensor) else adj, device=device)
-    weights = torch.as_tensor(np.asarray(weights, np.float32) if not isinstance(weights, torch.Tensor) else weights)
-    weights = weights.to(device=device, dtype=torch.float32)
     seeds = draw_seeds(generator, int(num_waves), device)
     if device.type == "cpu" or plain:
+        adj = torch.as_tensor(np.asarray(adj) if not isinstance(adj, torch.Tensor) else adj, device=device)
+        weights = torch.as_tensor(np.asarray(weights, np.float32) if not isinstance(weights, torch.Tensor) else weights)
+        weights = weights.to(device=device, dtype=torch.float32)
         grid, ok, stats = wfc_solve_reference(
             seeds, adj, weights, shape, periodic, max_attempts, loc_heuristic, choice_heuristic, backtracking, *hooks
         )
     else:
+        # The kernel's wrapper reads adj on the host and keeps its tables on
+        # the card.
         if any(f is not None for f in hooks):
             raise ValueError("the event hooks run in the plain version: pass plain=True")
         order = _static_order(loc_heuristic, w, h, device) if loc_heuristic in ("spiral", "hilbert") else None

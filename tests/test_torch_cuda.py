@@ -1020,13 +1020,14 @@ WFC_HEURISTICS = [
 ]
 
 
-def _wfc_both(device, preset, n, shape, loc="entropy", choice="weighted", backtracking=False):
-    t = build_tables(WFC_PRESETS_ALL[preset])
-    periodic = WFC_PRESETS_ALL[preset].output_periodic
-    gen = torch.Generator(device=device).manual_seed(7)
+def _wfc_pair(device, adj, weights, n, shape, periodic, loc="entropy", choice="weighted", backtracking=False,
+              max_attempts=8, seed=9):
+    """The kernel's and the plain version's solves of n waves on the same
+    seeds; the kernel launched once, the plain version never."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     snapshot = gen.get_state()
     before = wk.KERNEL_LAUNCHES
-    args = (t["adj"], t["weights"], n, shape, periodic, 8, loc, choice, backtracking)
+    args = (adj, weights, n, shape, periodic, max_attempts, loc, choice, backtracking)
     got = wfc_solver.wfc_solve(gen, *args, with_stats=True)
     torch.cuda.synchronize()
     assert wk.KERNEL_LAUNCHES == before + 1
@@ -1036,21 +1037,110 @@ def _wfc_both(device, preset, n, shape, loc="entropy", choice="weighted", backtr
     return got, want
 
 
-@pytest.mark.parametrize("loc,choice,backtracking", WFC_HEURISTICS)
-def test_wfc_kernel_matches_plain_version_on_every_heuristic(device, loc, choice, backtracking):
-    got, want = _wfc_both(device, "MazeSimple", 96, (13, 11), loc, choice, backtracking)
+def _wfc_assert_same(got, want):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     for k, v in want[2].items():
         assert torch.equal(got[2][k], v), k
+
+
+def _wfc_both(device, preset, n, shape, loc="entropy", choice="weighted", backtracking=False):
+    t = build_tables(WFC_PRESETS_ALL[preset])
+    return _wfc_pair(device, t["adj"], t["weights"], n, shape, WFC_PRESETS_ALL[preset].output_periodic, loc, choice,
+                     backtracking, seed=7)
+
+
+@pytest.mark.parametrize("loc,choice,backtracking", WFC_HEURISTICS)
+def test_wfc_kernel_matches_plain_version_on_every_heuristic(device, loc, choice, backtracking):
+    got, want = _wfc_both(device, "MazeSimple", 96, (13, 11), loc, choice, backtracking)
+    _wfc_assert_same(got, want)
 
 
 @pytest.mark.parametrize("preset", sorted(WFC_PRESETS_ALL))
 def test_wfc_kernel_matches_plain_version_on_every_preset(device, preset):
     # Up to 229 patterns (Maze): four 64-bit words a cell.
     got, want = _wfc_both(device, preset, 8, (12, 12))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    for k, v in want[2].items():
-        assert torch.equal(got[2][k], v), k
+    _wfc_assert_same(got, want)
+
+
+def _wfc_full_blocks(device, p, shape, backtracking=False):
+    """The wave count that gives every SM one full block."""
+    props = torch.cuda.get_device_properties(device)
+    layout = wk.wfc_solve_layout(
+        p, *shape, backtracking, 1 << 20, props.multi_processor_count, props.shared_memory_per_block_optin
+    )
+    return layout["waves_per_block"] * props.multi_processor_count
+
+
+@pytest.mark.parametrize("count", ["one", "all blocks full less one", "all blocks full and one", "133"])
+def test_wfc_kernel_matches_plain_version_at_every_wave_count(device, count):
+    # MazeSimple at 23x23: one wave a block up to the SM count (133: two a
+    # block, the last block's range one wave short); about the count that
+    # fills every SM's block, warps idle on one side and warps taking a second
+    # wave on the other.
+    t = build_tables(WFC_PRESETS_ALL["MazeSimple"])
+    full = _wfc_full_blocks(device, t["adj"].shape[1], (23, 23))
+    n = {"one": 1, "all blocks full less one": full - 1, "all blocks full and one": full + 1, "133": 133}[count]
+    got, want = _wfc_pair(device, t["adj"], t["weights"], n, (23, 23), False)
+    assert got[0].shape == (n, 23, 23)
+    _wfc_assert_same(got, want)
+
+
+@pytest.mark.parametrize(
+    "preset,backtracking", [(preset, False) for preset in sorted(WFC_PRESETS_ALL)] + [("Maze", True)]
+)
+def test_wfc_kernel_matches_plain_version_on_every_preset_at_23x23(device, preset, backtracking):
+    # Up to 229 patterns (Maze, four words a cell, its snapshot too).
+    got, want = _wfc_both(device, preset, 4, (23, 23), backtracking=backtracking)
+    _wfc_assert_same(got, want)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("backtracking", [False, True])
+def test_wfc_kernel_takes_an_adjacency_that_is_not_symmetric(device, periodic, backtracking):
+    # adj[d] != adj[(d + 2) % 4].T: the support table is adj transposed, not
+    # the opposite direction's rows.  Contradictions, restarts and bans.
+    rng = np.random.default_rng(12)
+    adj = rng.random((4, 9, 9)) < 0.55
+    assert not all(np.array_equal(adj[d], adj[(d + 2) % 4].T) for d in range(4))
+    weights = rng.integers(1, 6, 9).astype(np.float32)
+    got, want = _wfc_pair(device, adj, weights, 200, (9, 7), periodic, backtracking=backtracking, max_attempts=3)
+    assert int(want[2]["contradictions"].sum()) > 0
+    _wfc_assert_same(got, want)
+
+
+def test_wfc_kernel_takes_its_tables_from_the_host_or_the_card(device):
+    # The wrapper reads adj on the host and keeps its tables on the card once
+    # made; tensors on the card give the same solves.
+    t = build_tables(WFC_PRESETS_ALL["DungeonMazeScaled"])
+    host = _wfc_pair(device, t["adj"], t["weights"], 64, (13, 11), True)
+    card = _wfc_pair(device, torch.as_tensor(t["adj"], device=device), torch.as_tensor(t["weights"], device=device),
+                     64, (13, 11), True)
+    _wfc_assert_same(host[0], host[1])
+    _wfc_assert_same(card[0], host[0])
+    _wfc_assert_same(card[1], host[1])
+
+
+def test_wfc_layout_matches_its_python_mirror(device):
+    lib = load_library("wfc_solve")
+    layout = lib.wfc_solve_layout
+    layout.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    layout.restype = ctypes.c_int
+    one = lib.wfc_solve_smem_bytes
+    one.argtypes, one.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    props = torch.cuda.get_device_properties(device)
+    sms, limit = props.multi_processor_count, props.shared_memory_per_block_optin
+    patterns = {build_tables(c)["adj"].shape[1] for c in WFC_PRESETS_ALL.values()} | {1, 64, 65, 256}
+    keys = ("block_bytes", "wave_bytes", "waves_per_block", "smem_bytes")
+    for p in sorted(patterns):
+        for size in (5, 12, 23, 41):
+            for backtracking in (0, 1):
+                for n in (1, 64, sms, sms + 1, 3037, 20480):
+                    out = (ctypes.c_longlong * 4)()
+                    err = layout(p, size, size, backtracking, n, sms, limit, out)
+                    want = wk.wfc_solve_layout(p, size, size, backtracking, n, sms, limit)
+                    assert list(out) == [want[k] for k in keys], (p, size, backtracking, n)
+                    assert (err == 0) == (want["waves_per_block"] > 0)
+                assert one(p, size, size, backtracking) == want["block_bytes"] + want["wave_bytes"]
 
 
 def test_wfc_kernel_rejects_what_it_does_not_take(device):

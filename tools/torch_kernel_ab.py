@@ -1,4 +1,5 @@
-"""Time the port's rollout kernels in two checkouts, in turns, on one card.
+"""Time the port's rollout kernels and WFC solver in two checkouts, in turns,
+on one card.
 
     python tools/torch_kernel_ab.py PARENT_TREE CHANGE_TREE
 
@@ -8,7 +9,8 @@ change, parent, each in its own process that imports the port from that
 tree and builds its kernels there.  Every run prints one JSON line: the
 card, the tree and, per row, the time of one whole wrapper call in ms
 (CUDA events around 5 calls after a warm-up, as ``chip_smoke.py`` times
-them), on the same inputs in both trees (drawn from seed 0):
+them; the solver rows around 3, 10 and 20), on the same inputs in both
+trees (drawn from seed 0):
 
 - ``k1[<id> obs=off|on]``: the random-policy rollout kernel (K1) on every
   family of ``chip_smoke.py``'s slices at their sizes: 65536 envs x 256
@@ -18,7 +20,11 @@ them), on the same inputs in both trees (drawn from seed 0):
   over [0, max_steps) and R from ``reset_budget.resets_for``;
 - ``k2[<id>]``: the actor rollout kernel (K2), 8192 envs x 128 steps,
   hidden 256, on MiniGrid-Empty-8x8-v0 with a two-slot reset cache and on
-  MiniGrid-Dynamic-Obstacles-8x8-v0 with reset seeds.
+  MiniGrid-Dynamic-Obstacles-8x8-v0 with reset seeds;
+- ``wfc[MazeSimple n=<N>]``: the WFC solver kernel through
+  ``envs/wfc/solver.wfc_solve`` on N = 20480 (a reset cache's chunk), 64
+  (bench.py's batch) and 1 (a gym shim reset) MazeSimple waves of 23x23,
+  the seeds drawn from seed 0.
 
 Needs a CUDA card.
 """
@@ -44,6 +50,8 @@ K1_ROWS = (
     ("BabyAI-GoTo-v0", 16384, True),
 )
 K2_IDS = ("MiniGrid-Empty-8x8-v0", "MiniGrid-Dynamic-Obstacles-8x8-v0")
+# WFC solver rows: waves, and calls a timing.
+WFC_ROWS = ((20480, 3), (64, 10), (1, 20))
 STEPS = 256
 
 
@@ -68,6 +76,8 @@ def time_tree(tree: str) -> dict:
 
     import minigrid_tpu_torch as mgt
     from minigrid_tpu_torch.core.sampling import randint
+    from minigrid_tpu_torch.envs.wfc import solver as wfc_solver
+    from minigrid_tpu_torch.envs.wfc.preprocess import WFC_PRESETS, preset_tables
     from minigrid_tpu_torch.ops import actor_rollout as ar
     from minigrid_tpu_torch.ops import fused_rollout as fr
     from minigrid_tpu_torch.ops.prng import draw_seeds
@@ -108,6 +118,16 @@ def time_tree(tree: str) -> dict:
             cache, seeds = env.batch_reset_cache(8192, 2, gen), None
         call = lambda: ar.fused_actor_rollout_core(env, weights, states, cache, noise, seeds)  # noqa: E731
         times[f"k2[{env_id}]"] = _time_ms(call, 5)
+
+    t, config = preset_tables("MazeSimple"), WFC_PRESETS["MazeSimple"]
+    for n, reps in WFC_ROWS:
+        gen = torch.Generator(device=dev)
+
+        def call():
+            gen.manual_seed(0)
+            wfc_solver.wfc_solve(gen, t["adj"], t["weights"], n, (23, 23), config.output_periodic, device=dev)
+
+        times[f"wfc[MazeSimple n={n}]"] = _time_ms(call, reps)
     return {"device": torch.cuda.get_device_name(0), "tree": tree, "ms": times}
 
 
