@@ -191,20 +191,28 @@ def _import(tree: Path | None):
     return mgt
 
 
-def _solve(preset: str, n: int, size: int, device, seed: int, plain: bool, **config):
-    import torch
-
-    from minigrid_tpu_torch.envs.wfc import solver
+def problem(preset: str, size: int) -> tuple:
+    """``envs/wfc/solver.wfc_solve``'s arguments after the waves' count for
+    ``preset`` at ``size`` x ``size``: the adjacency and weights of its
+    patterns, the shape and its periodicity."""
     from minigrid_tpu_torch.envs.wfc.preprocess import WFC_PRESETS_ALL, build_tables
 
     c = WFC_PRESETS_ALL[preset]
     t = build_tables(c)
+    return t["adj"], t["weights"], (size, size), c.output_periodic
+
+
+def _solve(preset: str, n: int, size: int, device, seed: int, plain: bool, **config):
+    import torch
+
+    from minigrid_tpu_torch.envs.wfc import solver
+
+    adj, weights, shape, periodic = problem(preset, size)
     gen = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = solver.wfc_solve(
-        gen, t["adj"], t["weights"], n, (size, size), c.output_periodic, with_stats=True, device=device,
-        plain=plain, **config,
+        gen, adj, weights, n, shape, periodic, with_stats=True, device=device, plain=plain, **config,
     )
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
