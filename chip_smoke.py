@@ -269,9 +269,24 @@ Phases, one output line each; any failure raises and exits non-zero:
    call, the PPO step's marginal within a factor of 1.5 of phase 7's train
    step and between 0.75 of its longer phase and 1.25 of rollout plus
    update, the card's busy time of rollout plus update within 25% of the
-   step's; at most 90 s.
+   step's; at most 90 s;
+36. a family written outside the package: ``TurnsEnv`` below (the
+   tutorial's 8x8 room with a random start, its own mission through
+   ``register_mission`` and one extra scalar, ``turns``: four left or right
+   turns in a row end the episode with reward 0), its CUDA twin
+   ``TURNS_HEADER`` written to a temporary directory and built into the
+   rollout and actor kernels as ``EXT_USER`` (the build's seconds and
+   ptxas' registers and spills of both instantiations); its R measured with
+   ``tools/measure_reset_budget.py`` and passed explicitly; 65536 envs x 256
+   steps through ``rollout_random`` and ``fused_rollout`` (obs off and on,
+   two launches) held to the plain version on the replayed actions and
+   cache (every state field, ``turns``, ``max_used``, the episode count and
+   the checksum exact, the reward to rtol 1e-5), the chain certified, both
+   timed; two PPO train steps on it at 8192 x 128, hidden 256 (launches
+   1/1/9/8 a step), the last trajectory held to the actor kernel's three
+   contracts, the actor kernel timed against its plain version.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34, 36) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
@@ -323,14 +338,26 @@ from minigrid_tpu_torch import wrappers as wr
 from minigrid_tpu_torch.compat import gym_make
 from minigrid_tpu_torch.compat.parity import parity_reset
 from minigrid_tpu_torch.core import obs as obs_lib
-from minigrid_tpu_torch.core.constants import OBJ_EMPTY, OBJ_GOAL, OBJ_WALL, cell_type, see_behind, unpack_grid
+from minigrid_tpu_torch.core.constants import (
+    GOAL_CELL,
+    OBJ_EMPTY,
+    OBJ_GOAL,
+    OBJ_WALL,
+    cell_type,
+    see_behind,
+    unpack_grid,
+)
+from minigrid_tpu_torch import registry
+from minigrid_tpu_torch.core import grid as grid_ops
 from minigrid_tpu_torch.core.env import MiniGridEnv
+from minigrid_tpu_torch.core.mission import mission_vec, register_mission
 from minigrid_tpu_torch.core.obs import process_vis
-from minigrid_tpu_torch.core.sampling import randint
-from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
+from minigrid_tpu_torch.core.sampling import place_obj_pos, randint
+from minigrid_tpu_torch.core.state import FIELDS, new_state, tree_leaves
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
+from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.ops import wfc_solve as wk
@@ -341,12 +368,12 @@ from minigrid_tpu_torch.envs.wfc import wfcenv
 from minigrid_tpu_torch.manual_control import ManualControl
 from minigrid_tpu_torch.parallel import mesh as pmesh
 from minigrid_tpu_torch.parallel import mp_worker, scaling
-from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, learner_resets, resets_for
+from minigrid_tpu_torch.parallel.reset_budget import assert_chain_covered, covering_resets, learner_resets, resets_for
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_capacity, rollout_random
 from minigrid_tpu_torch.rl.impala import IMPALAConfig, make_impala
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
-from minigrid_tpu_torch.tools import profiler, rollout_split
+from minigrid_tpu_torch.tools import measure_reset_budget, profiler, rollout_split
 from minigrid_tpu_torch.tools.roofline import (
     CUDA_CORE_OPS_PER_S,
     THREEFRY_OPS,
@@ -774,7 +801,7 @@ def counter_slice(env_id: str, device, card: str) -> dict:
     for compute_obs in (False, True):
         k = partial(fr.fused_rollout_core, env, states, None, actions, compute_obs, seeds)
         p = partial(fr.fused_rollout_reference, env, states, None, actions, compute_obs, seeds)
-        tp1, tk1, tk2, tp2 = time_ms(p, 1), time_ms(k, 5), time_ms(k, 5), time_ms(p, 1)
+        tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
         times[compute_obs] = (min(tk1, tk2), min(tp1, tp2))
         k_ms, p_ms = times[compute_obs]
         print(
@@ -1049,8 +1076,8 @@ def learner_launches(num_minibatches: int, impala: bool = False) -> tuple[int, i
     return 1, 1, fwd, num_minibatches
 
 
-def train_and_keep_last(train_step, state, gen, want, what: str):
-    """``PPO_TRAIN_STEPS`` train steps, each step's launches (actor,
+def train_and_keep_last(train_step, state, gen, want, what: str, steps: int = PPO_TRAIN_STEPS):
+    """``steps`` train steps, each step's launches (actor,
     observation, embed fwd, embed bwd) held to ``want``, its losses to
     finite values and its reset budget to no replayed level (``replayed``
     0; the learner grows R from its chunks).  The last step runs as its two
@@ -1059,9 +1086,9 @@ def train_and_keep_last(train_step, state, gen, want, what: str):
     (state, launches of one step, (model, states0, snapshot, final, traj,
     metrics)) for that last step."""
     per_step = []
-    for i in range(PPO_TRAIN_STEPS):
+    for i in range(steps):
         before = launch_counts()
-        if i < PPO_TRAIN_STEPS - 1:
+        if i < steps - 1:
             state, metrics = train_step(state)
         else:
             model = copy.deepcopy(state.params)
@@ -1186,7 +1213,7 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
     # kernels and through the plain versions.
     k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
     p2 = partial(plain_only, ar.actor_rollout_reference, env, weights, states0, cache, noise)
-    tp1, tk1, tk2, tp2 = time_ms(p2, 1), time_ms(k2, 5), time_ms(k2, 5), time_ms(p2, 1)
+    tp1, tk1, tk2, tp2 = event_ms(p2), time_ms(k2, 5), time_ms(k2, 5), event_ms(p2)
     k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
     print(
         f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms",
@@ -2538,7 +2565,7 @@ def k1_at(env, n: int, steps: int, seed: int, device):
     timed in turns.  Returns ((kernel ms, plain ms, bound, max abs err,
     episodes, R), the states it started from)."""
     check(fused_eligible(env, device), f"{env.env_id} must take the kernel on {device}")
-    resets = resets_for(env, steps)
+    resets = rollout_capacity(env, steps, device)  # rollout_random's default R
     gen = torch.Generator(device=device).manual_seed(seed)
     _, states = env.reset(n, gen)
     snapshot = gen.get_state()
@@ -2881,6 +2908,234 @@ def profiler_check(
     ]
 
 
+# Phase 36: a family written outside the package.  Its CUDA twin, a struct
+# deriving from NoExt as the headers of minigrid_tpu_torch/ops/csrc/ext/ do,
+# is written to a temporary directory and built in as EXT_USER.
+TURNS_ID = "MiniGrid-Turns-8x8-v0"
+TURNS_MISSION = "you must reach the goal square"
+MAX_TURNS = 4
+TURNS_STRUCT = "TurnsExt"
+TURNS_HEADER = r"""// Turns: four left or right turns in a row end the episode with reward 0.
+#pragma once
+
+#include "fused_ext.cuh"
+
+namespace minigrid {
+
+struct TurnsExt : NoExt {
+  // No objects, a static mission, occluding walls.
+  static constexpr int SWITCHES[3] = {1, 1, 0};
+  static constexpr int MAX_K = 1;
+
+  struct Extra {
+    int turns;
+  };
+
+  __device__ static Extra load(const int* scal, int n, size_t, const ExtParams&) { return Extra{scal[n]}; }
+
+  __device__ static void store(int* scal, int n, size_t, const ExtParams&, const Extra& x) { scal[n] = x.turns; }
+
+  __device__ static bool post_step(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
+    x.turns = (ctx.action == ACT_LEFT || ctx.action == ACT_RIGHT) ? x.turns + 1 : 0;
+    const bool dizzy = x.turns >= 4;
+    if (dizzy) reward = 0.0f;
+    return dizzy;
+  }
+};
+
+}  // namespace minigrid
+"""
+USER_PPO_STEPS = 2
+USER_BUDGET_CHUNKS = 4
+USER_SOURCE = SOURCE + " with chip_smoke.py's TURNS_HEADER"
+USER_ACTOR_SOURCE = ACTOR_SOURCE + " with chip_smoke.py's TURNS_HEADER"
+
+
+class TurnsFusedExt(fx.CachedExt):
+    """The plain twin of ``TurnsExt``: ``turns`` is blended from the reset
+    cache at every reset."""
+
+    n_scalars = 1
+    kernel_id = fx.EXT_USER
+    kernel_struct = TURNS_STRUCT
+    kernel_switches = (True, True, False)
+
+    def __init__(self, header: str):
+        self.kernel_source = header
+
+    def pack_extra(self, env, extra):
+        return extra["turns"][..., None].to(torch.int32)
+
+    def unpack_extra(self, env, scal, planes=None):
+        return {"turns": scal[..., 0]}
+
+    def post_step(self, env, prev, state, action, reward, scal):
+        turning = (action == 0) | (action == 1)  # left, right
+        turns = torch.where(turning, scal[:, 0] + 1, 0).to(torch.int32)
+        dizzy = turns >= MAX_TURNS
+        return dizzy, torch.where(dizzy, 0.0, reward), turns[:, None]
+
+
+class TurnsEnv(MiniGridEnv):
+    """The tutorial's 8x8 room (walls, the goal at (6, 6)) with a random
+    start cell and direction, its own mission and ``turns``."""
+
+    fused_no_objects = True
+    fused_static_mission = True
+
+    def __init__(self, header: str, size: int = 8, max_steps: int = 256, **kwargs):
+        super().__init__(width=size, height=size, max_steps=max_steps, **kwargs)
+        self.fused_ext = TurnsFusedExt(header)
+        self.mission_id = register_mission(TURNS_MISSION)
+
+    def _generate(self, num_envs, generator, device):
+        w, h = self.width, self.height
+        grid = grid_ops.wall_rect(grid_ops.empty_grid(num_envs, w, h, device), 0, 0, w, h)
+        grid = grid_ops.set_cell(grid, w - 2, h - 2, GOAL_CELL)
+        return new_state(
+            grid,
+            place_obj_pos(generator, grid),
+            randint(generator, num_envs, 0, 4, device),
+            self.max_steps,
+            mission=mission_vec(self.mission_id),
+            extra={"turns": torch.zeros(num_envs, dtype=torch.int32, device=device)},
+        )
+
+    def _post_step(self, prev, state, action, reward):
+        return self.fused_ext.apply_post_step(self, prev, state, action, reward)
+
+
+def user_ext_check(device, card: str) -> list[dict]:
+    """Phase 36: ``TurnsEnv`` through the rollout and actor kernels built
+    with its own header (see the module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="turns-ext-") as tmp:
+        header = str(Path(tmp) / "turns.cuh")
+        Path(header).write_text(TURNS_HEADER)
+        names = ("fused_rollout", "actor_rollout")
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            list(pool.map(lambda name: _build.load_library(name, header, TURNS_STRUCT), names))
+        build_s = time.perf_counter() - t0
+        reports = []
+        for name in names:
+            seconds, log = _build.BUILD_INFO[f"{name}[{TURNS_STRUCT}]"]
+            reports.append(f"{name} in {seconds:.1f} s: {ptxas_report(name, log)}")
+        print(f"phase 36 user ext build ({card}): both libraries in {build_s:.1f} s; " + "; ".join(reports), flush=True)
+        mgt.register(TURNS_ID, TurnsEnv, header=header)
+        try:
+            return _user_ext_slices(device, card, header)
+        finally:
+            del registry._REGISTRY[TURNS_ID]
+
+
+def _user_ext_slices(device, card: str, header: str) -> list[dict]:
+    t0 = time.perf_counter()
+    env = mgt.make(TURNS_ID)
+    check(fused_eligible(env, device) and fr.compiled_ext(env), f"{TURNS_ID} must take the kernel on {device}")
+    budget = measure_reset_budget.measure(TURNS_ID, NUM_ENVS, NUM_STEPS, USER_BUDGET_CHUNKS, False, device)
+    # The measured maximum is per 256-step chunk, as a row of
+    # MEASURED_MAX_EPISODES_256 is, and R covers it with that rule's margin.
+    resets = covering_resets(budget["max"], 256)
+    print(
+        f"phase 36 reset budget ({card}) {TURNS_ID} {NUM_ENVS} x {NUM_STEPS}, {USER_BUDGET_CHUNKS} chunks "
+        f"(tools/measure_reset_budget.py): most episodes of an env per chunk {budget['per_chunk_max']}, mean "
+        f"{budget['mean_episodes_per_chunk']:.4f}, certified at R {budget['certified_at_R']}; R={resets}",
+        flush=True,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(36)
+    _, states = env.reset(NUM_ENVS, gen)
+    states = states.replace(step_count=randint(gen, NUM_ENVS, 0, states.max_steps))
+    snap_random = gen.get_state()
+    fr.KERNEL_LAUNCHES = 0
+    out_random = rollout_random(env, states, gen, NUM_STEPS, resets)
+    snap_obs = gen.get_state()
+    out_obs = fr.fused_rollout(env, states, gen, NUM_STEPS, resets, compute_obs=True)
+    torch.cuda.synchronize()
+    launches = fr.KERNEL_LAUNCHES
+    check(launches == 2, f"{TURNS_ID}: the slice launched the rollout kernel {launches} times, expected 2")
+    final, total_r, total_done, max_used = out_random
+    check(np.isfinite(float(total_r)) and int(total_done) >= NUM_ENVS, f"{TURNS_ID}: episode count")
+    check(int(final.extra["turns"].max()) < MAX_TURNS, f"{TURNS_ID}: an env kept {MAX_TURNS} turns")
+    _, _, plain_random = replay_rollout(env, states, snap_random, False, resets, NUM_STEPS)
+    err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{TURNS_ID} rollout_random")
+    actions, cache, plain_obs = replay_rollout(env, states, snap_obs, True, resets, NUM_STEPS)
+    err = max(err, compare(out_obs, plain_obs, f"{TURNS_ID} fused_rollout compute_obs"))
+    observed = max(int(max_used), int(out_obs[4]))
+    check(observed <= resets, f"{TURNS_ID}: an env used {observed} slots with R={resets}: levels replayed")
+
+    def chunk(carry):
+        st, g = carry
+        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS, resets)
+        return (st, g), (r, d, mu)
+
+    chain = assert_chain_covered(chunk, (final, gen), resets, env)
+    times, spun = {}, {}
+    for compute_obs in (False, True):
+        k = partial(fr.fused_rollout_core, env, states, cache, actions, compute_obs)
+        p = partial(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
+        tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
+        times[compute_obs] = (min(tk1, tk2), min(tp1, tp2))
+        # The card's work alone, behind a spin, and the wrapper's host time.
+        spun[compute_obs] = (device_ms(k, 5), host_us(k, 5))
+    episodes = int(fr.fused_rollout_core(env, states, cache, actions, False)[2])
+    k1_bound = bound(rollout_bytes(env, states, NUM_STEPS, levels_read(episodes, NUM_ENVS, resets)), 0.0)
+    for compute_obs, (k_ms, p_ms) in times.items():
+        print(
+            f"steps/s ({card}) {TURNS_ID} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: kernel "
+            f"{NUM_ENVS * NUM_STEPS / k_ms * 1e3:.6g} ({k_ms:.4f} ms; behind a spin {spun[compute_obs][0]:.4f} ms, "
+            f"the wrapper's host time {spun[compute_obs][1]:.1f} us a call), plain "
+            f"{NUM_ENVS * NUM_STEPS / p_ms * 1e3:.6g} ({p_ms:.4f} ms), kernel/plain speed {p_ms / k_ms:.3g}x"
+            + (f", bound {k1_bound[0]:.4f} ms ({k1_bound[1]})" if not compute_obs else ""),
+            flush=True,
+        )
+    phase(
+        36,
+        f"{TURNS_ID} (EXT_USER {TURNS_STRUCT}, its own header) {NUM_ENVS} envs x {NUM_STEPS} steps: {launches} kernel "
+        f"launches, outputs and turns == plain version, {int(total_done)} episodes, reward {float(total_r)}, R={resets} "
+        f"covered (max used {observed}, chain {chain})",
+    )
+    k1_entry = kernel_entry(
+        f"fused_rollout[EXT_USER {TURNS_STRUCT}: {TURNS_ID}]", USER_SOURCE, REPLACES, launches, err, *times[False],
+        k1_bound,
+    )
+
+    config = PPOConfig(rollout_steps=PPO_STEPS, resets_per_chunk=resets)
+    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), f"{TURNS_ID} must take the actor kernel")
+    zero_launch_counts()
+    want = learner_launches(config.num_minibatches)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {TURNS_ID}", USER_PPO_STEPS)
+    launches_k2 = ar.KERNEL_LAUNCHES
+    weights, states0, cache, _, noise, err2, ties = check_last_trajectory(env, last, device, f"PPO {TURNS_ID}")
+    k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
+    p2 = partial(plain_only, ar.actor_rollout_reference, env, weights, states0, cache, noise)
+    tp1, tk1, tk2, tp2 = event_ms(p2), time_ms(k2, 5), time_ms(k2, 5), event_ms(p2)
+    k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
+    episodes = int(last[4].done.sum())
+    k2_bound = actor_bound(env, states0, weights, PPO_STEPS, episodes, resets)
+    print(
+        f"actor_rollout ({card}) {TURNS_ID} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms, "
+        f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})",
+        flush=True,
+    )
+    phase(
+        36,
+        f"PPO {TURNS_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {USER_PPO_STEPS} train steps, "
+        f"launches per step {per_step}, last metrics { {k: float(v) for k, v in last[5].items()} }; actor kernel on "
+        f"step {USER_PPO_STEPS} == plain versions (logp/value max abs err {err2}, {ties} near-ties of "
+        f"{PPO_STEPS * PPO_ENVS}, {episodes} episodes, R={resets}); the phase took {time.perf_counter() - t0:.1f} s "
+        "after the build",
+    )
+    k2_entry = kernel_entry(
+        f"actor_rollout[EXT_USER {TURNS_STRUCT}: {TURNS_ID}]", USER_ACTOR_SOURCE, ACTOR_REPLACES, launches_k2, err2,
+        k2_ms, p2_ms, k2_bound,
+    )
+    return [k1_entry, k2_entry]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument(
@@ -3054,13 +3309,15 @@ def main() -> None:
     mesh_entries = mesh_check(device, card, actor_entry, embed_entries)
     print(f"phase 35 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
     profiler_entries = profiler_check(device, card, rollout_entry, actor_entry, embed_entries, obs_entry, solver_entry)
+    print(f"phase 36 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    user_entries = user_ext_check(device, card)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
             actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
             keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, shim_entry,
             solver_entry, shim_solver_entry, demo_entry, *resume_entries, *cli_entries, *mesh_entries,
-            *profiler_entries,
+            *profiler_entries, *user_entries,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 from minigrid_tpu_torch.core.actions import Actions
 from minigrid_tpu_torch.core.env import MiniGridEnv
+from minigrid_tpu_torch.core.mission import MissionSpace
 from minigrid_tpu_torch.core.state import EnvState
 from minigrid_tpu_torch.registry import make, register, registered_ids
 
 from minigrid_tpu_torch import envs as _envs  # noqa: F401  (populates the registry)
 
-__all__ = ["Actions", "EnvState", "MiniGridEnv", "make", "register", "registered_ids"]
+__all__ = ["Actions", "EnvState", "MiniGridEnv", "MissionSpace", "make", "register", "registered_ids"]

@@ -2,13 +2,19 @@
 template id and whose other slots are template parameters.
 
 The JAX package assigns template ids in the order its env modules register
-them (``minigrid_tpu/core/mission.py:28-40``).  This package registers only a
-few families, so it holds the JAX package's whole table, in that order, and
-its ids stay the same: "get to the green goal square" is id 2.
+them (``minigrid_tpu/core/mission.py:28-40``).  This package starts from the
+JAX package's whole built-in table, in that order, so its ids stay the same:
+"get to the green goal square" is id 2.  A family written outside the
+package adds its own templates with ``register_mission``, which appends to
+the same table; every reader of the table reads it live.  ``MissionSpace``
+is the reference's host-side space of mission strings.
 """
 
 from __future__ import annotations
 
+from itertools import product
+
+import numpy as np
 import torch
 
 from minigrid_tpu_torch.core.constants import IDX_TO_COLOR, IDX_TO_OBJECT
@@ -20,8 +26,9 @@ PARAM_INT = "int"
 
 _C, _T = PARAM_COLOR, PARAM_TYPE
 
-# (template, parameter kinds), indexed by template id.
-TEMPLATES: tuple[tuple[str, tuple[str, ...]], ...] = (
+# (template, parameter kinds), indexed by template id: the 22 built-in
+# templates, then those that ``register_mission`` appends.
+TEMPLATES: list[tuple[str, tuple[str, ...]]] = [
     ("avoid the lava and get to the green goal square", ()),
     ("find the opening and get to the green goal square", ()),
     ("get to the green goal square", ()),
@@ -47,8 +54,27 @@ TEMPLATES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("put the {0} {1} near the {2} {3}", (_C, _T, _C, _T)),
     ("open the red door then the blue door", ()),
     ("traverse the maze to get to the goal", ()),
-)
+]
 _TEMPLATE_IDS = {t: i for i, t in enumerate(TEMPLATES)}
+
+
+def register_mission(template: str, params: tuple[str, ...] = ()) -> int:
+    """Register a mission template; returns its stable global id, the
+    existing one for a template already in the table
+    (``minigrid_tpu/core/mission.py:28-40``).
+
+    ``template`` is a ``str.format`` string with positional slots, e.g.
+    ``"go get a {0} {1}"`` with params ("color", "type").
+    """
+    key = (template, tuple(params))
+    if key not in _TEMPLATE_IDS:
+        _TEMPLATE_IDS[key] = len(TEMPLATES)
+        TEMPLATES.append(key)
+    return _TEMPLATE_IDS[key]
+
+
+def num_templates() -> int:
+    return len(TEMPLATES)
 
 
 def template_id(template: str, params: tuple[str, ...] = ()) -> int:
@@ -155,3 +181,59 @@ def mission_word_tokens(mission: torch.Tensor, tables: dict[str, torch.Tensor]) 
         )
         toks = torch.where(toks == -(s + 1), word[:, None], toks)
     return toks
+
+
+class MissionSpace:
+    """Host-side space of templated mission strings: the reference's public
+    ``MissionSpace`` API (minigrid/core/mission.py:14-199; the JAX package's
+    ``minigrid_tpu/core/mission.py:164-235``).
+
+    ``mission_func`` maps one value per placeholder list to a mission
+    string; ``ordered_placeholders`` is a list of candidate-string lists (or
+    None for a constant mission).  ``sample`` draws placeholder values
+    uniformly from a numpy generator; ``contains`` tries every placeholder
+    combination.
+    """
+
+    def __init__(self, mission_func, ordered_placeholders=None, seed=None):
+        if ordered_placeholders is not None:
+            assert len(ordered_placeholders) == mission_func.__code__.co_argcount, (
+                "the number of placeholder lists must equal the number of mission_func parameters"
+            )
+            for placeholder_list in ordered_placeholders:
+                assert len(placeholder_list) == len(set(placeholder_list)), f"duplicate placeholders in {placeholder_list}"
+        self.mission_func = mission_func
+        self.ordered_placeholders = ordered_placeholders
+        self._rng = np.random.default_rng(seed)
+
+    def seed(self, seed=None):
+        self._rng = np.random.default_rng(seed)
+
+    def sample(self) -> str:
+        if self.ordered_placeholders is None:
+            return self.mission_func()
+        picks = [placeholders[self._rng.integers(0, len(placeholders))] for placeholders in self.ordered_placeholders]
+        return self.mission_func(*picks)
+
+    def contains(self, x) -> bool:
+        """Whether ``x`` is a string this space produces."""
+        if not isinstance(x, str):
+            return False
+        if self.ordered_placeholders is None:
+            return x == self.mission_func()
+        return any(self.mission_func(*combo) == x for combo in product(*self.ordered_placeholders))
+
+    def __repr__(self):
+        return f"MissionSpace({self.mission_func!r}, {self.ordered_placeholders!r})"
+
+    def __eq__(self, other):
+        if not isinstance(other, MissionSpace):
+            return False
+        if (self.ordered_placeholders is None) != (other.ordered_placeholders is None):
+            return False
+        if self.ordered_placeholders is None:
+            return self.mission_func() == other.mission_func()
+        if list(map(tuple, self.ordered_placeholders)) != list(map(tuple, other.ordered_placeholders)):
+            return False
+        probe = [p[0] for p in self.ordered_placeholders]
+        return self.mission_func(*probe) == other.mission_func(*probe)

@@ -31,7 +31,6 @@ from typing import NamedTuple
 import torch
 
 from minigrid_tpu_torch.core.state import FIELDS, EnvState, select, tree_leaves
-from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.ops.fused_rollout import (
     check_env_and_state,
     check_ext,
@@ -39,6 +38,7 @@ from minigrid_tpu_torch.ops.fused_rollout import (
     ext_buffers,
     fresh_episodes,
     from_env_minor,
+    kernel_library,
     to_env_minor,
     with_extra,
 )
@@ -385,7 +385,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
         "done": torch.empty((t, n), dtype=torch.bool, device=device),
     }
 
-    lib = load_library("actor_rollout")
+    lib = kernel_library("actor_rollout", env)
     _require(lib.actor_rollout_words(env.agent_view_size) == onehot_words(env.agent_view_size), "one-hot words")
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES

@@ -1,9 +1,19 @@
 // Every family ext of the whole-rollout kernels (fused_rollout.cu,
 // actor_rollout.cu), by kernel id (fused_ext.cuh's EXT_*, the Python side's
 // FusedExt.kernel_id).
+//
+// Built with MINIGRID_USER_EXT defined (ops/_build.load_library with a
+// header: -DMINIGRID_USER_EXT=<struct>, and an include directory holding
+// minigrid_user_ext.cuh, which includes the family's own header), the
+// library holds that one struct instead, as EXT_USER: a family written
+// outside the package pays for its own instantiations only.
 
 #pragma once
 
+#ifdef MINIGRID_USER_EXT
+#include "fused_ext.cuh"
+#include "minigrid_user_ext.cuh"
+#else
 #include "ext/babyai.cuh"
 #include "ext/crossing.cuh"
 #include "ext/dynamic_obstacles.cuh"
@@ -17,14 +27,25 @@
 #include "ext/red_blue_doors.cuh"
 #include "ext/unlock.cuh"
 #include "fused_ext.cuh"
+#endif
 
 namespace minigrid {
+
+#ifdef MINIGRID_USER_EXT
+static_assert(!MINIGRID_USER_EXT::COUNTER_RESET,
+              "a counter-reset ext from a user header is not supported yet (ROADMAP.md, Queue 1)");
+#endif
 
 // Calls f(Ext{}) with the ext struct of `ext_id`; does nothing for an
 // unknown id.
 template <class F>
 void with_ext(int ext_id, F&& f) {
   switch (ext_id) {
+#ifdef MINIGRID_USER_EXT
+    case EXT_USER:
+      f(MINIGRID_USER_EXT{});
+      break;
+#else
     case EXT_NONE:
       f(NoExt{});
       break;
@@ -64,7 +85,22 @@ void with_ext(int ext_id, F&& f) {
     case EXT_RED_BLUE_DOORS:
       f(RedBlueDoorsExt{});
       break;
+#endif
   }
 }
 
 }  // namespace minigrid
+
+// The ext of `ext_id` as this library compiled it, for the wrappers to hold
+// a family's Python twin to: out = {MAX_K, NUM_PLANES, SWITCHES[0..2]}.
+// Returns 0 for an id the library does not hold.
+extern "C" int minigrid_ext_layout(int ext_id, int* out) {
+  int found = 0;
+  minigrid::with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+    const int layout[5] = {Ext::MAX_K, Ext::NUM_PLANES, Ext::SWITCHES[0], Ext::SWITCHES[1], Ext::SWITCHES[2]};
+    for (int i = 0; i < 5; ++i) out[i] = layout[i];
+    found = 1;
+  });
+  return found;
+}

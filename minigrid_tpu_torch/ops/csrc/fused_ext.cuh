@@ -49,8 +49,9 @@
 //                            random-policy kernel).
 // NoExt is the default-hook family; a family derives from it and hides
 // what it changes, so each family is one header under ext/ (exts.cuh maps
-// kernel ids to them).  Runtime family parameters come in ExtParams, by
-// value.
+// kernel ids to them), or one header of its own outside the package, which
+// includes "fused_ext.cuh" and is built in as EXT_USER.  Runtime family
+// parameters come in ExtParams, by value.
 
 #pragma once
 
@@ -86,6 +87,8 @@ enum {
   EXT_MEMORY = 10,
   EXT_PUT_NEAR = 11,
   EXT_RED_BLUE_DOORS = 12,
+  // A family's own cached ext, from a header outside the package (exts.cuh).
+  EXT_USER = 100,
 };
 
 // A kernel switch (SWITCHES) that an ext leaves to the runtime flag.

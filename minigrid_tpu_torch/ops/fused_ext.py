@@ -15,6 +15,12 @@ them blended from the cache at every reset, with the rest of the level
 the family's ``_post_step`` runs (GoToObject, GoToDoor, Fetch) or that a
 test holds to the plain step it mirrors (BabyAI's ``verify_step``).
 
+A family written outside the package brings its twin as a header of its
+own (``kernel_source``, the struct in it ``kernel_struct``, ``kernel_id``
+``EXT_USER``): the kernels' wrappers build it into the rollout kernels at
+first use (``ops/_build.load_library``), and its Python hooks stay the
+plain twin.  Such a header is a cached ext for now.
+
 The counter-reset stream: every episode of an env draws from
 ``episode_seed(seed, ordinal)``, where ``seed`` is two int32 words fixed per
 env for a rollout and ``ordinal`` counts the env's resets so far; placement
@@ -35,6 +41,9 @@ from minigrid_tpu_torch.ops.prng import threefry2x32
 # collide with the obstacle walk's (step_count, i) counters.
 RESET_TAG = 0x72657365  # "rese"
 PLACE_TAG = 0x706C6163  # "plac"
+# The kernel id of an ext whose twin is a header outside the package
+# (``csrc/fused_ext.cuh``'s EXT_USER).
+EXT_USER = 100
 
 
 class FusedExt:
@@ -56,6 +65,13 @@ class FusedExt:
     # counter stream (``reset_block``), with no reset cache.
     covers_reset: bool = False
     kernel_id: int | None = None
+    # A family written outside the package: the path of its CUDA header and
+    # the struct in it (deriving from ``NoExt`` with ``load``, ``store``,
+    # ``map_action``, ``post_step`` or ``pre_step`` and ``MAX_K``,
+    # ``NUM_PLANES``, ``SWITCHES``, ``FRONT_BEFORE`` as it needs, as the
+    # headers of ``csrc/ext/`` do); ``kernel_id`` is then ``EXT_USER``.
+    kernel_source: str | None = None
+    kernel_struct: str | None = None
     # The kernel switches (no objects, static mission, see-through walls)
     # the compiled twin is instantiated at, None where it takes both: its
     # twin's ``SWITCHES`` (``csrc/fused_ext.cuh``).

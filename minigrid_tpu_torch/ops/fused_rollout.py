@@ -32,6 +32,7 @@ from minigrid_tpu_torch.core.env import MiniGridEnv, cache_slot
 from minigrid_tpu_torch.core.obs import view_and_vis
 from minigrid_tpu_torch.core.state import EnvState, select
 from minigrid_tpu_torch.ops._build import load_library
+from minigrid_tpu_torch.ops.fused_ext import EXT_USER
 from minigrid_tpu_torch.ops.prng import draw_seeds
 
 # View sizes the CUDA source instantiates (every registered family uses 7).
@@ -68,13 +69,16 @@ def counter_reset(env) -> bool:
 
 def compiled_ext(env) -> bool:
     """Whether the CUDA kernel has the family's ext: none needed, or a
-    compiled twin (``kernel_id``) whose sizes fit its slots
+    compiled twin (``kernel_id``; ``EXT_USER`` with the family's own header,
+    ``kernel_source``, built at first launch) whose sizes fit its slots
     (``kernel_params``) and whose ``kernel_switches`` the family's flags
     meet."""
     ext = env.fused_ext
     if ext is None:
         return True
     if ext.kernel_id is None or ext.kernel_params(env) is None:
+        return False
+    if (ext.kernel_id == EXT_USER) != (ext.kernel_source is not None):
         return False
     flags = (env.fused_no_objects, env.fused_static_mission, env.see_through_walls)
     return all(s is None or s == bool(f) for s, f in zip(ext.kernel_switches, flags))
@@ -184,6 +188,29 @@ def fresh_episodes(env, cache: EnvState | None, reset_seeds: torch.Tensor | None
     return env.fused_ext.reset_block(env, reset_seeds, used)
 
 
+def kernel_library(name: str, env):
+    """The library of rollout kernel ``name`` (``fused_rollout`` or
+    ``actor_rollout``) for ``env``: the built-in one, or the one built with
+    the family's own ext header (``FusedExt.kernel_source``), whose struct
+    must declare what the Python twin does (``ValueError`` otherwise)."""
+    ext = env.fused_ext
+    if ext is None or ext.kernel_source is None:
+        return load_library(name)
+    lib = load_library(name, ext.kernel_source, ext.kernel_struct)
+    layout = (ctypes.c_int * 5)()
+    _require(lib.minigrid_ext_layout(EXT_USER, layout) == 1, "the user library holds no EXT_USER", name)
+    switch = {1: True, 0: False, -1: None}
+    declared = (layout[0], layout[1], tuple(switch[v] for v in layout[2:]))
+    twin = (ext.n_scalars, ext.n_planes, tuple(ext.kernel_switches))
+    _require(
+        declared == twin,
+        f"{ext.kernel_struct} in {ext.kernel_source} declares MAX_K, NUM_PLANES, SWITCHES {declared}, its Python "
+        f"twin n_scalars, n_planes, kernel_switches {twin}",
+        name,
+    )
+    return lib
+
+
 def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
     if not cond:
         raise ValueError(f"{what} kernel: {message}")
@@ -192,11 +219,18 @@ def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
 def check_ext(env, states: EnvState, cache: EnvState | None, what: str) -> None:
     """Raise for an ext the kernels cannot run, and the plain versions with
     them: one with extra planes but no compiled twin, whose planes no
-    kernel would carry, and a cached ext whose state or reset cache lacks
-    its extra scalars or planes."""
+    kernel would carry, a counter-reset ext from a header of the family's
+    own (``NotImplementedError``), and a cached ext whose state or reset
+    cache lacks its extra scalars or planes."""
     ext, name = env.fused_ext, type(env).__name__
     if ext is None:
         return
+    if ext.kernel_source is not None and ext.covers_reset:
+        raise NotImplementedError(
+            f"{what}: {name}'s fused ext is a counter-reset ext from its own header ({ext.kernel_source}); the "
+            "kernels build a user header as a cached ext only (ROADMAP.md, Queue 1: \"A counter-reset ext from "
+            "a user header\")"
+        )
     _require(
         ext.n_planes == 0 or ext.kernel_id is not None,
         f"{name}'s fused ext carries {ext.n_planes} extra planes per env (P planes) and has no "
@@ -483,7 +517,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     rew = torch.zeros(n, dtype=torch.float32, device=device)
     done = torch.zeros_like(used)
 
-    lib = load_library("fused_rollout")
+    lib = kernel_library("fused_rollout", env)
     fn = lib.fused_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int

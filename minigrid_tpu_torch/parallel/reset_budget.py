@@ -279,12 +279,13 @@ def pool_size(env, num_steps: int, num_envs: int, env_id: str | None = None) -> 
     """Shared-pool capacity covering the aggregate episode count of one
     ``num_envs`` x ``num_steps`` chunk: the measured mean with a 30% margin
     plus a 6-sigma binomial term.  Ids without a measured mean fall back to
-    the per-env covering R."""
+    the per-env covering R of ``chunk_resets`` (the JAX package scales it
+    down for short chunks)."""
     if env_id is None:
         env_id = getattr(env, "env_id", None)
     mean = MEASURED_MEAN_EPISODES_256.get(env_id)
     if mean is None:
-        return num_envs * resets_for(env, num_steps, env_id)
+        return num_envs * chunk_resets(env, num_steps, env_id)
     agg = num_envs * mean * max(num_steps, 1) / 256
     return int(math.ceil(agg * 1.3 + 6 * math.sqrt(agg + 1) + 64))
 
@@ -308,15 +309,23 @@ def resets_for(env, num_steps: int, env_id: str | None = None) -> int:
     return covering_resets(measured, num_steps)
 
 
+def chunk_resets(env, num_steps: int, env_id: str | None = None) -> int:
+    """Covering resets for a chunk of ``num_steps``: the 256-step rule, not
+    scaled down, for any chunk of up to 256 steps.  A shorter window lies
+    inside some 256-step chunk, so the 256-step maximum bounds its
+    episodes, where the linear scaling of ``resets_for`` does not
+    (Fetch-8x8-N3 ended 9 episodes in a 128-step chunk against a scaled R
+    of 8, and one of 64 GoToDoor-5x5 envs 10 in a 16-step chunk against
+    9).  Longer chunks scale as ``resets_for`` does."""
+    return resets_for(env, max(num_steps, 256), env_id)
+
+
 def learner_resets(env, rollout_steps: int) -> int:
-    """Covering resets for a learner's chunk of ``rollout_steps``: the
-    256-step rule, not scaled down.  A shorter window lies inside some
-    256-step chunk, so the 256-step maximum bounds its episodes, where the
-    linear scaling of ``resets_for`` does not (Fetch-8x8-N3 ended 9 episodes
-    in a 128-step chunk against a scaled R of 8).  The rows come from a
-    uniform random policy and a learning one may end episodes faster, so
-    the learners report ``max_episodes_per_chunk`` to hold against it."""
-    return resets_for(env, max(rollout_steps, 256))
+    """Covering resets for a learner's chunk of ``rollout_steps``
+    (``chunk_resets``).  The rows come from a uniform random policy and a
+    learning one may end episodes faster, so the learners report
+    ``max_episodes_per_chunk`` to hold against it."""
+    return chunk_resets(env, rollout_steps)
 
 
 def check_pool(consumed: int, size: int) -> None:

@@ -12,7 +12,7 @@ import torch
 from minigrid_tpu_torch.core.env import cached_autoreset
 from minigrid_tpu_torch.core.state import resolve_device, select
 from minigrid_tpu_torch.ops.fused_rollout import COMPILED_VIEW_SIZES, compiled_ext, fused_rollout, supports_fused
-from minigrid_tpu_torch.parallel.reset_budget import check_pool, pool_size, resets_for
+from minigrid_tpu_torch.parallel.reset_budget import check_pool, chunk_resets, pool_size
 
 # Largest grid the kernel takes (MultiRoom-scale 25x25), as in the JAX gate.
 MAX_FUSED_CELLS = 625
@@ -134,16 +134,18 @@ def rollout_capacity(
     """The reset budget that ``rollout_random`` enforces for this
     configuration, which its ``max_used`` must stay within for a certified
     replay-free rollout (the JAX package's rule,
-    ``minigrid_tpu/parallel/vector.py:164-182``): the per-env covering R on
-    the fused path (``resets_per_chunk`` where given; a counter-reset
-    family's ``max_used`` is 0 there), the shared pool's size on the plain
+    ``minigrid_tpu/parallel/vector.py:164-182``, with the 256-step R for
+    short chunks): the per-env covering R on the fused path
+    (``resets_per_chunk`` where given, else ``reset_budget.chunk_resets``; a
+    counter-reset family's ``max_used`` is 0 there), the shared pool's size
+    on the plain
     path of an ``expensive_reset`` family (``plain_pool_size``, which needs
     ``num_envs``), and 0 on the per-step regeneration path, where nothing
     runs out."""
     if fused == "auto":
         fused = fused_eligible(env, device)
     if fused:
-        return resets_for(env, num_steps, env_id) if resets_per_chunk is None else int(resets_per_chunk)
+        return chunk_resets(env, num_steps, env_id) if resets_per_chunk is None else int(resets_per_chunk)
     if env.expensive_reset:
         if num_envs is None:
             raise ValueError("the shared pool's capacity depends on num_envs: pass it")
@@ -169,8 +171,9 @@ def rollout_random(
     regeneration path.  ``max_used <= rollout_capacity(...)`` certifies the
     chunk replay-free.  ``fused="auto"`` takes the CUDA kernel where
     ``fused_eligible`` says it runs, with a per-env cache of R =
-    ``resets_per_chunk`` levels (``reset_budget.resets_for`` where None; a
-    counter-reset family has no cache).  Otherwise every step is the batched
+    ``resets_per_chunk`` levels (``reset_budget.chunk_resets`` where None:
+    the 256-step R for any chunk of up to 256 steps; a counter-reset family
+    has no cache).  Otherwise every step is the batched
     ``step_env``: an ``expensive_reset`` family draws its resets from one
     shared pool (``make_pool_stepper``, sized by ``plain_pool_size``, drawn
     from ``generator`` before the first step; ``AssertionError`` where the
@@ -182,7 +185,7 @@ def rollout_random(
         fused = fused_eligible(env, states.device)
     if fused:
         if resets_per_chunk is None:
-            resets_per_chunk = resets_for(env, num_steps)
+            resets_per_chunk = chunk_resets(env, num_steps)
         final, total_r, total_done, _, max_used = fused_rollout(
             env, states, generator, num_steps, resets_per_chunk, compute_obs=False
         )

@@ -38,3 +38,8 @@ def make(env_id: str, **overrides: Any):
 
 def registered_ids() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def registry_entry(env_id: str):
+    """The (env class, kwargs) that ``env_id`` was registered with."""
+    return _REGISTRY[env_id]

@@ -32,6 +32,7 @@ from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.ops import wfc_solve as wk
+from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops._build import load_library
 from minigrid_tpu_torch.parallel.reset_budget import learner_resets
 from minigrid_tpu_torch.parallel.vector import fused_eligible, rollout_random
@@ -42,6 +43,7 @@ from minigrid_tpu_torch.rl.rollout import collect_trajectory
 from minigrid_tpu_torch.utils import golden
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
+from test_torch_authoring import TURNS_HEADER, TurnsEnv, write_header
 
 pytestmark = pytest.mark.cuda
 
@@ -1410,3 +1412,92 @@ def test_nccl_refuses_two_ranks_on_one_card(device, tmp_path):
         pytest.skip("two cards: two NCCL ranks take one each")
     with pytest.raises(ValueError, match="two\\s+ranks would share one"):
         make_mesh(backend="nccl", rank=0, world_size=2, init_method=f"file://{tmp_path / 'store'}")
+
+
+# -- a family written outside the package (chip_smoke.py phase 36 at small sizes) --
+
+
+def _turns_case(device, header, n, r=6, steps=64, seed=21):
+    env = TurnsEnv(max_steps=48, header=header)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    cache = env.batch_reset_cache(n, r, gen)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    return env, gen, states, cache, actions
+
+
+def _assert_k1_equals_plain(env, states, cache, actions, compute_obs):
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+    for f in FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    _assert_extra_same(got[0].extra, want[0].extra)
+    assert [int(x) for x in got[2:]] == [int(x) for x in want[2:]]
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+    return got
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+def test_user_ext_k1_matches_plain_version(device, tmp_path, compute_obs):
+    env, _, states, cache, actions = _turns_case(device, write_header(tmp_path), 4127)
+    assert fused_eligible(env, device)
+    got = _assert_k1_equals_plain(env, states, cache, actions, compute_obs)
+    assert int(got[2]) >= 4127 and int(got[4]) >= 1
+    assert _build.library_path("fused_rollout", env.fused_ext.kernel_source, "TurnsExt").exists()
+
+
+def test_user_ext_k2_meets_the_contracts(device, tmp_path):
+    env, gen, states, cache, _ = _turns_case(device, write_header(tmp_path), 4128)
+    weights = _biased_actor(env, gen, device)
+    noise = ar.draw_bits(gen, (64, env.num_actions, 4128), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) >= 4128
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL)
+
+
+def test_user_ext_header_that_fails_to_compile_raises(device, tmp_path):
+    broken = TURNS_HEADER.replace("x.turns + 1 : 0;", "x.turns + 1 : 0")
+    env, _, states, cache, actions = _turns_case(device, write_header(tmp_path, broken), 64)
+    before = fr.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed") as caught:
+        fr.fused_rollout_core(env, states, cache, actions, False)
+    assert "error" in str(caught.value) and "turns.cuh" in str(caught.value)
+    assert fr.KERNEL_LAUNCHES == before
+
+
+def test_user_ext_edited_header_is_rebuilt(device, tmp_path):
+    header = write_header(tmp_path)
+    env, _, states, cache, actions = _turns_case(device, header, 1024)
+    first = _build.library_path("fused_rollout", header, "TurnsExt")
+    _assert_k1_equals_plain(env, states, cache, actions, False)
+    # Five turns in a row now: in a new process (this one's loaded
+    # libraries forgotten) the kernel of the edited header agrees with a
+    # twin that waits for five, so it was rebuilt, not reused.
+    write_header(tmp_path, TURNS_HEADER.replace(">= 4;", ">= 5;  // five in a row"))
+    env.fused_ext.max_turns = 5
+    second = _build.library_path("fused_rollout", header, "TurnsExt")
+    assert second != first and not second.exists()
+    for key in [k for k in _build._LIBS if isinstance(k, tuple)]:
+        del _build._LIBS[key]
+    got = _assert_k1_equals_plain(env, states, cache, actions, False)
+    assert second.exists() and int(got[0].extra["turns"].max()) <= 4
+    assert _build.library_path("fused_rollout") != second
+
+
+def test_user_ext_twin_must_declare_what_its_header_does(device, tmp_path):
+    env, gen, states, cache, actions = _turns_case(device, write_header(tmp_path), 64)
+    env.fused_ext.kernel_switches = (True, True, None)  # the header fixes SEE_THROUGH to 0
+    assert fused_eligible(env, device)
+    with pytest.raises(ValueError, match="declares MAX_K, NUM_PLANES, SWITCHES"):
+        fr.fused_rollout_core(env, states, cache, actions, False)
+    weights = _biased_actor(env, gen, device)
+    noise = ar.draw_bits(gen, (64, env.num_actions, 64), device)
+    with pytest.raises(ValueError, match="declares MAX_K, NUM_PLANES, SWITCHES"):
+        ar.fused_actor_rollout_core(env, weights, states, cache, noise)
