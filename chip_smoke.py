@@ -270,21 +270,30 @@ Phases, one output line each; any failure raises and exits non-zero:
    step and between 0.75 of its longer phase and 1.25 of rollout plus
    update, the card's busy time of rollout plus update within 25% of the
    step's; at most 90 s;
-36. a family written outside the package: ``TurnsEnv`` below (the
-   tutorial's 8x8 room with a random start, its own mission through
-   ``register_mission`` and one extra scalar, ``turns``: four left or right
-   turns in a row end the episode with reward 0), its CUDA twin
-   ``TURNS_HEADER`` written to a temporary directory and built into the
-   rollout and actor kernels as ``EXT_USER`` (the build's seconds and
-   ptxas' registers and spills of both instantiations); its R measured with
-   ``tools/measure_reset_budget.py`` and passed explicitly; 65536 envs x 256
-   steps through ``rollout_random`` and ``fused_rollout`` (obs off and on,
-   two launches) held to the plain version on the replayed actions and
+36. families written outside the package, ``tests/test_torch_authoring.py``'s
+   two examples: ``TurnsEnv`` (the tutorial's 8x8 room with a random start,
+   its own mission through ``register_mission`` and one cached extra
+   scalar, ``turns``: four left or right turns in a row end the episode
+   with reward 0) and ``TargetBallEnv`` (a counter-reset family: a ball and
+   a boxed ball of two colours, the mission naming one, its colour the
+   extra scalar, a plane of the cells the agent stood on; its level made
+   in the kernels by its header's ``reset``, K1's owner-lane form); their
+   CUDA twins ``TURNS_HEADER`` and ``TARGET_HEADER`` written to a temporary
+   directory and built into the rollout and actor kernels as ``EXT_USER``,
+   four builds side by side (the seconds and ptxas' registers and spills of
+   every instantiation).  Turns: its R measured with
+   ``tools/measure_reset_budget.py`` and passed explicitly; 65536 envs x
+   256 steps through ``rollout_random`` and ``fused_rollout`` (obs off and
+   on, two launches) held to the plain version on the replayed actions and
    cache (every state field, ``turns``, ``max_used``, the episode count and
    the checksum exact, the reward to rtol 1e-5), the chain certified, both
-   timed; two PPO train steps on it at 8192 x 128, hidden 256 (launches
-   1/1/9/8 a step), the last trajectory held to the actor kernel's three
-   contracts, the actor kernel timed against its plain version.
+   timed.  TargetBall: the same at 65536 x 256 on the replayed actions and
+   seeds (contents, missions, the target and the plane exact, ``max_used``
+   0), the plain version timed once, the kernel also behind a spin.  Each:
+   two PPO train steps at 8192 x 128, hidden 256 (launches 1/1/9/8 a
+   step), the last trajectory held to the actor kernel's three contracts
+   (TargetBall's with its reset seeds), the actor kernel timed against its
+   plain version.
 
 Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34, 36) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
@@ -339,7 +348,6 @@ from minigrid_tpu_torch.compat import gym_make
 from minigrid_tpu_torch.compat.parity import parity_reset
 from minigrid_tpu_torch.core import obs as obs_lib
 from minigrid_tpu_torch.core.constants import (
-    GOAL_CELL,
     OBJ_EMPTY,
     OBJ_GOAL,
     OBJ_WALL,
@@ -348,16 +356,13 @@ from minigrid_tpu_torch.core.constants import (
     unpack_grid,
 )
 from minigrid_tpu_torch import registry
-from minigrid_tpu_torch.core import grid as grid_ops
 from minigrid_tpu_torch.core.env import MiniGridEnv
-from minigrid_tpu_torch.core.mission import mission_vec, register_mission
 from minigrid_tpu_torch.core.obs import process_vis
-from minigrid_tpu_torch.core.sampling import place_obj_pos, randint
-from minigrid_tpu_torch.core.state import FIELDS, new_state, tree_leaves
+from minigrid_tpu_torch.core.sampling import randint
+from minigrid_tpu_torch.core.state import FIELDS, tree_leaves
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import embed_dense as ed
-from minigrid_tpu_torch.ops import fused_ext as fx
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import obs_packed as op
 from minigrid_tpu_torch.ops import wfc_solve as wk
@@ -743,16 +748,20 @@ def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int, steps:
     return actions, cache, fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
 
 
-def replay_counter(env, states, snapshot, compute_obs: bool):
-    """The plain version on the actions and reset seeds that
-    ``fused_rollout`` drew from a generator in state ``snapshot``, on a
-    counter-reset family."""
+def counter_draws(env, states, snapshot):
+    """The actions and reset seeds that ``fused_rollout`` drew from a
+    generator in state ``snapshot``, on a counter-reset family."""
     device = states.device
     gen = torch.Generator(device=device)
     gen.set_state(snapshot)
     n = states.step_count.shape[0]
     actions = torch.randint(0, env.num_actions, (NUM_STEPS, n), generator=gen, device=device, dtype=torch.int32)
-    seeds = draw_seeds(gen, n, device)
+    return actions, draw_seeds(gen, n, device)
+
+
+def replay_counter(env, states, snapshot, compute_obs: bool):
+    """The plain version on the draws of ``counter_draws``."""
+    actions, seeds = counter_draws(env, states, snapshot)
     return actions, seeds, fr.fused_rollout_reference(env, states, None, actions, compute_obs, seeds)
 
 
@@ -913,12 +922,17 @@ def host_us(fn, reps: int) -> float:
 
 def event_ms(fn) -> float:
     """Milliseconds between CUDA events around one call of ``fn``."""
+    return timed_call(fn)[1]
+
+
+def timed_call(fn):
+    """``fn()`` and the milliseconds between CUDA events around the call."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
 
 
 def embed_inputs(device, m: int, seed: int):
@@ -2908,127 +2922,66 @@ def profiler_check(
     ]
 
 
-# Phase 36: a family written outside the package.  Its CUDA twin, a struct
-# deriving from NoExt as the headers of minigrid_tpu_torch/ops/csrc/ext/ do,
-# is written to a temporary directory and built in as EXT_USER.
-TURNS_ID = "MiniGrid-Turns-8x8-v0"
-TURNS_MISSION = "you must reach the goal square"
-MAX_TURNS = 4
+# Phase 36: families written outside the package, tests/test_torch_authoring.py's
+# examples (test-only code, imported from there; no JAX).  Their CUDA twins,
+# structs deriving from NoExt as the headers of minigrid_tpu_torch/ops/csrc/ext/
+# do, are written to a temporary directory and built in as EXT_USER.
+sys.path.insert(0, str(ROOT / "tests"))
+from test_torch_authoring import (  # noqa: E402
+    MAX_TURNS,
+    TARGET_ID,
+    TURNS_ID,
+    TargetBallEnv,
+    TurnsEnv,
+    write_header,
+    write_target_header,
+)
+
 TURNS_STRUCT = "TurnsExt"
-TURNS_HEADER = r"""// Turns: four left or right turns in a row end the episode with reward 0.
-#pragma once
-
-#include "fused_ext.cuh"
-
-namespace minigrid {
-
-struct TurnsExt : NoExt {
-  // No objects, a static mission, occluding walls.
-  static constexpr int SWITCHES[3] = {1, 1, 0};
-  static constexpr int MAX_K = 1;
-
-  struct Extra {
-    int turns;
-  };
-
-  __device__ static Extra load(const int* scal, int n, size_t, const ExtParams&) { return Extra{scal[n]}; }
-
-  __device__ static void store(int* scal, int n, size_t, const ExtParams&, const Extra& x) { scal[n] = x.turns; }
-
-  __device__ static bool post_step(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
-    x.turns = (ctx.action == ACT_LEFT || ctx.action == ACT_RIGHT) ? x.turns + 1 : 0;
-    const bool dizzy = x.turns >= 4;
-    if (dizzy) reward = 0.0f;
-    return dizzy;
-  }
-};
-
-}  // namespace minigrid
-"""
+TARGET_STRUCT = "TargetBallExt"
 USER_PPO_STEPS = 2
 USER_BUDGET_CHUNKS = 4
-USER_SOURCE = SOURCE + " with chip_smoke.py's TURNS_HEADER"
-USER_ACTOR_SOURCE = ACTOR_SOURCE + " with chip_smoke.py's TURNS_HEADER"
-
-
-class TurnsFusedExt(fx.CachedExt):
-    """The plain twin of ``TurnsExt``: ``turns`` is blended from the reset
-    cache at every reset."""
-
-    n_scalars = 1
-    kernel_id = fx.EXT_USER
-    kernel_struct = TURNS_STRUCT
-    kernel_switches = (True, True, False)
-
-    def __init__(self, header: str):
-        self.kernel_source = header
-
-    def pack_extra(self, env, extra):
-        return extra["turns"][..., None].to(torch.int32)
-
-    def unpack_extra(self, env, scal, planes=None):
-        return {"turns": scal[..., 0]}
-
-    def post_step(self, env, prev, state, action, reward, scal):
-        turning = (action == 0) | (action == 1)  # left, right
-        turns = torch.where(turning, scal[:, 0] + 1, 0).to(torch.int32)
-        dizzy = turns >= MAX_TURNS
-        return dizzy, torch.where(dizzy, 0.0, reward), turns[:, None]
-
-
-class TurnsEnv(MiniGridEnv):
-    """The tutorial's 8x8 room (walls, the goal at (6, 6)) with a random
-    start cell and direction, its own mission and ``turns``."""
-
-    fused_no_objects = True
-    fused_static_mission = True
-
-    def __init__(self, header: str, size: int = 8, max_steps: int = 256, **kwargs):
-        super().__init__(width=size, height=size, max_steps=max_steps, **kwargs)
-        self.fused_ext = TurnsFusedExt(header)
-        self.mission_id = register_mission(TURNS_MISSION)
-
-    def _generate(self, num_envs, generator, device):
-        w, h = self.width, self.height
-        grid = grid_ops.wall_rect(grid_ops.empty_grid(num_envs, w, h, device), 0, 0, w, h)
-        grid = grid_ops.set_cell(grid, w - 2, h - 2, GOAL_CELL)
-        return new_state(
-            grid,
-            place_obj_pos(generator, grid),
-            randint(generator, num_envs, 0, 4, device),
-            self.max_steps,
-            mission=mission_vec(self.mission_id),
-            extra={"turns": torch.zeros(num_envs, dtype=torch.int32, device=device)},
-        )
-
-    def _post_step(self, prev, state, action, reward):
-        return self.fused_ext.apply_post_step(self, prev, state, action, reward)
+USER_SOURCE = SOURCE + " with tests/test_torch_authoring.py's TURNS_HEADER"
+USER_ACTOR_SOURCE = ACTOR_SOURCE + " with tests/test_torch_authoring.py's TURNS_HEADER"
+TARGET_SOURCE = SOURCE + " with tests/test_torch_authoring.py's TARGET_HEADER"
+TARGET_ACTOR_SOURCE = ACTOR_SOURCE + " with tests/test_torch_authoring.py's TARGET_HEADER"
+# The TPU kernel's counter-reset branch that a user header's reset twins.
+TARGET_REPLACES = "minigrid_tpu/ops/fused_rollout.py:437"
+TARGET_ACTOR_REPLACES = "minigrid_tpu/ops/actor_rollout.py:302"
 
 
 def user_ext_check(device, card: str) -> list[dict]:
-    """Phase 36: ``TurnsEnv`` through the rollout and actor kernels built
+    """Phase 36: ``TurnsEnv`` (a cached ext) and ``TargetBallEnv`` (a
+    counter-reset one) through the rollout and actor kernels, each built
     with its own header (see the module docstring)."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="turns-ext-") as tmp:
-        header = str(Path(tmp) / "turns.cuh")
-        Path(header).write_text(TURNS_HEADER)
-        names = ("fused_rollout", "actor_rollout")
-        with ThreadPoolExecutor(max_workers=2) as pool:
-            list(pool.map(lambda name: _build.load_library(name, header, TURNS_STRUCT), names))
+    with tempfile.TemporaryDirectory(prefix="user-ext-") as tmp:
+        dirs = [Path(tmp) / "turns", Path(tmp) / "target"]
+        for d in dirs:
+            d.mkdir()
+        turns, target = str(write_header(dirs[0])), str(write_target_header(dirs[1]))
+        builds = [(name, header, struct) for header, struct in ((turns, TURNS_STRUCT), (target, TARGET_STRUCT))
+                  for name in ("fused_rollout", "actor_rollout")]
+        with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+            list(pool.map(lambda b: _build.load_library(*b), builds))
         build_s = time.perf_counter() - t0
         reports = []
-        for name in names:
-            seconds, log = _build.BUILD_INFO[f"{name}[{TURNS_STRUCT}]"]
-            reports.append(f"{name} in {seconds:.1f} s: {ptxas_report(name, log)}")
-        print(f"phase 36 user ext build ({card}): both libraries in {build_s:.1f} s; " + "; ".join(reports), flush=True)
-        mgt.register(TURNS_ID, TurnsEnv, header=header)
+        for name, _, struct in builds:
+            seconds, log = _build.BUILD_INFO[f"{name}[{struct}]"]
+            reports.append(f"{name}[{struct}] in {seconds:.1f} s: {ptxas_report(name, log)}")
+        print(
+            f"phase 36 user ext build ({card}): four libraries in {build_s:.1f} s; " + "; ".join(reports), flush=True
+        )
+        mgt.register(TURNS_ID, TurnsEnv, header=turns)
+        mgt.register(TARGET_ID, TargetBallEnv, header=target)
         try:
-            return _user_ext_slices(device, card, header)
+            return _user_ext_slices(device, card) + _target_slices(device, card)
         finally:
             del registry._REGISTRY[TURNS_ID]
+            del registry._REGISTRY[TARGET_ID]
 
 
-def _user_ext_slices(device, card: str, header: str) -> list[dict]:
+def _user_ext_slices(device, card: str) -> list[dict]:
     t0 = time.perf_counter()
     env = mgt.make(TURNS_ID)
     check(fused_eligible(env, device) and fr.compiled_ext(env), f"{TURNS_ID} must take the kernel on {device}")
@@ -3132,6 +3085,145 @@ def _user_ext_slices(device, card: str, header: str) -> list[dict]:
     k2_entry = kernel_entry(
         f"actor_rollout[EXT_USER {TURNS_STRUCT}: {TURNS_ID}]", USER_ACTOR_SOURCE, ACTOR_REPLACES, launches_k2, err2,
         k2_ms, p2_ms, k2_bound,
+    )
+    return [k1_entry, k2_entry]
+
+
+class _LaunchEvents:
+    """A loaded rollout library whose ``fused_rollout_launch`` records CUDA
+    events around each launch (``tools/rollout_split.py``'s), for the
+    kernel's own time inside a wrapper call that waits on the card."""
+
+    def __init__(self, lib):
+        self.lib, self.launch = lib, rollout_split._TimedLaunch(lib.fused_rollout_launch)
+
+    def __getattr__(self, name):
+        return self.launch if name == "fused_rollout_launch" else getattr(self.lib, name)
+
+
+def launch_ms(env, fn, reps: int) -> float:
+    """The least time of the rollout kernel alone over ``reps`` calls of
+    ``fn`` (K1 of ``env``'s library, events around its launch)."""
+    ext = env.fused_ext
+    key = "fused_rollout" if ext.kernel_source is None else ("fused_rollout", str(ext.kernel_source), ext.kernel_struct)
+    saved = _build._LIBS[key]
+    timed = _build._LIBS[key] = _LaunchEvents(saved)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        _build._LIBS[key] = saved
+    return min(start.elapsed_time(end) for start, end in timed.launch.marks)
+
+
+def _target_slices(device, card: str) -> list[dict]:
+    """Phase 36, the counter-reset family: ``TargetBallEnv`` through K1's
+    owner-lane reset and K2's per-lane one, built from its header; the plain
+    references timed once each."""
+    t0 = time.perf_counter()
+    env = mgt.make(TARGET_ID)
+    check(
+        fused_eligible(env, device) and fr.compiled_ext(env) and fr.counter_reset(env),
+        f"{TARGET_ID} must take the kernel's counter reset on {device}",
+    )
+    gen = torch.Generator(device=device).manual_seed(37)
+    _, states = env.reset(NUM_ENVS, gen)
+    states = states.replace(step_count=randint(gen, NUM_ENVS, 0, states.max_steps))
+    snap_random = gen.get_state()
+    fr.KERNEL_LAUNCHES = 0
+    out_random = rollout_random(env, states, gen, NUM_STEPS)
+    snap_obs = gen.get_state()
+    out_obs = fr.fused_rollout(env, states, gen, NUM_STEPS, compute_obs=True)
+    torch.cuda.synchronize()
+    launches = fr.KERNEL_LAUNCHES
+    check(launches == 2, f"{TARGET_ID}: the slice launched the rollout kernel {launches} times, expected 2")
+    final, total_r, total_done, max_used = out_random
+    check(float(total_r) > 0 and int(total_done) > NUM_ENVS, f"{TARGET_ID}: reward {float(total_r)}, episodes")
+    check(int(max_used) == 0 and int(out_obs[4]) == 0, f"{TARGET_ID}: max_used on the counter path")
+    mission = final.mission
+    check(
+        bool((mission[:, 0] == env.mission_id).all()) and bool((mission[:, 1] == final.extra["target"]).all()),
+        f"{TARGET_ID}: a mission is not its episode's",
+    )
+    kernel_outs = {False: (final, total_r, total_done, torch.zeros(()), max_used), True: out_obs}
+    plain_ms, err = {}, 0.0
+    for compute_obs, snap in ((False, snap_random), (True, snap_obs)):
+        actions, seeds = counter_draws(env, states, snap)
+        plain, plain_ms[compute_obs] = timed_call(
+            partial(fr.fused_rollout_reference, env, states, None, actions, compute_obs, seeds)
+        )
+        err = max(err, compare(kernel_outs[compute_obs], plain, f"{TARGET_ID} compute_obs={compute_obs}"))
+
+    def chunk(carry):
+        st, g = carry
+        st, r, d, mu = rollout_random(env, st, g, NUM_STEPS)
+        return (st, g), (r, d, mu)
+
+    chain = assert_chain_covered(chunk, (final, gen), resets_for(env, NUM_STEPS), env)
+    times = {}
+    for compute_obs in (False, True):
+        k = partial(fr.fused_rollout_core, env, states, None, actions, compute_obs, seeds)
+        # The wrapper waits on the card once a call (the range check of the
+        # plane's values), so the kernel's own time comes from events around
+        # its launch, not from behind a spin.
+        times[compute_obs] = (
+            min(time_ms(k, 5), time_ms(k, 5)), plain_ms[compute_obs], launch_ms(env, k, 5), host_us(k, 5)
+        )
+    episodes = int(fr.fused_rollout_core(env, states, None, actions, False, seeds)[2])
+    ops = THREEFRY_OPS * threefry_evaluations(env, NUM_ENVS * NUM_STEPS, episodes)
+    k1_bound = bound(rollout_bytes(env, states, NUM_STEPS, 0, seeds=True), ops / CUDA_CORE_OPS_PER_S)
+    for compute_obs, (k_ms, p_ms, alone, host) in times.items():
+        print(
+            f"steps/s ({card}) {TARGET_ID} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: kernel "
+            f"{NUM_ENVS * NUM_STEPS / k_ms * 1e3:.6g} ({k_ms:.4f} ms; the kernel alone {alone:.4f} ms, the "
+            f"wrapper's host time {host:.1f} us a call), plain "
+            f"{NUM_ENVS * NUM_STEPS / p_ms * 1e3:.6g} ({p_ms:.4f} ms), kernel/plain speed {p_ms / k_ms:.3g}x"
+            + (f", bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), {episodes} resets" if not compute_obs else ""),
+            flush=True,
+        )
+    phase(
+        36,
+        f"{TARGET_ID} (EXT_USER {TARGET_STRUCT}, counter reset from its own header) {NUM_ENVS} envs x {NUM_STEPS} "
+        f"steps: {launches} kernel launches, outputs, contents, missions, target and plane == plain version, "
+        f"{int(total_done)} episodes, reward {float(total_r)}, max used 0 (chain {chain})",
+    )
+    k1_entry = kernel_entry(
+        f"fused_rollout[EXT_USER {TARGET_STRUCT}: {TARGET_ID}]", TARGET_SOURCE, TARGET_REPLACES, launches, err,
+        *times[False][:2], k1_bound,
+    )
+
+    config = PPOConfig(rollout_steps=PPO_STEPS)
+    init_fn, train_step = make_ppo(env, config, hidden=PPO_HIDDEN)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, PPO_HIDDEN), f"{TARGET_ID} must take the actor kernel")
+    zero_launch_counts()
+    want = learner_launches(config.num_minibatches)
+    state, per_step, last = train_and_keep_last(train_step, state, gen, want, f"PPO {TARGET_ID}", USER_PPO_STEPS)
+    launches_k2 = ar.KERNEL_LAUNCHES
+    weights, states0, _, seeds, noise, err2, ties = check_last_trajectory(env, last, device, f"PPO {TARGET_ID}")
+    check(seeds is not None, f"PPO {TARGET_ID}: the actor kernel drew a reset cache, not seeds")
+    k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, None, noise, seeds)
+    p2 = partial(plain_only, ar.actor_rollout_reference, env, weights, states0, None, noise, seeds)
+    k2_ms, p2_ms = min(time_ms(k2, 5), time_ms(k2, 5)), event_ms(p2)
+    episodes = int(last[4].done.sum())
+    k2_bound = actor_bound(env, states0, weights, PPO_STEPS, episodes)
+    print(
+        f"actor_rollout ({card}) {TARGET_ID} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms, "
+        f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})",
+        flush=True,
+    )
+    phase(
+        36,
+        f"PPO {TARGET_ID} {PPO_ENVS} envs x {PPO_STEPS} steps, hidden {PPO_HIDDEN}: {USER_PPO_STEPS} train steps, "
+        f"launches per step {per_step}, last metrics { {k: float(v) for k, v in last[5].items()} }; actor kernel on "
+        f"step {USER_PPO_STEPS} == plain versions with its reset seeds (logp/value max abs err {err2}, {ties} "
+        f"near-ties of {PPO_STEPS * PPO_ENVS}, {episodes} episodes); the family took {time.perf_counter() - t0:.1f} s",
+    )
+    k2_entry = kernel_entry(
+        f"actor_rollout[EXT_USER {TARGET_STRUCT}: {TARGET_ID}]", TARGET_ACTOR_SOURCE, TARGET_ACTOR_REPLACES,
+        launches_k2, err2, k2_ms, p2_ms, k2_bound,
     )
     return [k1_entry, k2_entry]
 

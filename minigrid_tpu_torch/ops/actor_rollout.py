@@ -7,8 +7,9 @@ the actor MLP on its one-hot features, samples its action by Gumbel-argmax
 from injected random bits, steps through the family's hooks and
 auto-resets, from an R-slot reset cache (``core/env.step_cached``
 semantics; a cached ext's extra scalars come from the same slot) or, for a
-counter-reset family (random-start Empty, Crossing, Dynamic-Obstacles), by
-regenerating a fresh level in the kernel from per-env seeds
+counter-reset family (random-start Empty, Crossing, Dynamic-Obstacles, or
+one written outside the package with its own header), by regenerating a
+fresh level in the kernel from per-env seeds
 (``FusedExt.reset_block``).  Only the trajectory leaves the
 kernel.
 
@@ -66,7 +67,7 @@ POLICY_ROWS = 2048
 # tolerance (2e-2) that holds the port's actor to the JAX package's.
 PLAIN_ATOL = 1e-4
 
-_ARGTYPES = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 26 + [ctypes.c_void_p]
 
 
 class ActorWeights(NamedTuple):
@@ -405,6 +406,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
             int(env.see_through_walls),
             ext.ext_id,
             *ext.params,
+            *ext.user,
             stream,
         )
     if err != 0:

@@ -11,7 +11,9 @@
 // reset cache (NoExt families and the cached exts, whose extra scalars and
 // planes come from the same slot; core/env.step_cached semantics) or, for a
 // COUNTER_RESET ext, by generating a fresh level in place from the env's
-// seed and episode ordinal (both at the pre-increment `used`).  It streams obs, direction, the
+// seed and episode ordinal (both at the pre-increment `used`): the ext's
+// per-lane reset on a ResetCtx of the env's columns (grid, and the contents,
+// mission and planes where the instantiation carries them).  It streams obs, direction, the
 // unmapped action, logp, value, reward and done.
 //
 // Design.  A block owns EB = 64 envs, one wgmma M tile, and has two
@@ -210,8 +212,6 @@ __device__ __forceinline__ void w2_row(const __nv_bfloat16* row, int cg, float (
 
 template <int V, int HID, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH>
 __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const ExtParams p) {
-  static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
-                "a counter reset writes neither contents nor mission");
   using L = Smem<V, HID, Ext>;
   constexpr int V2 = V * V;
   constexpr int WORDS = L::WORDS;
@@ -521,8 +521,12 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
       a.done[tn + n] = done;
       if (done) {
         if constexpr (Ext::COUNTER_RESET) {
+          // The env's column (stride N), contents, mission and planes where
+          // the instantiation carries them.
+          const ResetCtx rc{grid, NO_OBJECTS ? nullptr : cont, STATIC_MISSION ? nullptr : mis, planes, N,
+                            a.W, a.H, a.M};
           const Words e = episode_seed((uint32_t)a.seeds[n], (uint32_t)a.seeds[N + n], used);
-          Ext::reset(p, e, grid, N, a.W, a.H, s, x);
+          Ext::reset(p, e, rc, s, x);
         } else {
           cache_reset<Ext, NO_OBJECTS, STATIC_MISSION>(cache, p, n, used, grid, cont, mis, planes, N, WH, a.M, s, x);
         }
@@ -593,7 +597,9 @@ extern "C" int actor_rollout_stages(int hidden, int ext_id) {
 // cplanes and seeds unused); a cached ext takes the cache with its K extra
 // scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
 // planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
-// cache).  w1, w2 and wh are in the tiled layout of hopper.cuh.
+// cache), and writes its P planes at each reset.  user0..3 are a user
+// family's ExtParams::user slots.  w1, w2 and wh are in the tiled layout of
+// hopper.cuh.
 extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* csc,
                                     const int* cmis, const int* cscal, int* scal, uint8_t* planes,
@@ -606,12 +612,14 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
                                     int hidden, int no_objects, int static_mission,
                                     int see_through, int ext_id, int max_steps, int n_obstacles,
                                     int num_crossings, int obstacle_cell, int start_x, int start_y,
-                                    int start_dir, void* stream) {
+                                    int start_dir, int user0, int user1, int user2, int user3,
+                                    void* stream) {
   if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % 32 != 0 || K < 0 || P < 0 || NA < 1 ||
       NA > MAX_HEADS - 1 || !actor_rollout_supports_hidden(hidden)) {
     return (int)cudaErrorInvalidValue;
   }
-  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
+  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir,
+                    {user0, user1, user2, user3}};
   const Args a{noise, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, planes, cplanes, seeds,
                static_cast<const __nv_bfloat16*>(w1), b1,
                static_cast<const __nv_bfloat16*>(w2), b2,

@@ -16,11 +16,14 @@ namespace minigrid {
 
 struct CrossingExt : NoExt {
   static constexpr bool COUNTER_RESET = true;
+  static constexpr bool WARP_RESET = true;
   // Its reset writes neither contents nor mission.
   static constexpr int SWITCHES[3] = {1, 1, SWITCH_ANY};
 
-  __device__ static void reset(const ExtParams& p, const Words& e, int* grid, size_t N, int W, int H,
-                               Scalars& s, Extra&) {
+  __device__ static void reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s, Extra&) {
+    int* grid = rc.grid;
+    const size_t N = rc.N;
+    const int W = rc.W, H = rc.H;
     const int kc = p.num_crossings;
     constexpr int BIG = 1000000;
     // Candidates: vertical rivers at x in {2, 4, ... < H-2}, then
@@ -179,8 +182,10 @@ struct CrossingExt : NoExt {
   // The same level, made by a whole warp on the env's grid row (stride 1):
   // each lane plans it, the lanes write the scaffold with the rivers over
   // it (reset's order: walls, goal, rivers), then lane t opens cell t.
-  __device__ static void warp_reset(const ExtParams& p, const Words& e, int* grid, int W, int H, Scalars& s,
+  __device__ static void warp_reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s,
                                     Extra&, int lane) {
+    int* grid = rc.grid;
+    const int W = rc.W, H = rc.H;
     const int kc = p.num_crossings;
     const Plan l = plan(p, e, W, H);
     const int goal = (W - 2) * H + H - 2;

@@ -26,6 +26,7 @@ constexpr uint32_t WALK_TAG1 = 0x77616C6Bu;
 struct DynamicObstaclesExt : NoExt {
   static constexpr bool PRE_STEP = true;
   static constexpr bool COUNTER_RESET = true;
+  static constexpr bool WARP_RESET = true;
   // Its reset writes neither contents nor mission.
   static constexpr int SWITCHES[3] = {1, 1, SWITCH_ANY};
   static constexpr int MAX_K = 2 * MAX_OBSTACLES + 3;
@@ -135,8 +136,10 @@ struct DynamicObstaclesExt : NoExt {
   // The scaffold; a random start draws the agent's cell and direction from
   // placement words 0 and 1; then ball i takes the next word and a uniform
   // empty cell that is not the agent's.
-  __device__ static void reset(const ExtParams& p, const Words& e, int* grid, size_t N, int W, int H,
-                               Scalars& s, Extra& x) {
+  __device__ static void reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s, Extra& x) {
+    int* grid = rc.grid;
+    const size_t N = rc.N;
+    const int W = rc.W, H = rc.H;
     const int WH = W * H;
     walled_plane(grid, N, W, H);
     int word = 0, ax = p.start_x, ay = p.start_y, d = p.start_dir;
@@ -165,8 +168,10 @@ struct DynamicObstaclesExt : NoExt {
   }
 
   // The same level, made by a whole warp on the env's grid row (stride 1).
-  __device__ static void warp_reset(const ExtParams& p, const Words& e, int* grid, int W, int H, Scalars& s,
+  __device__ static void warp_reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s,
                                     Extra& x, int lane) {
+    int* grid = rc.grid;
+    const int W = rc.W, H = rc.H;
     const int WH = W * H;
     warp_walled_plane(grid, W, H, lane);
     __syncwarp();

@@ -14,11 +14,14 @@ namespace minigrid {
 
 struct EmptyRandomExt : NoExt {
   static constexpr bool COUNTER_RESET = true;
+  static constexpr bool WARP_RESET = true;
   // Its reset writes neither contents nor mission.
   static constexpr int SWITCHES[3] = {1, 1, SWITCH_ANY};
 
-  __device__ static void reset(const ExtParams& p, const Words& e, int* grid, size_t N, int W, int H,
-                               Scalars& s, Extra&) {
+  __device__ static void reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s, Extra&) {
+    int* grid = rc.grid;
+    const size_t N = rc.N;
+    const int W = rc.W, H = rc.H;
     walled_plane(grid, N, W, H);
     const Words b = threefry2x32(e.w0, e.w1, PLACE_TAG, 0u);
     const int lin = draw_free_cell(grid, N, W * H, -1, b.w0);
@@ -26,8 +29,10 @@ struct EmptyRandomExt : NoExt {
   }
 
   // The same level, made by a whole warp on the env's grid row (stride 1).
-  __device__ static void warp_reset(const ExtParams& p, const Words& e, int* grid, int W, int H, Scalars& s,
+  __device__ static void warp_reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s,
                                     Extra&, int lane) {
+    int* grid = rc.grid;
+    const int W = rc.W, H = rc.H;
     warp_walled_plane(grid, W, H, lane);
     __syncwarp();
     const Words b = threefry2x32(e.w0, e.w1, PLACE_TAG, 0u);

@@ -6,7 +6,8 @@
 // header: -DMINIGRID_USER_EXT=<struct>, and an include directory holding
 // minigrid_user_ext.cuh, which includes the family's own header), the
 // library holds that one struct instead, as EXT_USER: a family written
-// outside the package pays for its own instantiations only.
+// outside the package, a cached ext or a counter-reset one, pays for its
+// own instantiations only.
 
 #pragma once
 
@@ -30,11 +31,6 @@
 #endif
 
 namespace minigrid {
-
-#ifdef MINIGRID_USER_EXT
-static_assert(!MINIGRID_USER_EXT::COUNTER_RESET,
-              "a counter-reset ext from a user header is not supported yet (ROADMAP.md, Queue 1)");
-#endif
 
 // Calls f(Ext{}) with the ext struct of `ext_id`; does nothing for an
 // unknown id.
@@ -92,14 +88,15 @@ void with_ext(int ext_id, F&& f) {
 }  // namespace minigrid
 
 // The ext of `ext_id` as this library compiled it, for the wrappers to hold
-// a family's Python twin to: out = {MAX_K, NUM_PLANES, SWITCHES[0..2]}.
-// Returns 0 for an id the library does not hold.
+// a family's Python twin to: out = {MAX_K, NUM_PLANES, SWITCHES[0..2],
+// COUNTER_RESET, PRE_STEP}.  Returns 0 for an id the library does not hold.
 extern "C" int minigrid_ext_layout(int ext_id, int* out) {
   int found = 0;
   minigrid::with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
-    const int layout[5] = {Ext::MAX_K, Ext::NUM_PLANES, Ext::SWITCHES[0], Ext::SWITCHES[1], Ext::SWITCHES[2]};
-    for (int i = 0; i < 5; ++i) out[i] = layout[i];
+    const int layout[7] = {Ext::MAX_K,       Ext::NUM_PLANES,    Ext::SWITCHES[0], Ext::SWITCHES[1],
+                           Ext::SWITCHES[2], Ext::COUNTER_RESET, Ext::PRE_STEP};
+    for (int i = 0; i < 7; ++i) out[i] = layout[i];
     found = 1;
   });
   return found;

@@ -43,15 +43,25 @@
 //                            reshape the reward, the extra scalars and the
 //                            planes, returns extra termination;
 //   reset                    a fresh level from an episode seed (used with
-//                            COUNTER_RESET in place of the reset cache), by
-//                            one lane (the actor kernel); warp_reset makes
-//                            the same level with the whole warp (the
-//                            random-policy kernel).
+//                            COUNTER_RESET in place of the reset cache),
+//                            written through a ResetCtx (the env's grid,
+//                            contents, mission and plane cells at its
+//                            stride) by one lane: the actor kernel's lane,
+//                            or the random-policy kernel's owner lane while
+//                            the rest of its warp waits;
+//   WARP_RESET, warp_reset   whether the struct has a warp_reset, the same
+//                            level made by the whole warp on stride-1 rows,
+//                            which the random-policy kernel then runs in
+//                            place of reset;
+//   params_ok                (a counter-reset EXT_USER) whether the runtime
+//                            parameters, grid and K fit the struct's slots;
+//                            without it, K == MAX_K.
 // NoExt is the default-hook family; a family derives from it and hides
 // what it changes, so each family is one header under ext/ (exts.cuh maps
 // kernel ids to them), or one header of its own outside the package, which
 // includes "fused_ext.cuh" and is built in as EXT_USER.  Runtime family
-// parameters come in ExtParams, by value.
+// parameters come in ExtParams, by value: the built-in families' named
+// fields, and a user family's USER_SLOTS values (FusedExt.user_params).
 
 #pragma once
 
@@ -94,6 +104,10 @@ enum {
 // A kernel switch (SWITCHES) that an ext leaves to the runtime flag.
 constexpr int SWITCH_ANY = -1;
 
+// The by-value slots of a family written outside the package
+// (ops/fused_ext.USER_SLOTS).
+constexpr int USER_SLOTS = 4;
+
 struct ExtParams {
   int max_steps;
   int n_obstacles;
@@ -101,6 +115,7 @@ struct ExtParams {
   int obstacle_cell;
   int start_x, start_y;  // start_x < 0: a random start
   int start_dir;
+  int user[USER_SLOTS];  // a user family's own values, 0 past what it gives
 };
 
 // The compiled slots the runtime sizes must fit: Dynamic-Obstacles' balls,
@@ -108,57 +123,6 @@ struct ExtParams {
 constexpr int MAX_OBSTACLES = 8;
 constexpr int MAX_CROSSINGS = 8;
 constexpr int MAX_CROSSING_CANDIDATES = 32;
-
-// Whether counter-reset ext `ext_id`'s runtime parameters, grid and K
-// extra scalars fit the compiled slots; both kernels refuse a launch where
-// they do not.
-inline bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
-  switch (ext_id) {
-    case EXT_EMPTY_RANDOM:
-      return K == 0 && W >= 3 && H >= 3;
-    case EXT_CROSSING: {
-      const int n_cand = (H > 3 ? (H - 3) / 2 : 0) + (W > 3 ? (W - 3) / 2 : 0);
-      return K == 0 && p.num_crossings >= 0 && p.num_crossings <= MAX_CROSSINGS &&
-             p.num_crossings <= n_cand && n_cand <= MAX_CROSSING_CANDIDATES;
-    }
-    case EXT_DYNAMIC_OBSTACLES:
-      return p.n_obstacles >= 0 && p.n_obstacles <= MAX_OBSTACLES && K == 2 * p.n_obstacles + 3 &&
-             p.start_x < W && p.start_y < H;
-    default:
-      return false;
-  }
-}
-
-// Switch i of ext Ext: its SWITCHES entry, SWITCH_ANY past them (the
-// random-policy kernel's COMPUTE_OBS).
-template <class Ext>
-constexpr int ext_switch(int i) {
-  return i < 3 ? Ext::SWITCHES[i] : SWITCH_ANY;
-}
-
-// Whether a whole-rollout kernel takes ext Ext (id `ext_id`) with these
-// sizes, runtime flags (NO_OBJECTS, STATIC_MISSION, SEE_THROUGH first) and
-// buffers.  The flags must meet the ext's SWITCHES, and P its NUM_PLANES.
-// NoExt reads an R >= 1 reset cache and no extra scalars.  A cached ext
-// (extra scalars, no COUNTER_RESET) reads an R >= 1 reset cache with its
-// K = MAX_K scalars ([R, K, N] `cscal`) and its P planes ([R, P, W*H, N]
-// `cplanes`) beside its live ones, and no seeds.  A counter-reset ext reads
-// per-env seeds and its K scalars, and no cache.
-template <class Ext>
-bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, int P, const int* flags,
-                   const int* scal, const int* cscal, const int* seeds, const uint8_t* planes,
-                   const uint8_t* cplanes) {
-  for (int i = 0; i < 3; ++i) {
-    const int sw = ext_switch<Ext>(i);
-    if (sw != SWITCH_ANY && sw != (flags[i] != 0)) return false;
-  }
-  if (P != Ext::NUM_PLANES || (P > 0 && (planes == nullptr || cplanes == nullptr))) return false;
-  if (Ext::COUNTER_RESET) {
-    return R == 0 && seeds != nullptr && (K == 0 || scal != nullptr) && ext_params_ok(ext_id, p, W, H, K);
-  }
-  if (Ext::MAX_K == 0) return R >= 1 && K == 0;
-  return R >= 1 && seeds == nullptr && scal != nullptr && cscal != nullptr && K == Ext::MAX_K;
-}
 
 // The sub-seed of an env's episode with ordinal `ep` (its resets so far).
 __device__ __forceinline__ Words episode_seed(uint32_t s0, uint32_t s1, int ep) {
@@ -272,9 +236,28 @@ struct StepCtx {
   uint8_t* planes;
 };
 
+// Where a counter reset writes an env's fresh level (reset, warp_reset):
+// its grid, contents and mission, element k at [k * N], and its extra
+// planes, plane q's cell k at planes[(q * W * H + k) * N].  N is the cell
+// stride: N envs in the actor kernel's env-minor columns, 1 in the
+// random-policy kernel's env-major rows.  cont, mis and planes are nullptr
+// where the kernel's instantiation carries none (NO_OBJECTS, STATIC_MISSION,
+// no planes): a reset writes what is set, every cell of it (M mission slots,
+// the unused ones 0), as the plain version's reset_block makes a whole
+// level.
+struct ResetCtx {
+  int* grid;
+  int* cont;
+  int* mis;
+  uint8_t* planes;
+  size_t N;
+  int W, H, M;
+};
+
 struct NoExt {
   static constexpr bool PRE_STEP = false;
   static constexpr bool COUNTER_RESET = false;
+  static constexpr bool WARP_RESET = false;
   static constexpr int SWITCHES[3] = {SWITCH_ANY, SWITCH_ANY, SWITCH_ANY};
   static constexpr int MAX_K = 0;
   static constexpr int NUM_PLANES = 0;
@@ -287,7 +270,71 @@ struct NoExt {
   __device__ static int map_action(int action) { return action; }
   __device__ static void pre_step(const ExtParams&, int*, uint8_t*, size_t, int, int, const Scalars&, Extra&) {}
   __device__ static bool post_step(const ExtParams&, const StepCtx&, float&, Extra&) { return false; }
-  __device__ static void reset(const ExtParams&, const Words&, int*, size_t, int, int, Scalars&, Extra&) {}
+  __device__ static void reset(const ExtParams&, const Words&, const ResetCtx&, Scalars&, Extra&) {}
+  // Never called: a struct that keeps it is held to K == MAX_K (ext_params_ok).
+  static bool params_ok(const ExtParams&, int, int, int) { return true; }
 };
+
+// Whether counter-reset ext `ext_id`'s runtime parameters, grid and K
+// extra scalars fit the compiled slots; both kernels refuse a launch where
+// they do not.  A user struct answers with its params_ok, or, where it
+// declares none, K == MAX_K.
+template <class Ext>
+bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
+  switch (ext_id) {
+    case EXT_EMPTY_RANDOM:
+      return K == 0 && W >= 3 && H >= 3;
+    case EXT_CROSSING: {
+      const int n_cand = (H > 3 ? (H - 3) / 2 : 0) + (W > 3 ? (W - 3) / 2 : 0);
+      return K == 0 && p.num_crossings >= 0 && p.num_crossings <= MAX_CROSSINGS &&
+             p.num_crossings <= n_cand && n_cand <= MAX_CROSSING_CANDIDATES;
+    }
+    case EXT_DYNAMIC_OBSTACLES:
+      return p.n_obstacles >= 0 && p.n_obstacles <= MAX_OBSTACLES && K == 2 * p.n_obstacles + 3 &&
+             p.start_x < W && p.start_y < H;
+    case EXT_USER:
+      if constexpr (&Ext::params_ok == &NoExt::params_ok) {
+        return K == Ext::MAX_K;
+      } else {
+        return Ext::params_ok(p, W, H, K);
+      }
+    default:
+      return false;
+  }
+}
+
+// Switch i of ext Ext: its SWITCHES entry, SWITCH_ANY past them (the
+// random-policy kernel's COMPUTE_OBS).
+template <class Ext>
+constexpr int ext_switch(int i) {
+  return i < 3 ? Ext::SWITCHES[i] : SWITCH_ANY;
+}
+
+// Whether a whole-rollout kernel takes ext Ext (id `ext_id`) with these
+// sizes, runtime flags (NO_OBJECTS, STATIC_MISSION, SEE_THROUGH first) and
+// buffers.  The flags must meet the ext's SWITCHES, and P its NUM_PLANES.
+// NoExt reads an R >= 1 reset cache and no extra scalars.  A cached ext
+// (extra scalars, no COUNTER_RESET) reads an R >= 1 reset cache with its
+// K = MAX_K scalars ([R, K, N] `cscal`) and its P planes ([R, P, W*H, N]
+// `cplanes`) beside its live ones, and no seeds.  A counter-reset ext reads
+// per-env seeds, its K scalars and its P planes, which its reset writes, and
+// no cache.
+template <class Ext>
+bool ext_launch_ok(int ext_id, const ExtParams& p, int W, int H, int R, int K, int P, const int* flags,
+                   const int* scal, const int* cscal, const int* seeds, const uint8_t* planes,
+                   const uint8_t* cplanes) {
+  for (int i = 0; i < 3; ++i) {
+    const int sw = ext_switch<Ext>(i);
+    if (sw != SWITCH_ANY && sw != (flags[i] != 0)) return false;
+  }
+  if (P != Ext::NUM_PLANES || (P > 0 && planes == nullptr)) return false;
+  if (Ext::COUNTER_RESET) {
+    return R == 0 && seeds != nullptr && cplanes == nullptr && (K == 0 || scal != nullptr) &&
+           ext_params_ok<Ext>(ext_id, p, W, H, K);
+  }
+  if (P > 0 && cplanes == nullptr) return false;
+  if (Ext::MAX_K == 0) return R >= 1 && K == 0;
+  return R >= 1 && seeds == nullptr && scal != nullptr && cscal != nullptr && K == Ext::MAX_K;
+}
 
 }  // namespace minigrid

@@ -24,8 +24,10 @@
 // copy that env's cache slot min(used, R-1) (grid, contents, mission,
 // byte planes) or, for a COUNTER_RESET ext, make its fresh level
 // (Ext::warp_reset: the scaffold written and the free cells scanned 32 at a
-// time, the threefry draws on the owner's seed and episode ordinal); the
-// owner then loads the level's 8 scalar rows and the ext's extra scalars
+// time, the threefry draws on the owner's seed and episode ordinal; an ext
+// without a warp form, WARP_RESET false, has each ended env's lane run its
+// per-lane Ext::reset on its own rows instead, while the other lanes wait);
+// the owner then loads the level's 8 scalar rows and the ext's extra scalars
 // after a __syncwarp().  Lanes past N stay in the loop, inactive, so the
 // full-warp ballots and copies are defined; a warp wholly past N returns.
 //
@@ -43,8 +45,9 @@
 // STATIC_MISSION, SEE_THROUGH and COMPUTE_OBS are compile-time switches, as
 // in the TPU kernel; the view size V is a template parameter (7 is
 // instantiated).  An ext is instantiated only at the switches its SWITCHES
-// fixes (counter-reset exts without objects and with a constant mission,
-// since their reset writes neither; GoToTarget, Fetch and PutNear with
+// fixes (the built-in counter-reset exts without objects and with a
+// constant mission; a counter reset that writes contents, a mission or
+// planes gets them as a ResetCtx of the env's rows; GoToTarget, Fetch and PutNear with
 // objects, a per-episode mission and see-through walls; BabyAI and the
 // RoomGrid, Memory and RedBlueDoors exts with objects, a per-episode
 // mission and occluding walls); ext_launch_ok refuses other flags.
@@ -183,10 +186,17 @@ __device__ __forceinline__ void warp_copy(const Segment (&g)[NSEG], int lane) {
   }
 }
 
+// Where a counter reset writes env e's level: its rows (stride 1), the
+// contents, mission and planes only where the instantiation carries them.
+template <bool NO_OBJECTS, bool STATIC_MISSION, int P>
+__device__ __forceinline__ ResetCtx reset_rows(const Args& a, size_t e, int W, int H, int M) {
+  const int WH = W * H;
+  return ResetCtx{a.grid + e * WH, NO_OBJECTS ? nullptr : a.cont + e * WH, STATIC_MISSION ? nullptr : a.mis + e * M,
+                  P == 0 ? nullptr : a.planes + e * P * WH, 1, W, H, M};
+}
+
 template <int V, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH, bool COMPUTE_OBS>
 __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const ExtParams p) {
-  static_assert(!Ext::COUNTER_RESET || (NO_OBJECTS && STATIC_MISSION),
-                "a counter reset writes neither contents nor mission");
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = n - lane;  // the warp's first env
@@ -262,33 +272,43 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
     const unsigned resets = __ballot_sync(FULL_WARP, done);
     if (resets != 0) {
       __syncwarp();  // each lane's step is written before other lanes rewrite its rows
-      for (unsigned m = resets; m != 0; m &= m - 1) {
-        const int src = __ffs(m) - 1;
-        const size_t e = (size_t)base + src;
-        const int u = __shfl_sync(FULL_WARP, used, src);
-        if constexpr (Ext::COUNTER_RESET) {
-          const uint32_t s0 = __shfl_sync(FULL_WARP, seed0, src), s1 = __shfl_sync(FULL_WARP, seed1, src);
-          Scalars sr = s;
-          typename Ext::Extra xr = x;
-          Ext::warp_reset(p, episode_seed(s0, s1, u), a.grid + e * WH, W, H, sr, xr, lane);
-          if (lane == src) {
-            s = sr;
-            x = xr;
-          }
-        } else {
-          const size_t level = e * R + min(u, R - 1);
-          const Segment grid_seg = segment(a.grid + e * WH, a.cgrid + level * WH, WH * 4);
-          if constexpr (NO_OBJECTS && STATIC_MISSION && P == 0) {
-            const Segment copy[1] = {grid_seg};
-            warp_copy(copy, lane);
+      if constexpr (Ext::COUNTER_RESET && !Ext::WARP_RESET) {
+        // No warp form: each ended env's lane makes its level on its own
+        // rows while the other lanes wait.
+        if (done) {
+          const ResetCtx rc = reset_rows<NO_OBJECTS, STATIC_MISSION, P>(a, me, W, H, M);
+          Ext::reset(p, episode_seed(seed0, seed1, used), rc, s, x);
+        }
+      } else {
+        for (unsigned m = resets; m != 0; m &= m - 1) {
+          const int src = __ffs(m) - 1;
+          const size_t e = (size_t)base + src;
+          const int u = __shfl_sync(FULL_WARP, used, src);
+          if constexpr (Ext::COUNTER_RESET) {
+            const uint32_t s0 = __shfl_sync(FULL_WARP, seed0, src), s1 = __shfl_sync(FULL_WARP, seed1, src);
+            Scalars sr = s;
+            typename Ext::Extra xr = x;
+            const ResetCtx rc = reset_rows<NO_OBJECTS, STATIC_MISSION, P>(a, e, W, H, M);
+            Ext::warp_reset(p, episode_seed(s0, s1, u), rc, sr, xr, lane);
+            if (lane == src) {
+              s = sr;
+              x = xr;
+            }
           } else {
-            const Segment copy[4] = {
-                grid_seg,
-                NO_OBJECTS ? Segment{} : segment(a.cont + e * WH, a.ccont + level * WH, WH * 4),
-                STATIC_MISSION ? Segment{} : segment(a.mis + e * M, a.cmis + level * M, M * 4),
-                P == 0 ? Segment{} : segment(a.planes + e * P * WH, a.cplanes + level * P * WH, P * WH),
-            };
-            warp_copy(copy, lane);
+            const size_t level = e * R + min(u, R - 1);
+            const Segment grid_seg = segment(a.grid + e * WH, a.cgrid + level * WH, WH * 4);
+            if constexpr (NO_OBJECTS && STATIC_MISSION && P == 0) {
+              const Segment copy[1] = {grid_seg};
+              warp_copy(copy, lane);
+            } else {
+              const Segment copy[4] = {
+                  grid_seg,
+                  NO_OBJECTS ? Segment{} : segment(a.cont + e * WH, a.ccont + level * WH, WH * 4),
+                  STATIC_MISSION ? Segment{} : segment(a.mis + e * M, a.cmis + level * M, M * 4),
+                  P == 0 ? Segment{} : segment(a.planes + e * P * WH, a.cplanes + level * P * WH, P * WH),
+              };
+              warp_copy(copy, lane);
+            }
           }
         }
       }
@@ -356,7 +376,8 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 // cplanes and seeds unused); a cached ext takes the cache with its K extra
 // scalars (cscal) and P extra planes (cplanes) and its live ones (scal,
 // planes); a counter-reset ext takes seeds and K extra scalars (R = 0, no
-// cache).  The layouts are Args'.
+// cache), and writes its P planes at each reset.  user0..3 are a user
+// family's ExtParams::user slots.  The layouts are Args'.
 extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, int* sc, int* mis,
                                     const int* cgrid, const int* ccont, const int* c_ax, const int* c_ay,
                                     const int* c_dir, const int* c_carry, const int* c_step,
@@ -367,12 +388,13 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
                                     int M, int T, int N, int K, int P, int no_objects,
                                     int static_mission, int see_through, int compute_obs,
                                     int ext_id, int max_steps, int n_obstacles, int num_crossings,
-                                    int obstacle_cell, int start_x, int start_y, int start_dir,
-                                    void* stream) {
+                                    int obstacle_cell, int start_x, int start_y, int start_dir, int user0,
+                                    int user1, int user2, int user3, void* stream) {
   if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0 || P < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir};
+  const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir,
+                    {user0, user1, user2, user3}};
   const CacheRows csc{c_ax, c_ay, c_dir, c_carry, c_step, c_max_steps, c_term, c_trunc};
   const Args a{actions, grid, cont, sc, mis, cgrid, ccont, csc, cmis, cscal, scal, planes, cplanes, seeds,
                used, obs, rew, done, W, H, R, M, T, N, K, P};

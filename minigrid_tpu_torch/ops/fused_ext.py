@@ -19,7 +19,10 @@ A family written outside the package brings its twin as a header of its
 own (``kernel_source``, the struct in it ``kernel_struct``, ``kernel_id``
 ``EXT_USER``): the kernels' wrappers build it into the rollout kernels at
 first use (``ops/_build.load_library``), and its Python hooks stay the
-plain twin.  Such a header is a cached ext for now.
+plain twin: a cached ext, or a counter-reset one (``covers_reset``) whose
+``reset`` writes the grid, contents, mission, extra scalars and planes that
+its ``reset_block`` makes, with its own by-value values (``user_params``,
+e.g. a mission's template id) in ``ExtParams::user``.
 
 The counter-reset stream: every episode of an env draws from
 ``episode_seed(seed, ordinal)``, where ``seed`` is two int32 words fixed per
@@ -44,6 +47,9 @@ PLACE_TAG = 0x706C6163  # "plac"
 # The kernel id of an ext whose twin is a header outside the package
 # (``csrc/fused_ext.cuh``'s EXT_USER).
 EXT_USER = 100
+# The by-value slots such a family has in the kernels' parameters
+# (``csrc/fused_ext.cuh``'s USER_SLOTS).
+USER_SLOTS = 4
 
 
 class FusedExt:
@@ -67,8 +73,9 @@ class FusedExt:
     kernel_id: int | None = None
     # A family written outside the package: the path of its CUDA header and
     # the struct in it (deriving from ``NoExt`` with ``load``, ``store``,
-    # ``map_action``, ``post_step`` or ``pre_step`` and ``MAX_K``,
-    # ``NUM_PLANES``, ``SWITCHES``, ``FRONT_BEFORE`` as it needs, as the
+    # ``map_action``, ``post_step``, ``pre_step``, ``reset`` or
+    # ``params_ok`` and ``MAX_K``, ``NUM_PLANES``, ``SWITCHES``,
+    # ``FRONT_BEFORE``, ``PRE_STEP``, ``COUNTER_RESET`` as it needs, as the
     # headers of ``csrc/ext/`` do); ``kernel_id`` is then ``EXT_USER``.
     kernel_source: str | None = None
     kernel_struct: str | None = None
@@ -97,6 +104,13 @@ class FusedExt:
         None where the family's sizes exceed the compiled slots."""
         return (env.max_steps, 0, 0, 0, -1, -1, 0)
 
+    def user_params(self, env) -> tuple[int, ...]:
+        """A family written outside the package: its own by-value values,
+        at most ``USER_SLOTS`` ints, which its header reads as
+        ``p.user[i]`` (zero past those given); e.g. the template id that
+        ``register_mission`` handed out."""
+        return ()
+
     def post_step(self, env, prev: EnvState, state: EnvState, action, reward, scal):
         """Plain twin of the kernel's post-step hook (``Ext::post_step`` on a
         ``StepCtx``, ``csrc/fused_ext.cuh``): ``prev`` and ``state`` are the
@@ -110,8 +124,13 @@ class FusedExt:
     def apply_post_step(self, env, prev: EnvState, state: EnvState, action, reward):
         """``post_step`` on whole states: the family's ``_post_step``."""
         scal = self.pack_extra(env, state.extra)
-        term, reward, scal = self.post_step(env, prev, state, action, reward, scal)
-        extra = state.extra if scal is None else self.unpack_extra(env, scal)
+        if self.n_planes:
+            planes = self.pack_planes(env, state.extra)
+            term, reward, scal, planes = self.post_step(env, prev, state, action, reward, scal, planes)
+            extra = self.unpack_extra(env, scal, planes)
+        else:
+            term, reward, scal = self.post_step(env, prev, state, action, reward, scal)
+            extra = state.extra if scal is None else self.unpack_extra(env, scal)
         return state.replace(terminated=state.terminated | term, extra=extra), reward
 
     def reset_block(self, env, seeds: torch.Tensor, ep_idx: torch.Tensor) -> EnvState:
@@ -119,6 +138,15 @@ class FusedExt:
         ``seeds`` int32 [N, 2], ``ep_idx`` the episode ordinals [N].  The
         plain version of the kernel's reset, bit for bit."""
         raise NotImplementedError
+
+
+def user_slots(ext: FusedExt, env) -> tuple[int, ...]:
+    """``ext.user_params(env)`` padded with zeros to ``USER_SLOTS``, as the
+    kernels take them; ValueError for more."""
+    values = tuple(int(v) for v in ext.user_params(env))
+    if len(values) > USER_SLOTS:
+        raise ValueError(f"{type(ext).__name__}.user_params gives {len(values)} values; the kernels hold {USER_SLOTS}")
+    return values + (0,) * (USER_SLOTS - len(values))
 
 
 class CachedExt(FusedExt):

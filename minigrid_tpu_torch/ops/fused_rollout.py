@@ -12,8 +12,8 @@ GoToObject, GoToDoor, Fetch, the RoomGrid families, Memory, PutNear,
 RedBlueDoors, and BabyAI's verifier with its two planes), whose extra
 scalars and planes the kernel blends from the same cache slot;
 a ``covers_reset`` ext with a compiled twin (``FusedExt.kernel_id``:
-random-start Empty, Crossing, Dynamic-Obstacles) regenerates a fresh level
-in the kernel from per-env seeds, with no cache.
+random-start Empty, Crossing, Dynamic-Obstacles, or a family's own header)
+regenerates a fresh level in the kernel from per-env seeds, with no cache.
 
 ``fused_rollout_core`` dispatches on the device of the state: CUDA tensors
 launch the kernel (or raise), CPU tensors run ``fused_rollout_reference``,
@@ -32,7 +32,7 @@ from minigrid_tpu_torch.core.env import MiniGridEnv, cache_slot
 from minigrid_tpu_torch.core.obs import view_and_vis
 from minigrid_tpu_torch.core.state import EnvState, select
 from minigrid_tpu_torch.ops._build import load_library
-from minigrid_tpu_torch.ops.fused_ext import EXT_USER
+from minigrid_tpu_torch.ops.fused_ext import EXT_USER, USER_SLOTS, user_slots
 from minigrid_tpu_torch.ops.prng import draw_seeds
 
 # View sizes the CUDA source instantiates (every registered family uses 7).
@@ -40,7 +40,7 @@ COMPILED_VIEW_SIZES = (7,)
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 25 + [ctypes.c_void_p]
 
 
 def supports_fused(env) -> bool:
@@ -192,20 +192,23 @@ def kernel_library(name: str, env):
     """The library of rollout kernel ``name`` (``fused_rollout`` or
     ``actor_rollout``) for ``env``: the built-in one, or the one built with
     the family's own ext header (``FusedExt.kernel_source``), whose struct
-    must declare what the Python twin does (``ValueError`` otherwise)."""
+    must declare what the Python twin does (``ValueError`` otherwise): its
+    ``MAX_K``, ``NUM_PLANES``, ``SWITCHES``, ``COUNTER_RESET`` and
+    ``PRE_STEP`` are the twin's ``n_scalars``, ``n_planes``,
+    ``kernel_switches``, ``covers_reset`` and ``covers_pre_step``."""
     ext = env.fused_ext
     if ext is None or ext.kernel_source is None:
         return load_library(name)
     lib = load_library(name, ext.kernel_source, ext.kernel_struct)
-    layout = (ctypes.c_int * 5)()
+    layout = (ctypes.c_int * 7)()
     _require(lib.minigrid_ext_layout(EXT_USER, layout) == 1, "the user library holds no EXT_USER", name)
     switch = {1: True, 0: False, -1: None}
-    declared = (layout[0], layout[1], tuple(switch[v] for v in layout[2:]))
-    twin = (ext.n_scalars, ext.n_planes, tuple(ext.kernel_switches))
+    declared = (layout[0], layout[1], tuple(switch[v] for v in layout[2:5]), bool(layout[5]), bool(layout[6]))
+    twin = (ext.n_scalars, ext.n_planes, tuple(ext.kernel_switches), bool(ext.covers_reset), bool(ext.covers_pre_step))
     _require(
         declared == twin,
-        f"{ext.kernel_struct} in {ext.kernel_source} declares MAX_K, NUM_PLANES, SWITCHES {declared}, its Python "
-        f"twin n_scalars, n_planes, kernel_switches {twin}",
+        f"{ext.kernel_struct} in {ext.kernel_source} declares MAX_K, NUM_PLANES, SWITCHES, COUNTER_RESET, PRE_STEP "
+        f"{declared}, its Python twin n_scalars, n_planes, kernel_switches, covers_reset, covers_pre_step {twin}",
         name,
     )
     return lib
@@ -219,18 +222,11 @@ def _require(cond: bool, message: str, what: str = "fused_rollout") -> None:
 def check_ext(env, states: EnvState, cache: EnvState | None, what: str) -> None:
     """Raise for an ext the kernels cannot run, and the plain versions with
     them: one with extra planes but no compiled twin, whose planes no
-    kernel would carry, a counter-reset ext from a header of the family's
-    own (``NotImplementedError``), and a cached ext whose state or reset
-    cache lacks its extra scalars or planes."""
+    kernel would carry, and a cached ext whose state or reset cache lacks
+    its extra scalars or planes."""
     ext, name = env.fused_ext, type(env).__name__
     if ext is None:
         return
-    if ext.kernel_source is not None and ext.covers_reset:
-        raise NotImplementedError(
-            f"{what}: {name}'s fused ext is a counter-reset ext from its own header ({ext.kernel_source}); the "
-            "kernels build a user header as a cached ext only (ROADMAP.md, Queue 1: \"A counter-reset ext from "
-            "a user header\")"
-        )
     _require(
         ext.n_planes == 0 or ext.kernel_id is not None,
         f"{name}'s fused ext carries {ext.n_planes} extra planes per env (P planes) and has no "
@@ -413,7 +409,8 @@ class ExtBuffers(NamedTuple):
     cplanes: torch.Tensor | None  # uint8 [R, P, W*H, N] a cached ext's cache planes ([N, R, P, W*H])
     seeds: torch.Tensor | None  # int32 [2, N] a counter-reset ext's seeds ([N, 2])
     ext_id: int
-    params: tuple[int, ...]  # ExtParams (FusedExt.kernel_params)
+    params: tuple[int, ...]  # ExtParams' named fields (FusedExt.kernel_params)
+    user: tuple[int, ...]  # ExtParams::user (fused_ext.user_slots)
     env_major: bool = False
 
     def pointers(self) -> tuple:
@@ -447,9 +444,10 @@ def ext_buffers(
     packed ext state and seeds as they come."""
     ext = env.fused_ext
     if ext is None:
-        return ExtBuffers(None, None, None, None, None, 0, (0,) * 7, env_major)
+        return ExtBuffers(None, None, None, None, None, 0, (0,) * 7, (0,) * USER_SLOTS, env_major)
     n, device = states.step_count.shape[0], states.device
     cells = env.width * env.height
+    ids = (ext.kernel_id, ext.kernel_params(env), user_slots(ext, env))
 
     def minor(x: torch.Tensor, order: tuple[int, ...]) -> torch.Tensor:
         return x.contiguous() if env_major else x.permute(order).contiguous()
@@ -479,22 +477,22 @@ def ext_buffers(
             cscal = minor(cscal.to(device=device, dtype=torch.int32), (1, 2, 0))
         if ext.n_planes:
             cplanes = _plane_bytes(ext.pack_planes(env, cache.extra), (n, r), ext.n_planes, cells, device, what, env_major)
-        return ExtBuffers(scal, cscal, planes, cplanes, None, ext.kernel_id, ext.kernel_params(env), env_major)
+        return ExtBuffers(scal, cscal, planes, cplanes, None, *ids, env_major)
     _require(
         reset_seeds is not None and tuple(reset_seeds.shape) == (n, 2)
         and reset_seeds.dtype == torch.int32 and reset_seeds.device == device,
         f"reset_seeds must be int32 [{n}, 2] on the state's device",
         what,
     )
-    return ExtBuffers(scal, None, planes, None, minor(reset_seeds, (1, 0)), ext.kernel_id, ext.kernel_params(env), env_major)
+    return ExtBuffers(scal, None, planes, None, minor(reset_seeds, (1, 0)), *ids, env_major)
 
 
 def with_extra(env, final: EnvState, ext: ExtBuffers) -> EnvState:
     """``final`` with the kernel's final extra scalars and planes (widened
     back to int32) unpacked into its ``extra``."""
-    if ext.scal is None:
+    if ext.scal is None and ext.planes is None:
         return final
-    scal = ext.scal if ext.env_major else ext.scal.t().contiguous()
+    scal = ext.scal if ext.scal is None or ext.env_major else ext.scal.t().contiguous()
     if ext.planes is None:
         return final.replace(extra=env.fused_ext.unpack_extra(env, scal))
     planes = ext.planes if ext.env_major else ext.planes.permute(2, 0, 1)
@@ -536,6 +534,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
             int(bool(compute_obs)),
             ext.ext_id,
             *ext.params,
+            *ext.user,
             stream,
         )
     if err != 0:

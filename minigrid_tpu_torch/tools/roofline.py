@@ -62,13 +62,14 @@ def levels_read(episodes: int, n: int, r: int) -> float:
 def threefry_evaluations(env, env_steps: int, resets: int) -> int:
     """The threefry evaluations a counter-reset rollout needs: per reset the
     episode seed and the placement pairs (and Dynamic-Obstacles' walk
-    seed), per env-step one per two walking balls."""
+    seed; a family written outside the package declares its count as
+    ``reset_threefry``), per env-step one per two walking balls."""
     if hasattr(env, "n_obstacles"):
         words = env.n_obstacles + (2 if env.agent_start_pos is None else 0)
         return resets * (2 + (words + 1) // 2) + env_steps * ((env.n_obstacles + 1) // 2)
     if hasattr(env, "num_crossings"):
         return resets * (1 + (3 * env.num_crossings + 1) // 2)
-    return resets * 2
+    return resets * getattr(env, "reset_threefry", 2)
 
 
 def dense_ops(hidden: int, num_actions: int) -> int:

@@ -12,6 +12,18 @@
   ``TURNS_HEADER``, built into the rollout kernels at first launch).  Its
   ``step_env`` equals JAX's bit for bit, its levels are held by
   distribution, and the kernels' plain versions run it.
+* A counter-reset example family, ``TargetBallEnv``: an 8x8 walled room
+  with a ball and a box holding a second ball, of two colours, and the
+  agent on uniform free cells; its mission ``"pick up the {0} ball"``
+  names one of the two colours (the extra scalar); a plane marks the cells
+  the agent has stood on; any pickup ends the episode, with the success
+  reward for the mission's ball and 0 for anything else.  Its CUDA twin
+  ``TARGET_HEADER`` regenerates the level in the kernels (``reset`` only:
+  the random-policy kernel's owner-lane form), writing the grid, contents,
+  mission (its template id from ``ExtParams::user``), scalar and plane.  It
+  is written in JAX too (``_jax_target_env``: a ``FusedExt`` with
+  ``covers_reset`` and a ``reset_block`` of ``jnp`` ops), and the two are
+  held equal: levels, steps and both kernels' plain versions.
 * The short-chunk reset budget: the fused path's default R for a chunk of
   up to 256 steps is the 256-step R.
 
@@ -38,9 +50,19 @@ from minigrid_tpu_torch.core import grid as g
 from minigrid_tpu_torch.core import mission as tm
 from minigrid_tpu_torch.core import sampling as s_
 from minigrid_tpu_torch.core.actions import Actions
-from minigrid_tpu_torch.core.constants import EMPTY_CELL, GOAL_CELL, WALL_CELL
+from minigrid_tpu_torch.core.constants import (
+    EMPTY_CELL,
+    GOAL_CELL,
+    NUM_COLORS,
+    OBJ_BALL,
+    OBJ_BOX,
+    OBJ_EMPTY,
+    WALL_CELL,
+)
 from minigrid_tpu_torch.core.env import MiniGridEnv
 from minigrid_tpu_torch.core.state import new_state
+from minigrid_tpu_torch.core.step import success_reward
+from minigrid_tpu_torch.ops.prng import uniform_index
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.ops import fused_ext as fx
@@ -197,6 +219,335 @@ def _jax_turns_env():
     return JaxTurnsEnv()
 
 
+TARGET_MISSION = "pick up the {0} ball"
+TARGET_PARAMS = ("color",)
+TARGET_ID = "MiniGrid-TargetBall-8x8-v0"
+
+# The counter-reset family's CUDA twin: its level from placement words 0-6,
+# written through the ResetCtx (all of it: this struct is built with objects,
+# a per-episode mission and its plane), by `reset` alone.
+TARGET_HEADER = r"""// TargetBall: pick up the ball of the mission's colour; a box holds the other.
+#pragma once
+
+#include "fused_ext.cuh"
+
+namespace minigrid {
+
+struct TargetBallExt : NoExt {
+  static constexpr bool COUNTER_RESET = true;
+  // Objects, a per-episode mission, occluding walls.
+  static constexpr int SWITCHES[3] = {0, 0, 0};
+  static constexpr int MAX_K = 1;
+  static constexpr int NUM_PLANES = 1;
+
+  struct Extra {
+    int target;  // the mission's colour
+  };
+
+  __device__ static Extra load(const int* scal, int n, size_t, const ExtParams&) { return Extra{scal[n]}; }
+
+  __device__ static void store(int* scal, int n, size_t, const ExtParams&, const Extra& x) {
+    scal[n] = x.target;
+  }
+
+  // Room for the two objects and the agent; the mission's template id given.
+  static bool params_ok(const ExtParams& p, int W, int H, int K) {
+    return K == MAX_K && W >= 3 && H >= 3 && (W - 2) * (H - 2) >= 3 && p.user[0] > 0;
+  }
+
+  // The plane marks the agent's cell; a pickup ends the episode, with the
+  // success reward where it is the mission's ball.
+  __device__ static bool post_step(const ExtParams&, const StepCtx& ctx, float& reward, Extra& x) {
+    ctx.planes[(size_t)(ctx.post.ax * ctx.H + ctx.post.ay) * ctx.N] = 1;
+    const bool picked = ctx.action == ACT_PICKUP && ctx.post.carry != ctx.prev.carry;
+    if (picked) {
+      const bool wanted = (ctx.post.carry & 0xFF) == OBJ_BALL && ((ctx.post.carry >> 8) & 0xFF) == x.target;
+      reward = wanted ? success_reward(ctx.post) : 0.0f;
+    }
+    return picked;
+  }
+
+  // Words 0-2 the two colours and the target, 3 ball A's cell, 4 the box's
+  // (ball B inside), 5 the agent's, 6 its direction.
+  __device__ static void reset(const ExtParams& p, const Words& e, const ResetCtx& rc, Scalars& s, Extra& x) {
+    const int W = rc.W, H = rc.H, WH = W * H;
+    const size_t N = rc.N;
+    for (int k = 0; k < WH; ++k) {
+      const int cx = k / H, cy = k % H;
+      const bool border = cx == 0 || cy == 0 || cx == W - 1 || cy == H - 1;
+      rc.grid[k * N] = border ? WALL_CELL : EMPTY_CELL;
+      rc.cont[k * N] = 0;
+      rc.planes[k * N] = 0;
+    }
+    const int ca = uniform_index(place_word(e, 0), NUM_COLORS);
+    const int r = uniform_index(place_word(e, 1), NUM_COLORS - 1);
+    const int cb = r + (r >= ca);
+    x.target = uniform_index(place_word(e, 2), 2) ? cb : ca;
+    const int a = draw_free_cell(rc.grid, N, WH, -1, place_word(e, 3));
+    rc.grid[a * N] = OBJ_BALL | (ca << 8);
+    const int b = draw_free_cell(rc.grid, N, WH, -1, place_word(e, 4));
+    rc.grid[b * N] = OBJ_BOX | (cb << 8);
+    rc.cont[b * N] = OBJ_BALL | (cb << 8);
+    const int agent = draw_free_cell(rc.grid, N, WH, -1, place_word(e, 5));
+    rc.planes[agent * N] = 1;
+    for (int k = 0; k < rc.M; ++k) rc.mis[k * N] = k == 0 ? p.user[0] : k == 1 ? x.target : 0;
+    s = fresh_scalars(agent / H, agent % H, uniform_index(place_word(e, 6), 4), p.max_steps);
+  }
+};
+
+}  // namespace minigrid
+"""
+
+
+class TargetBallFusedExt(fx.FusedExt):
+    """The port's twin of ``TargetBallExt``: ``reset_block`` is the plain
+    version of its ``reset`` and ``post_step`` of its ``post_step``; the
+    extra scalar is the target colour, the plane the cells the agent has
+    stood on; the mission's template id is its user slot."""
+
+    covers_reset = True
+    n_scalars = 1
+    n_planes = 1
+    kernel_id = fx.EXT_USER
+    kernel_struct = "TargetBallExt"
+    kernel_switches = (False, False, False)
+
+    def __init__(self, header=None):
+        self.kernel_source = None if header is None else str(header)
+
+    def user_params(self, env):
+        return (env.mission_id,)
+
+    def pack_extra(self, env, extra):
+        return extra["target"][..., None].to(torch.int32)
+
+    def pack_planes(self, env, extra):
+        visited = extra["visited"].to(torch.int32)
+        return visited.reshape(visited.shape[:-2] + (1, env.width * env.height))
+
+    def unpack_extra(self, env, scal, planes=None):
+        shape = planes.shape[:-2] + (env.width, env.height)
+        return {"target": scal[..., 0], "visited": planes[..., 0, :].reshape(shape)}
+
+    def post_step(self, env, prev, state, action, reward, scal, planes):
+        carry = state.carrying
+        picked = (action == Actions.pickup) & (carry != prev.carrying)
+        wanted = ((carry & 0xFF) == OBJ_BALL) & (((carry >> 8) & 0xFF) == scal[:, 0])
+        success = success_reward(state.step_count, state.max_steps)
+        reward = torch.where(picked, torch.where(wanted, success, 0.0), reward)
+        planes = planes.clone()
+        rows = torch.arange(planes.shape[0], device=planes.device)
+        planes[rows, 0, (state.agent_x * env.height + state.agent_y).long()] = 1
+        return picked, reward, scal, planes
+
+    def reset_block(self, env, seeds, ep_idx):
+        n, w, h = seeds.shape[0], env.width, env.height
+        device = seeds.device
+        rows = torch.arange(n, device=device)
+        e0, e1 = fx.episode_seed(seeds, ep_idx)
+        words = fx.place_words(e0, e1, 7)
+        grid = fx.walled_plane(n, w, h, device)
+        ca = uniform_index(words[0], NUM_COLORS)
+        r = uniform_index(words[1], NUM_COLORS - 1)
+        cb = r + (r >= ca).long()
+        target = torch.where(uniform_index(words[2], 2) == 1, cb, ca).to(torch.int32)
+
+        def draw(word):
+            free = (grid & 0xFF) == OBJ_EMPTY
+            return fx.nth_true_index(free, uniform_index(word, free.sum(dim=1).clamp(min=1)), 0)
+
+        a = draw(words[3])
+        grid[rows, a] = (OBJ_BALL | (ca << 8)).to(torch.int32)
+        b = draw(words[4])
+        grid[rows, b] = (OBJ_BOX | (cb << 8)).to(torch.int32)
+        contains = torch.zeros_like(grid)
+        contains[rows, b] = (OBJ_BALL | (cb << 8)).to(torch.int32)
+        agent = draw(words[5])
+        visited = torch.zeros_like(grid)
+        visited[rows, agent] = 1
+        return new_state(
+            grid.reshape(n, w, h),
+            torch.stack([agent // h, agent % h], dim=-1),
+            uniform_index(words[6], 4),
+            env.max_steps,
+            contains=contains.reshape(n, w, h),
+            mission=tm.mission_rows(env.mission_id, target),
+            extra={"target": target, "visited": visited.reshape(n, w, h)},
+        )
+
+
+class TargetBallEnv(MiniGridEnv):
+    """The counter-reset example family in the port.  ``_generate`` draws
+    its levels from the generator, as a family's own generator does; the
+    kernels regenerate them from the counter stream (``reset_block``, or
+    its header, ``header``: the path of ``TARGET_HEADER`` written to a
+    file)."""
+
+    fused_no_objects = False
+    fused_static_mission = False
+    # The threefry evaluations of a reset: the episode seed and the four
+    # placement pairs (``tools/roofline.threefry_evaluations``).
+    reset_threefry = 5
+
+    def __init__(self, size: int = 8, max_steps: int = 256, header=None, **kwargs):
+        super().__init__(width=size, height=size, max_steps=max_steps, **kwargs)
+        self.fused_ext = TargetBallFusedExt(header)
+        self.mission_id = tm.register_mission(TARGET_MISSION, TARGET_PARAMS)
+
+    def _generate(self, num_envs, generator, device):
+        w, h = self.width, self.height
+        grid = g.wall_rect(g.empty_grid(num_envs, w, h, device), 0, 0, w, h)
+        ca = s_.randint(generator, num_envs, 0, NUM_COLORS, device)
+        r = s_.randint(generator, num_envs, 0, NUM_COLORS - 1, device)
+        cb = r + (r >= ca).to(torch.int32)
+        target = torch.where(s_.randint(generator, num_envs, 0, 2, device) == 1, cb, ca)
+        pa = s_.place_obj_pos(generator, grid)
+        grid = g.set_cell(grid, pa[:, 0], pa[:, 1], OBJ_BALL | (ca << 8))
+        pb = s_.place_obj_pos(generator, grid)
+        grid = g.set_cell(grid, pb[:, 0], pb[:, 1], OBJ_BOX | (cb << 8))
+        contains = g.set_cell(torch.zeros_like(grid), pb[:, 0], pb[:, 1], OBJ_BALL | (cb << 8))
+        agent = s_.place_obj_pos(generator, grid)
+        visited = g.set_cell(torch.zeros_like(grid), agent[:, 0], agent[:, 1], 1)
+        return new_state(
+            grid,
+            agent,
+            s_.rand_dir(generator, num_envs, device),
+            self.max_steps,
+            contains=contains,
+            mission=tm.mission_rows(self.mission_id, target),
+            extra={"target": target, "visited": visited},
+        )
+
+    def _post_step(self, prev, state, action, reward):
+        return self.fused_ext.apply_post_step(self, prev, state, action, reward)
+
+
+def write_target_header(directory: Path, text: str = TARGET_HEADER) -> Path:
+    path = Path(directory) / "target_ball.cuh"
+    path.write_text(text)
+    return path
+
+
+def _jax_target_env(max_steps: int = 256):
+    """The counter-reset example family in JAX: ``_generate`` through
+    ``jax.random``, a ``_post_step`` override, and a ``FusedExt`` whose
+    ``reset_block`` and ``post_step`` the JAX kernels trace."""
+    import jax
+    import jax.numpy as jnp
+
+    from minigrid_tpu.core import grid as jg
+    from minigrid_tpu.core.env import MiniGridEnv as JEnv
+    from minigrid_tpu.core.env import success_reward as j_success_reward
+    from minigrid_tpu.core.mission import MISSION_DIM, mission_vec, register_mission
+    from minigrid_tpu.core.sampling import place_obj_pos, rand_dir, randint
+    from minigrid_tpu.core.state import new_state as j_new_state
+    from minigrid_tpu.ops import fused_ext as jfx
+    from minigrid_tpu.ops.prng import uniform_index as j_uniform_index
+
+    class JaxTargetBallExt(jfx.FusedExt):
+        covers_reset = True
+        n_scalars = 1
+        n_planes = 1
+
+        def pack_extra(self, env, extra):
+            visited = extra["visited"]
+            planes = visited.reshape(visited.shape[:-2] + (1, env.width * env.height))
+            return extra["target"][..., None].astype(jnp.int32), planes.astype(jnp.int32)
+
+        def unpack_extra(self, env, scal, planes):
+            shape = planes.shape[:-2] + (env.width, env.height)
+            return {"target": scal[..., 0], "visited": planes[..., 0, :].reshape(shape)}
+
+        def post_step(self, ctx):
+            carry = ctx.sc[jfx.ROW_CARRY]
+            picked = (ctx.action == 3) & (carry != ctx.sc_prev[jfx.ROW_CARRY])
+            wanted = ((carry & 0xFF) == int(OBJ_BALL)) & (((carry >> 8) & 0xFF) == ctx.scal[0])
+            reward = jnp.where(picked, jnp.where(wanted, ctx.success_reward(), 0.0), ctx.reward)
+            here = ctx.mask_of(ctx.sc[jfx.ROW_AX] * ctx.H + ctx.sc[jfx.ROW_AY])
+            return picked, reward, ctx.scal, (jnp.where(here, 1, ctx.planes[0]),)
+
+        def reset_block(self, env, W, H, seed0, seed1, ep_idx):
+            S = jnp.asarray(seed0).shape
+            e0, e1 = jfx.episode_seed(seed0, seed1, ep_idx)
+            words = [w for j in range(4) for w in jfx.place_draw(e0, e1, j)]
+            zero = jnp.zeros(S, jnp.int32)
+            idx = jax.lax.broadcasted_iota(jnp.int32, (W * H,) + tuple(S), 0)
+            g = jfx.walled_plane(W, H, S)
+            ca = j_uniform_index(words[0], zero + NUM_COLORS)
+            r = j_uniform_index(words[1], zero + NUM_COLORS - 1)
+            cb = r + (r >= ca).astype(jnp.int32)
+            target = jnp.where(j_uniform_index(words[2], zero + 2) == 1, cb, ca)
+
+            def draw(g, word):
+                free = (g & 0xFF) == int(OBJ_EMPTY)
+                count = jnp.sum(free.astype(jnp.int32), axis=0)
+                return jfx.nth_true_index(free, j_uniform_index(word, jnp.maximum(count, 1)), zero)
+
+            a = draw(g, words[3])
+            g = jnp.where(idx == a[None], (int(OBJ_BALL) | (ca << 8))[None], g)
+            b = draw(g, words[4])
+            g = jnp.where(idx == b[None], (int(OBJ_BOX) | (cb << 8))[None], g)
+            c = jnp.where(idx == b[None], (int(OBJ_BALL) | (cb << 8))[None], 0)
+            agent = draw(g, words[5])
+            sc = {
+                jfx.ROW_AX: agent // H,
+                jfx.ROW_AY: agent % H,
+                jfx.ROW_DIR: j_uniform_index(words[6], zero + 4),
+                jfx.ROW_CARRY: zero,
+                jfx.ROW_STEP: zero,
+                jfx.ROW_MAX: zero + env.max_steps,
+                jfx.ROW_TERM: zero,
+                jfx.ROW_TRUNC: zero,
+            }
+            mis = jnp.stack([zero + env.mission_id, target] + [zero] * (MISSION_DIM - 2))
+            return g, c, sc, mis, (target,), ((idx == agent[None]).astype(jnp.int32),)
+
+    class JaxTargetBallEnv(JEnv):
+        fused_no_objects = False
+        fused_static_mission = False
+
+        def __init__(self, size: int = 8, max_steps: int = 256, **kwargs):
+            super().__init__(width=size, height=size, max_steps=max_steps, **kwargs)
+            self.fused_ext = JaxTargetBallExt()
+            self.mission_id = register_mission(TARGET_MISSION, TARGET_PARAMS)
+
+        def _generate(self, key):
+            ks = jax.random.split(key, 8)
+            w, h = self.width, self.height
+            grid = jg.wall_rect(jg.empty_grid(w, h), 0, 0, w, h)
+            ca = randint(ks[0], 0, NUM_COLORS)
+            r = randint(ks[1], 0, NUM_COLORS - 1)
+            cb = r + (r >= ca).astype(jnp.int32)
+            target = jnp.where(randint(ks[2], 0, 2) == 1, cb, ca)
+            pa = place_obj_pos(ks[3], grid)
+            grid = jg.set_cell(grid, pa[0], pa[1], int(OBJ_BALL) | (ca << 8))
+            pb = place_obj_pos(ks[4], grid)
+            grid = jg.set_cell(grid, pb[0], pb[1], int(OBJ_BOX) | (cb << 8))
+            contains = jg.set_cell(jnp.zeros_like(grid), pb[0], pb[1], int(OBJ_BALL) | (cb << 8))
+            agent = place_obj_pos(ks[5], grid)
+            return j_new_state(
+                grid=grid,
+                agent_pos=agent,
+                agent_dir=rand_dir(ks[6]),
+                rng=ks[7],
+                max_steps=self.max_steps,
+                contains=contains,
+                mission=mission_vec(self.mission_id, target),
+                extra={"target": target, "visited": jg.set_cell(jnp.zeros_like(grid), agent[0], agent[1], 1)},
+            )
+
+        def _post_step(self, prev_state, state, action, reward):
+            carry = state.carrying
+            picked = (action == 3) & (carry != prev_state.carrying)
+            wanted = ((carry & 0xFF) == int(OBJ_BALL)) & (((carry >> 8) & 0xFF) == state.extra["target"])
+            reward = jnp.where(picked, jnp.where(wanted, j_success_reward(state), 0.0), reward)
+            visited = state.extra["visited"].at[state.agent_x, state.agent_y].set(1)
+            extra = {"target": state.extra["target"], "visited": visited}
+            return state.replace(terminated=state.terminated | picked, extra=extra), reward
+
+    return JaxTargetBallEnv(max_steps=max_steps)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def twin_tables():
     """Register the example family's template in both packages, and restore
@@ -208,6 +559,8 @@ def twin_tables():
     lengths = [len(t) for t, _ in saved]
     ids = [set(treg._REGISTRY), set(jreg._REGISTRY)]
     assert tm.register_mission(TURNS_MISSION) == jm.register_mission(TURNS_MISSION)
+    target = (TARGET_MISSION, TARGET_PARAMS)
+    assert tm.register_mission(*target) == jm.register_mission(*target)
     yield
     for (table, index), n in zip(saved, lengths):
         for key in table[n:]:
@@ -537,25 +890,281 @@ def test_user_library_is_loaded_once_and_an_edited_header_rebuilt(tmp_path, monk
     assert _build.load_library("fused_rollout", header, "TurnsExt") == first and len(built) == 2
 
 
-class _CounterTurnsExt(TurnsFusedExt):
-    """A user header claiming a counter reset, which the kernels do not
-    build from a user header yet."""
-
-    covers_reset = True
+# -- The counter-reset example family -----------------------------------------
 
 
-def test_a_counter_reset_user_ext_raises(tmp_path):
-    env = TurnsEnv(header=write_header(tmp_path))
-    env.fused_ext = _CounterTurnsExt(write_header(tmp_path))
-    gen = torch.Generator().manual_seed(0)
-    _, states = TurnsEnv().reset(32, gen)
-    actions = torch.zeros((4, 32), dtype=torch.int32)
-    seeds = torch.zeros((32, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        fr.fused_rollout_core(env, states, None, actions, False, seeds)
-    weights = ar.repack_actor_params(ActorCritic(64, env.num_actions, generator=gen))
-    with pytest.raises(NotImplementedError, match="counter-reset ext from its own header"):
-        ar.fused_actor_rollout_core(env, weights, states, None, ar.draw_bits(gen, (4, 7, 32), None), seeds)
+def _target_seeds(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-(2**31), 2**31, (n, 2)).astype(np.int32), (np.arange(n) % 7).astype(np.int32)
+
+
+def test_target_reset_block_matches_jax():
+    import jax
+    import jax.numpy as jnp
+
+    from torch_port_util import assert_states_equal
+
+    jenv, tenv = _jax_target_env(), TargetBallEnv()
+    seeds, eps = _target_seeds(256, 31)
+    ext = jenv.fused_ext
+    jst = jax.jit(jax.vmap(lambda s, e: ext.reset_state(jenv, s[0], s[1], e)))(jnp.asarray(seeds), jnp.asarray(eps))
+    st = tenv.fused_ext.reset_block(tenv, torch.from_numpy(seeds), torch.from_numpy(eps))
+    assert_states_equal(st, jst, "TargetBall reset_block")  # contents, mission, target and plane included
+    assert bool((st.mission[:, 0] == tenv.mission_id).all()) and bool((st.mission[:, 2:] == 0).all())
+    assert bool((st.mission[:, 1] == st.extra["target"]).all())
+    assert bool((st.contains.reshape(256, -1).count_nonzero(dim=1) == 1).all())
+    assert bool((st.extra["visited"].reshape(256, -1).sum(dim=1) == 1).all())
+
+
+def _target_bins(state, width: int, height: int) -> list[np.ndarray]:
+    """Counts of (cell, object type and colour) over the grids, of the
+    contents' (cell, colour), of the agent's (cell, direction) and of the
+    target colour against ball A's."""
+    n = state.grid.shape[0]
+    grid = np.asarray(state.grid).reshape(n, -1)
+    cells = np.arange(width * height)
+    kinds = (grid & 0xFF) * 8 + ((grid >> 8) & 0xFF)
+    obj = np.bincount((cells * 128 + kinds).reshape(-1), minlength=width * height * 128)
+    cont = np.asarray(state.contains).reshape(n, -1)
+    boxed = np.bincount((cells * 8 + ((cont >> 8) & 0xFF) * (cont != 0)).reshape(-1), minlength=width * height * 8)
+    agent = np.asarray(state.agent_x) * height + np.asarray(state.agent_y)
+    agent = np.bincount(agent * 4 + np.asarray(state.agent_dir), minlength=width * height * 4)
+    ball = np.where((grid & 0xFF) == int(OBJ_BALL), (grid >> 8) & 0xFF, 0).max(axis=1)
+    target = np.bincount(ball * 6 + np.asarray(state.extra["target"]), minlength=36)
+    return [x.astype(float) for x in (obj, boxed, agent, target)]
+
+
+def test_target_levels_match_both_generators_by_distribution():
+    import jax
+
+    from test_counter_reset import _assert_close_freq
+
+    n = 4096
+    jenv, tenv = _jax_target_env(), TargetBallEnv()
+    seeds, eps = _target_seeds(n, 32)
+    counter = tenv.fused_ext.reset_block(tenv, torch.from_numpy(seeds), torch.from_numpy(eps))
+    _, port = tenv.reset(n, torch.Generator().manual_seed(33))
+    jst = jax.jit(jax.vmap(jenv._generate))(jax.random.split(jax.random.PRNGKey(34), n))
+    want = _target_bins(counter, 8, 8)
+    for other in (port, jst):
+        for got, ref in zip(_target_bins(other, 8, 8), want):
+            assert (got > 0).sum() == (ref > 0).sum()
+            _assert_close_freq(got, ref, n)
+    # Ball A's colour and the target: the target is ball A's half the time.
+    target = want[3].reshape(6, 6)
+    assert np.trace(target) / n == pytest.approx(0.5, abs=0.03)
+
+
+def test_target_step_env_matches_jax():
+    import jax
+    import jax.numpy as jnp
+
+    from torch_port_util import assert_states_equal, to_jax
+
+    n, steps = 4096, 16
+    jenv, tenv = _jax_target_env(), TargetBallEnv()
+    seeds, eps = _target_seeds(n, 35)
+    st = tenv.fused_ext.reset_block(tenv, torch.from_numpy(seeds), torch.from_numpy(eps))
+    jst = to_jax(st)
+    rng = np.random.default_rng(36)
+    # Forward, the turns, pickups and toggles: boxes open, balls are picked up.
+    actions = rng.choice([0, 1, 2, 2, 3, 3, 5], (steps, n)).astype(np.int32)
+    jstep = jax.jit(jax.vmap(jenv.step_env))
+    picked = wanted = opened = 0
+    for t in range(steps):
+        jst, jr = jstep(jst, jnp.asarray(actions[t]))
+        nxt, r = tenv.step_env(st, torch.from_numpy(actions[t]))
+        assert_states_equal(nxt, jst, f"TargetBall step {t}")
+        np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-6, atol=0)
+        picked += int((nxt.terminated & ~st.terminated).sum())
+        wanted += int((r > 0).sum())
+        opened += int(((st.contains != 0) & (nxt.contains == 0) & ((nxt.grid & 0xFF) == int(OBJ_BALL))).sum())
+        st = nxt
+    assert picked > 200 and 0 < wanted < picked and opened > 50
+    assert int(st.extra["visited"].sum()) > 2 * n
+
+
+def test_target_k1_plain_version_matches_jax_kernel():
+    # JAX's K1 in interpret mode with reset seeds: its counter-reset branch
+    # writes contents, mission, the extra scalar and the plane.
+    import jax
+    import jax.numpy as jnp
+
+    from minigrid_tpu.ops.fused_rollout import fused_rollout_core as j_fused_rollout_core
+    from torch_port_util import assert_states_equal, to_port
+
+    n, steps = 1024, 24
+    jenv, tenv = _jax_target_env(max_steps=10), TargetBallEnv(max_steps=10)
+    _, jstates = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(37), n))
+    rng = np.random.default_rng(37)
+    actions = rng.integers(0, 7, (steps, n), dtype=np.int32)
+    seeds = rng.integers(-(2**31), 2**31, (n, 2)).astype(np.int32)
+    jfinal, jrew, jdone, jchk, jused = j_fused_rollout_core(
+        jenv, jstates, None, jnp.asarray(actions), True, True, jnp.asarray(seeds)  # interpret=True
+    )
+    before = fr.KERNEL_LAUNCHES
+    final, rew, done, chk, used = fr.fused_rollout_core(
+        tenv, to_port(jstates), None, torch.from_numpy(actions), True, torch.from_numpy(seeds)
+    )
+    assert fr.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    assert_states_equal(final, jfinal, "TargetBall K1")  # contents, mission and extra included
+    assert int(done) == int(jdone) > n
+    assert int(chk) == int(jchk)
+    assert int(used) == int(jused) == 0
+    np.testing.assert_allclose(float(rew), float(jrew), rtol=1e-5)
+    assert float(rew) > 0 and int((final.mission[:, 1] == final.extra["target"]).sum()) == n
+
+
+@pytest.fixture(scope="module")
+def target_actor_case():
+    """JAX's actor kernel (interpret mode) on the example family, with the
+    seeds and bits it drew carried into the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from minigrid_tpu.ops.actor_rollout import B as JAX_BLOCK
+    from minigrid_tpu.ops.actor_rollout import HEAD_ROWS
+    from minigrid_tpu.ops.actor_rollout import fused_actor_rollout as j_fused_actor_rollout
+    from minigrid_tpu_torch.utils.bridge import state_from_numpy
+    from torch_port_util import flax_params, jax_to_numpy, port_model, to_port
+
+    n, t = 1024, 5
+    env = _jax_target_env(max_steps=3)
+    k_reset, k_param, key = jax.random.split(jax.random.PRNGKey(38), 3)
+    _, states = jax.jit(jax.vmap(env.reset))(jax.random.split(k_reset, n))
+    packed = jax.vmap(lambda s: env.observation_packed(s).reshape(-1))(states)
+    _, params = flax_params(np.asarray(packed), np.asarray(states.agent_dir), seed=int(k_param[1]) % 1000)
+    final, traj = jax.block_until_ready(j_fused_actor_rollout(env, params, states, key, t, 2, interpret=True))
+    k_seeds, k_noise, _ = jax.random.split(key, 3)
+    seeds = np.array(jax.random.bits(k_seeds, (n, 2), jnp.uint32).astype(jnp.int32))
+    bits = np.asarray(jax.random.bits(k_noise, (n // JAX_BLOCK, t, HEAD_ROWS, JAX_BLOCK), jnp.uint32).astype(jnp.int32))
+    noise = bits.transpose(1, 2, 0, 3).reshape(t, HEAD_ROWS, n)[:, : env.num_actions]
+    return {
+        "env": TargetBallEnv(max_steps=3),
+        "weights": ar.repack_actor_params(port_model(params)),
+        "states": to_port(states),
+        "seeds": torch.from_numpy(seeds),
+        "noise": torch.from_numpy(np.ascontiguousarray(noise)),
+        "final": state_from_numpy(jax_to_numpy(final)),
+        "traj": {k: torch.from_numpy(np.array(v)) for k, v in traj.items()},
+    }
+
+
+def test_target_jax_actor_kernel_meets_the_port_contracts(target_actor_case):
+    c = target_actor_case
+    traj = c["traj"]
+    assert int(traj["done"].sum()) >= traj["done"].shape[1]  # every env reset at least once
+    err, ties = ar.check_trajectory(
+        c["env"], c["weights"], c["states"], None, c["noise"], c["final"], traj, reset_seeds=c["seeds"]
+    )
+    assert err <= 2e-2 and ties <= 0.01 * traj["done"].numel()
+
+
+def test_target_actor_reference_meets_the_contracts(target_actor_case):
+    c = target_actor_case
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(c["env"], c["weights"], c["states"], None, c["noise"], c["seeds"])
+    assert ar.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+    ar.check_trajectory(
+        c["env"], c["weights"], c["states"], None, c["noise"], final, traj, reset_seeds=c["seeds"]
+    )
+    same = (traj["action"][0] == c["traj"]["action"][0]).float().mean()
+    assert float(same) >= 0.99
+    np.testing.assert_array_equal(traj["obs"][0].numpy(), c["traj"]["obs"][0].numpy())
+
+
+class _FakeLibrary:
+    """A built user library's ``minigrid_ext_layout``, without ``nvcc``."""
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def minigrid_ext_layout(self, ext_id, out):
+        for i, v in enumerate(self.layout):
+            out[i] = v
+        return int(ext_id == fx.EXT_USER)
+
+
+# TargetBallExt's MAX_K, NUM_PLANES, SWITCHES, COUNTER_RESET and PRE_STEP.
+TARGET_LAYOUT = (1, 1, 0, 0, 0, 1, 0)
+
+
+@pytest.mark.parametrize(
+    "layout, ok",
+    [
+        (TARGET_LAYOUT, True),
+        (TARGET_LAYOUT[:5] + (0, 0), False),  # a header without COUNTER_RESET
+        (TARGET_LAYOUT[:5] + (1, 1), False),  # a header with PRE_STEP
+    ],
+)
+def test_kernel_library_holds_counter_reset_and_pre_step_to_the_twin(tmp_path, monkeypatch, layout, ok):
+    env = TargetBallEnv(header=write_target_header(tmp_path))
+    monkeypatch.setattr(fr, "load_library", lambda name, header=None, struct=None: _FakeLibrary(layout))
+    for name in ("fused_rollout", "actor_rollout"):
+        if ok:
+            assert isinstance(fr.kernel_library(name, env), _FakeLibrary)
+        else:
+            with pytest.raises(ValueError, match="COUNTER_RESET, PRE_STEP"):
+                fr.kernel_library(name, env)
+
+
+def test_user_slots_are_bounded(tmp_path):
+    env = TargetBallEnv(header=write_target_header(tmp_path))
+    assert fx.user_slots(env.fused_ext, env) == (env.mission_id, 0, 0, 0)
+    assert fx.user_slots(TurnsFusedExt(), env) == (0,) * fx.USER_SLOTS
+
+    class TooMany(TargetBallFusedExt):
+        def user_params(self, env):
+            return tuple(range(fx.USER_SLOTS + 1))
+
+    env.fused_ext = TooMany()
+    with pytest.raises(ValueError, match="the kernels hold 4"):
+        fx.user_slots(env.fused_ext, env)
+    _, states = env.reset(32, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="the kernels hold 4"):
+        fr.ext_buffers(env, states, None, torch.zeros((32, 2), dtype=torch.int32), "fused_rollout")
+
+
+def test_the_gates_take_the_counter_reset_family(tmp_path):
+    bare, built = TargetBallEnv(), TargetBallEnv(header=write_target_header(tmp_path))
+    assert fr.supports_fused(built) and fr.counter_reset(built)
+    assert fr.compiled_ext(built) and fused_eligible(built, "cuda") and not fr.compiled_ext(bare)
+    assert ar.supports_fused_actor(built, "cuda", 8192, 256) and not ar.supports_fused_actor(bare, "cuda", 8192, 256)
+    built.see_through_walls = True  # the struct is built with occluding walls only
+    assert not fr.compiled_ext(built)
+
+
+def test_make_ppo_on_the_target_family_draws_seeds_and_no_cache(tmp_path, monkeypatch):
+    from minigrid_tpu_torch.ops.prng import draw_seeds
+    from minigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
+
+    env = TargetBallEnv(max_steps=12, header=write_target_header(tmp_path))
+
+    def no_cache(*args, **kwargs):
+        raise AssertionError("a counter-reset family draws no reset cache")
+
+    monkeypatch.setattr(env, "batch_reset_cache", no_cache)
+    init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=8, num_minibatches=2), hidden=64)
+    assert train_step.resets.can_replay is False
+    state, metrics = train_step(init_fn(torch.Generator().manual_seed(0), 64))
+    assert all(bool(torch.isfinite(metrics[k])) for k in ("pg_loss", "value_loss", "entropy"))
+    # The actor kernel's collection (the learners' route on the card): the
+    # seeds, then the bits, and the plain version on them.
+    gen = torch.Generator().manual_seed(5)
+    model = ActorCritic(64, env.num_actions, generator=gen)
+    snapshot = gen.get_state()
+    final, traj = ar.fused_actor_rollout(env, model, state.env_states, gen, 6)
+    gen.set_state(snapshot)
+    seeds = draw_seeds(gen, 64, "cpu")
+    noise = ar.draw_bits(gen, (6, env.num_actions, 64), None)
+    want_final, want = ar.actor_rollout_reference(
+        env, ar.repack_actor_params(model), state.env_states, None, noise, seeds
+    )
+    for k in want:
+        assert torch.equal(traj[k], want[k]), k
+    for k, v in want_final.extra.items():
+        assert torch.equal(final.extra[k], v), k
+    assert torch.equal(final.mission, want_final.mission) and torch.equal(final.contains, want_final.contains)
 
 
 # -- The short-chunk reset budget ------------------------------------------

@@ -43,7 +43,14 @@ from minigrid_tpu_torch.rl.rollout import collect_trajectory
 from minigrid_tpu_torch.utils import golden
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
 from minigrid_tpu_torch.utils.synthetic import random_states
-from test_torch_authoring import TURNS_HEADER, TurnsEnv, write_header
+from test_torch_authoring import (
+    TARGET_HEADER,
+    TURNS_HEADER,
+    TargetBallEnv,
+    TurnsEnv,
+    write_header,
+    write_target_header,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1501,3 +1508,59 @@ def test_user_ext_twin_must_declare_what_its_header_does(device, tmp_path):
     noise = ar.draw_bits(gen, (64, env.num_actions, 64), device)
     with pytest.raises(ValueError, match="declares MAX_K, NUM_PLANES, SWITCHES"):
         ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+
+
+# -- a counter-reset family written outside the package (phase 36's TargetBall) --
+
+
+def _target_case(device, header, n, steps=64, seed=23):
+    env = TargetBallEnv(max_steps=40, header=header)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, states = env.reset(n, gen)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    seeds = torch.randint(-(2**31), 2**31, (n, 2), generator=gen, device=device, dtype=torch.int32)
+    actions = torch.randint(0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32)
+    return env, gen, states, seeds, actions
+
+
+@pytest.mark.parametrize("compute_obs", [False, True])
+def test_user_counter_reset_k1_matches_plain_version(device, tmp_path, compute_obs):
+    # The owner-lane reset writes the grid, contents, mission, target and
+    # plane; N = 4127 leaves a warp partly past N.
+    env, _, states, seeds, actions = _target_case(device, write_target_header(tmp_path), 4127)
+    assert fused_eligible(env, device)
+    before = fr.KERNEL_LAUNCHES
+    got = fr.fused_rollout_core(env, states, None, actions, compute_obs, seeds)
+    torch.cuda.synchronize()
+    assert fr.KERNEL_LAUNCHES == before + 1
+    want = fr.fused_rollout_reference(env, states, None, actions, compute_obs, seeds)
+    for f in FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    _assert_extra_same(got[0].extra, want[0].extra)
+    assert [int(x) for x in got[2:]] == [int(x) for x in want[2:]]
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-5)
+    assert int(got[2]) > 4127 and int(got[4]) == 0 and float(got[1]) > 0
+
+
+def test_user_counter_reset_k2_meets_the_contracts(device, tmp_path):
+    # The per-lane reset at stride N, in the actor kernel's env-minor columns.
+    env, gen, states, seeds, _ = _target_case(device, write_target_header(tmp_path), 4128)
+    weights = _biased_actor(env, gen, device)
+    noise = ar.draw_bits(gen, (64, env.num_actions, 4128), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, None, noise, seeds)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1
+    assert int(traj["done"].sum()) > 4128
+    ar.check_trajectory(env, weights, states, None, noise, final, traj, ar.PLAIN_ATOL, reset_seeds=seeds)
+
+
+def test_user_counter_reset_header_with_a_broken_reset_raises(device, tmp_path):
+    broken = TARGET_HEADER.replace("rc.cont[b * N] = OBJ_BALL | (cb << 8);", "rc.cont[b * N] = OBJ_BALL | (cb << 8)")
+    assert broken != TARGET_HEADER
+    env, _, states, seeds, actions = _target_case(device, write_target_header(tmp_path, broken), 64)
+    before = fr.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed") as caught:
+        fr.fused_rollout_core(env, states, None, actions, False, seeds)
+    assert "error" in str(caught.value) and "target_ball.cuh" in str(caught.value)
+    assert fr.KERNEL_LAUNCHES == before
