@@ -293,9 +293,27 @@ Phases, one output line each; any failure raises and exits non-zero:
    two PPO train steps at 8192 x 128, hidden 256 (launches 1/1/9/8 a
    step), the last trajectory held to the actor kernel's three contracts
    (TargetBall's with its reset seeds), the actor kernel timed against its
-   plain version.
+   plain version;
+37. the shapes beyond the built-in libraries' (view 7; the actor kernel's
+   widths 64 and 256): first the 18 libraries its launches need, each built
+   for the one family that launches it (its ext and switches), one
+   ``nvcc`` each, side by side, with each build's seconds and each
+   instantiation's registers and spills; the rollout kernel at views 3, 5,
+   9, 15, 17 and 31 on DoorKey-8x8 at 65536 x 64 and at 31 on MultiRoom-N6
+   (25x25) at 16384 x 64, ``rollout_random`` (fused="auto") and the
+   observation-consuming ``fused_rollout`` held to the plain version on the
+   replayed actions and cache (every state field, the checksum and the
+   episode count exact, the reward to rtol 1e-5), the kernel timed with
+   observations; the actor kernel at widths 32, 96, 128 and 512 (view 7)
+   and at views 5 and 31 (width 64) on Empty-8x8 and DoorKey-8x8, held to
+   its three contracts at 4096 x 32 with nonzero biases and timed against
+   its plain version at 8192 x 128; the embed + dense-1 kernels at widths
+   96, 128 and 512 at a PPO minibatch, as in phase 6; two PPO train steps
+   at width 128 on DoorKey-8x8 (launches 1/1/9/8 a step) and two IMPALA
+   steps at view 5 on Empty-8x8 (1/1/16/8), finite losses, no level
+   replayed, the last trajectory held to the actor kernel's contracts.
 
-Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34, 36) launches the actor kernel
+Every learner train step (phases 7, 9, 10, 12, 14, 20, 22, 26, 32, 34, 36, 37) launches the actor kernel
 once, the observation kernel once (the bootstrap value) and the embed +
 dense-1 kernels 9 and 8 times (PPO) or 16 and 8 times (IMPALA); the learners'
 plain timing references, ``fused_rollout_reference``,
@@ -386,6 +404,7 @@ from minigrid_tpu_torch.tools.roofline import (
     bound,
     embed_bound,
     levels_read,
+    rollout_bound,
     rollout_bytes,
     threefry_evaluations,
 )
@@ -570,6 +589,24 @@ MANUAL_KEYS = ("left", "up", "up", "right", "up", "tab", "space", "f1", "backspa
 # one device), and the random rollout at bench.py's size over those two.
 MESH_RANKS = 2
 MESH_TIMEOUT = 300
+# The shapes beyond the built-in libraries' (phase 37): the rollout kernel
+# at other views on DoorKey-8x8 (65536 x 64, obs on) and at 31 on
+# MultiRoom-N6 (25x25, BabyAI's 16384 envs); the actor kernel at other
+# widths (view 7) and views (hidden 64) on Empty-8x8 and DoorKey-8x8; the
+# embed + dense-1 kernels at other widths at a PPO minibatch; PPO at hidden
+# 128 on DoorKey-8x8 and IMPALA at view 5 on Empty-8x8.  Each shape's
+# library is built at its first launch, all of them side by side first.
+SHAPE_VIEWS = (3, 5, 9, 15, 17, 31)
+SHAPE_STEPS = 64
+SHAPE_WIDE_ID = "MiniGrid-MultiRoom-N6-v0"
+SHAPE_WIDTHS = (32, 96, 128, 512)
+SHAPE_ACTOR_VIEWS = (5, 31)
+SHAPE_ACTOR_HIDDEN = 64
+SHAPE_ACTOR_IDS = (ENV_ID, DOORKEY_ID)
+SHAPE_EMBED_WIDTHS = (96, 128, 512)
+SHAPE_PPO_HIDDEN = 128
+SHAPE_IMPALA_VIEW = 5
+SHAPE_TRAIN_STEPS = 2
 OBS_SOURCE = "minigrid_tpu_torch/ops/csrc/obs_packed.cu"
 OBS_REPLACES = "minigrid_tpu/ops/obs_pallas.py:96"
 # The spin that device_ms puts before its calls: 100M cycles, 50 ms or more
@@ -734,9 +771,11 @@ def synthetic_check(device) -> float:
     return err
 
 
-def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int, steps: int = NUM_STEPS):
+def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int, steps: int = NUM_STEPS, timed: bool = False):
     """The plain version on the actions and cache that ``fused_rollout``
-    drew from a generator in state ``snapshot`` for ``steps`` steps."""
+    drew from a generator in state ``snapshot`` for ``steps`` steps; with
+    ``timed``, its output and the milliseconds of that call (CUDA events),
+    which the slices report as the plain version's time."""
     device = states.device
     gen = torch.Generator(device=device)
     gen.set_state(snapshot)
@@ -745,7 +784,8 @@ def replay_rollout(env, states, snapshot, compute_obs: bool, resets: int, steps:
         0, env.num_actions, (steps, n), generator=gen, device=device, dtype=torch.int32
     )
     cache = env.batch_reset_cache(n, resets, gen, device)
-    return actions, cache, fr.fused_rollout_reference(env, states, cache, actions, compute_obs)
+    plain = partial(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
+    return actions, cache, timed_call(plain) if timed else plain()
 
 
 def counter_draws(env, states, snapshot):
@@ -759,10 +799,12 @@ def counter_draws(env, states, snapshot):
     return actions, draw_seeds(gen, n, device)
 
 
-def replay_counter(env, states, snapshot, compute_obs: bool):
-    """The plain version on the draws of ``counter_draws``."""
+def replay_counter(env, states, snapshot, compute_obs: bool, timed: bool = False):
+    """The plain version on the draws of ``counter_draws``; with ``timed``,
+    its output and the milliseconds of that call."""
     actions, seeds = counter_draws(env, states, snapshot)
-    return actions, seeds, fr.fused_rollout_reference(env, states, None, actions, compute_obs, seeds)
+    plain = partial(fr.fused_rollout_reference, env, states, None, actions, compute_obs, seeds)
+    return actions, seeds, timed_call(plain) if timed else plain()
 
 
 def counter_slice(env_id: str, device, card: str) -> dict:
@@ -788,9 +830,11 @@ def counter_slice(env_id: str, device, card: str) -> dict:
     check(np.isfinite(float(total_r)) and int(total_done) > NUM_ENVS, f"{env_id}: episode count")
     check(int(max_used) == 0 and int(out_obs[4]) == 0, f"{env_id}: max_used on the counter path")
     check(int(final.step_count.max()) < env.max_steps, f"{env_id}: a step count past max_steps")
-    _, _, plain_random = replay_counter(env, states, snap_random, False)
+    # The plain version's time is its replay's (the obs-off one on the
+    # rollout_random draws, of the same shapes).
+    _, _, (plain_random, p_random_ms) = replay_counter(env, states, snap_random, False, timed=True)
     err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
-    actions, seeds, plain_obs = replay_counter(env, states, snap_obs, True)
+    actions, seeds, (plain_obs, p_obs_ms) = replay_counter(env, states, snap_obs, True, timed=True)
     err = max(err, compare(out_obs, plain_obs, f"{env_id} fused_rollout compute_obs"))
 
     def chunk(carry):
@@ -807,11 +851,9 @@ def counter_slice(env_id: str, device, card: str) -> dict:
     )
 
     times = {}
-    for compute_obs in (False, True):
+    for compute_obs, p_ms in ((False, p_random_ms), (True, p_obs_ms)):
         k = partial(fr.fused_rollout_core, env, states, None, actions, compute_obs, seeds)
-        p = partial(fr.fused_rollout_reference, env, states, None, actions, compute_obs, seeds)
-        tp1, tk1, tk2, tp2 = event_ms(p), time_ms(k, 5), time_ms(k, 5), event_ms(p)
-        times[compute_obs] = (min(tk1, tk2), min(tp1, tp2))
+        times[compute_obs] = (min(time_ms(k, 5), time_ms(k, 5)), p_ms)
         k_ms, p_ms = times[compute_obs]
         print(
             f"steps/s ({card}) {env_id} {NUM_ENVS}x{NUM_STEPS} compute_obs={compute_obs}: "
@@ -842,9 +884,10 @@ def tensor_core_report() -> str:
     actor = _build.load_library("actor_rollout")
     embed = _build.load_library("embed_dense")
     parts = [
-        f"{ext} hidden {h}: {actor.actor_rollout_smem_bytes(h, i)} bytes, {actor.actor_rollout_stages(h, i)} W1 stages"
+        f"{ext} hidden {h}: {actor.actor_rollout_smem_bytes(7, h, i)} bytes, "
+        f"{actor.actor_rollout_stages(7, h, i)} W1 stages"
         for i, ext in enumerate(EXT_NAMES)
-        for h in ar.COMPILED_HIDDEN
+        for h in (256, 64)
     ]
     bwd, fwd = [], []
     log = _build.BUILD_INFO.get("embed_dense", (0.0, ""))[1]
@@ -935,16 +978,17 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def embed_inputs(device, m: int, seed: int):
+def embed_inputs(device, m: int, seed: int, hidden: int = PPO_HIDDEN):
     """Packed views of random object-rich 9x7 states (doors, keys, boxes,
-    occlusion, carried objects), their directions, and random weights."""
+    occlusion, carried objects), their directions, and random weights of
+    width ``hidden``."""
     rng = np.random.default_rng(seed)
     env = MiniGridEnv(9, 7, max_steps=100)
     states = state_from_numpy(random_states(rng, (m,), 9, 7), device)
     packed = env.observation_packed(states)
-    w1 = torch.from_numpy(rng.normal(0, 0.03, (packed.shape[1] * 20 + 4, PPO_HIDDEN)).astype(np.float32))
-    b1 = torch.from_numpy(rng.normal(0, 0.1, PPO_HIDDEN).astype(np.float32))
-    dy = torch.from_numpy(rng.normal(0, 1e-3, (m, PPO_HIDDEN)).astype(np.float32))
+    w1 = torch.from_numpy(rng.normal(0, 0.03, (packed.shape[1] * 20 + 4, hidden)).astype(np.float32))
+    b1 = torch.from_numpy(rng.normal(0, 0.1, hidden).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1e-3, (m, hidden)).astype(np.float32))
     return packed, states.agent_dir, w1.to(device), b1.to(device), dy.to(device, torch.bfloat16)
 
 
@@ -961,15 +1005,17 @@ def embed_dense_check(device, card: str) -> list[dict]:
     return entries
 
 
-def embed_at(device, card: str, m: int, name_suffix: str = "") -> tuple[list[dict], float, float]:
-    """The embed + dense-1 kernels at ``m`` samples against their plain
-    versions (each twice bit-identical), timed with their library
-    yardsticks; returns the two kernel entries (launches 0) and the
-    forward's and backward's largest errors."""
-    packed, direction, w1, b1, dy = embed_inputs(device, m, 11)
+def embed_at(
+    device, card: str, m: int, name_suffix: str = "", hidden: int = PPO_HIDDEN
+) -> tuple[list[dict], float, float]:
+    """The embed + dense-1 kernels at ``m`` samples of width ``hidden``
+    against their plain versions (each twice bit-identical), timed with
+    their library yardsticks; returns the two kernel entries (launches 0)
+    and the forward's and backward's largest errors."""
+    packed, direction, w1, b1, dy = embed_inputs(device, m, 11, hidden)
     out_k = ed.embed_dense1(w1, b1, packed, direction)
     out_p = ed.embed_dense1_reference(w1, b1, packed, direction)
-    check(out_k.dtype == torch.bfloat16 and out_k.shape == (m, PPO_HIDDEN), "forward output")
+    check(out_k.dtype == torch.bfloat16 and out_k.shape == (m, hidden), "forward output")
     fwd_err = float((out_k.float() - out_p.float()).abs().max())
     check(fwd_err <= BF16_ATOL, f"embed_dense1 forward differs from the plain version by {fwd_err}")
     check(torch.equal(out_k, ed.embed_dense1(w1, b1, packed, direction)), "the forward is not deterministic")
@@ -998,7 +1044,7 @@ def embed_at(device, card: str, m: int, name_suffix: str = "") -> tuple[list[dic
         tp1, tk1, tk2, tp2 = time_ms(p, 10), device_ms(k, 10), device_ms(k, 10), time_ms(p, 10)
         times[name] = (min(tk1, tk2), min(tp1, tp2))
         print(
-            f"embed_dense1 {name} ({card}) M={m} H={PPO_HIDDEN}: kernel {times[name][0]:.4f} ms, "
+            f"embed_dense1 {name} ({card}) M={m} H={hidden}: kernel {times[name][0]:.4f} ms, "
             f"plain {times[name][1]:.4f} ms, the wrapper's host time {host_us(k, 20):.1f} us a call",
             flush=True,
         )
@@ -1022,7 +1068,7 @@ def embed_at(device, card: str, m: int, name_suffix: str = "") -> tuple[list[dic
         return kernel_entry(
             f"embed_dense1_{name}{name_suffix}", "minigrid_tpu_torch/ops/csrc/embed_dense.cu",
             f"minigrid_tpu/ops/embed_dense.py:{line}", 0, err, *times[name],
-            embed_bound(m, packed.shape[1], PPO_HIDDEN, name), library[name],
+            embed_bound(m, packed.shape[1], hidden, name), library[name],
         )
 
     return [entry("fwd", 103, fwd_err), entry("bwd", 115, bwd_err)], fwd_err, bwd_err
@@ -1227,13 +1273,16 @@ def ppo_slice(device, card: str, env_id: str = ENV_ID, number: int = 7) -> tuple
     # kernels and through the plain versions.
     k2 = partial(ar.fused_actor_rollout_core, env, weights, states0, cache, noise)
     p2 = partial(plain_only, ar.actor_rollout_reference, env, weights, states0, cache, noise)
-    tp1, tk1, tk2, tp2 = event_ms(p2), time_ms(k2, 5), time_ms(k2, 5), event_ms(p2)
-    k2_ms, p2_ms = min(tk1, tk2), min(tp1, tp2)
+    k2_ms, p2_ms = min(time_ms(k2, 5), time_ms(k2, 5)), event_ms(p2)
     print(
         f"actor_rollout ({card}) {env_id} {PPO_ENVS}x{PPO_STEPS}: kernel {k2_ms:.4f} ms, plain {p2_ms:.4f} ms",
         flush=True,
     )
-    plan = (("plain", False, 2), ("kernels", True, 3), ("kernels", True, 3), ("plain", False, 2))
+    # Phase 7 times the train steps in turns; the other families once each.
+    if number == 7:
+        plan = (("plain", False, 2), ("kernels", True, 3), ("kernels", True, 3), ("plain", False, 2))
+    else:
+        plan = (("kernels", True, 3), ("plain", False, 1))
     time_train_steps(make_ppo, env, env_id, config, state, card, "ppo_env_steps_per_sec", plan)
 
     actor_entry = kernel_entry(
@@ -1398,9 +1447,11 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     check(bool((final.step_count < final.max_steps).all()), f"{env_id}: a step count past max_steps")
     # ObstructedMaze's ext carries no extra state.
     check((final.extra is None) == (env.fused_ext is None or not env.fused_ext.n_scalars), f"{env_id}: extra")
-    _, _, plain_random = replay_rollout(env, states, snap_random, False, resets)
+    # The plain version's time is its replay's (the obs-off one on the
+    # rollout_random draws, of the same shapes).
+    _, _, (plain_random, p_random_ms) = replay_rollout(env, states, snap_random, False, resets, timed=True)
     err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} rollout_random")
-    actions, cache, plain_obs = replay_rollout(env, states, snap_obs, True, resets)
+    actions, cache, (plain_obs, p_obs_ms) = replay_rollout(env, states, snap_obs, True, resets, timed=True)
     err = max(err, compare(out_obs, plain_obs, f"{env_id} fused_rollout compute_obs"))
     # The most slots an env used at R, in these two runs and in a chain of
     # 8 chunks from them.
@@ -1430,12 +1481,12 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     )
 
     # Times: the kernel on the main path's cache, obs off and on, against the
-    # plain version; the cache's generation apart, with its peak memory.
+    # plain version's replays; the cache's generation apart, with its peak
+    # memory.
     times = {}
-    for compute_obs in (False, True):
+    for compute_obs, p_ms in ((False, p_random_ms), (True, p_obs_ms)):
         k = partial(fr.fused_rollout_core, env, states, cache, actions, compute_obs)
-        p = partial(fr.fused_rollout_reference, env, states, cache, actions, compute_obs)
-        times[compute_obs] = (min(time_ms(k, 5), time_ms(k, 5)), event_ms(p))
+        times[compute_obs] = (min(time_ms(k, 5), time_ms(k, 5)), p_ms)
     # The wrapper's share of a kernel call: the buffers it makes, the state's
     # clones (the cache is read where it lies).
     layout_ms = time_ms(partial(fr.kernel_buffers, env, states, cache, None), 5)
@@ -1473,10 +1524,10 @@ def cache_slice(env_id: str, device, card: str, num_envs: int = NUM_ENVS, number
     )
 
 
-def biased_weights(env, gen, device) -> ar.ActorWeights:
-    """The actor kernel's weights at hidden ``PPO_HIDDEN`` with nonzero
-    biases (initialisation leaves them 0)."""
-    model = ActorCritic(PPO_HIDDEN, env.num_actions, generator=gen)
+def biased_weights(env, gen, device, hidden: int = PPO_HIDDEN) -> ar.ActorWeights:
+    """The actor kernel's weights at ``hidden`` (``PPO_HIDDEN``) with
+    nonzero biases (initialisation leaves them 0)."""
+    model = ActorCritic(hidden, env.num_actions, env.agent_view_size, generator=gen)
     with torch.no_grad():
         for i in range(4):
             bias = getattr(model, f"Dense_{i}").bias
@@ -1490,9 +1541,12 @@ def most_episodes(done: torch.Tensor) -> int:
     return int(done.int().sum(dim=0).max())
 
 
-def check_budget(what: str, done: torch.Tensor, cache) -> None:
+def check_budget(what: str, done: torch.Tensor, cache, deterministic: bool = False) -> None:
     """No env of a trajectory ended more episodes than its reset ``cache``
-    holds levels: none was replayed."""
+    holds levels: none was replayed.  A ``deterministic`` family's levels
+    are all one level (Empty-8x8: R=1), which its last slot stands for."""
+    if deterministic:
+        return
     most, r = most_episodes(done), cache.step_count.shape[1]
     check(most <= r, f"{what}: an env ended {most} episodes with R={r}: levels replayed")
 
@@ -1520,7 +1574,7 @@ def actor_contract_check(env, weights, gen, n: int, steps: int) -> tuple[int, in
     launches = ar.KERNEL_LAUNCHES
     episodes = int(traj["done"].sum())
     check(launches == 1 and episodes > 0, f"{env.env_id}: {launches} launches, {episodes} episodes")
-    check_budget(env.env_id, traj["done"], cache)
+    check_budget(env.env_id, traj["done"], cache, env.deterministic_generation)
     err, ties = ar.check_trajectory(env, weights, states, cache, noise, final, traj, ar.PLAIN_ATOL, TIE_MARGIN)
     return launches, episodes, err, ties
 
@@ -3089,32 +3143,20 @@ def _user_ext_slices(device, card: str) -> list[dict]:
     return [k1_entry, k2_entry]
 
 
-class _LaunchEvents:
-    """A loaded rollout library whose ``fused_rollout_launch`` records CUDA
-    events around each launch (``tools/rollout_split.py``'s), for the
-    kernel's own time inside a wrapper call that waits on the card."""
-
-    def __init__(self, lib):
-        self.lib, self.launch = lib, rollout_split._TimedLaunch(lib.fused_rollout_launch)
-
-    def __getattr__(self, name):
-        return self.launch if name == "fused_rollout_launch" else getattr(self.lib, name)
-
-
 def launch_ms(env, fn, reps: int) -> float:
     """The least time of the rollout kernel alone over ``reps`` calls of
     ``fn`` (K1 of ``env``'s library, events around its launch)."""
     ext = env.fused_ext
-    key = "fused_rollout" if ext.kernel_source is None else ("fused_rollout", str(ext.kernel_source), ext.kernel_struct)
+    key = _build.library_key("fused_rollout", ext.kernel_source, ext.kernel_struct)
     saved = _build._LIBS[key]
-    timed = _build._LIBS[key] = _LaunchEvents(saved)
+    timed = _build._LIBS[key] = rollout_split._TimedLibrary(saved)
     try:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     finally:
         _build._LIBS[key] = saved
-    return min(start.elapsed_time(end) for start, end in timed.launch.marks)
+    return min(start.elapsed_time(end) for start, end in timed.fused_rollout_launch.marks)
 
 
 def _target_slices(device, card: str) -> list[dict]:
@@ -3226,6 +3268,182 @@ def _target_slices(device, card: str) -> list[dict]:
         launches_k2, err2, k2_ms, p2_ms, k2_bound,
     )
     return [k1_entry, k2_entry]
+
+
+def instantiation_report(log: str) -> str:
+    """ptxas' registers and spills of each kernel instantiation in a
+    library's build log."""
+    rows = []
+    for block in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", block)
+        if regs:
+            rows.append(f"{regs.group(1)} registers, {frame.group(2) if frame else 0} bytes spilled")
+    return "; ".join(rows)
+
+
+def shape_jobs() -> list[tuple[str, object, int]]:
+    """Phase 37's launches beyond the built-in libraries, as (kernel, env,
+    hidden width) for ``fr.kernel_library``."""
+    jobs = [("fused_rollout", mgt.make(DOORKEY_ID, agent_view_size=v), None) for v in SHAPE_VIEWS]
+    jobs.append(("fused_rollout", mgt.make(SHAPE_WIDE_ID, agent_view_size=31), None))
+    for env_id in SHAPE_ACTOR_IDS:
+        jobs += [("actor_rollout", mgt.make(env_id), h) for h in SHAPE_WIDTHS]
+        jobs += [("actor_rollout", mgt.make(env_id, agent_view_size=v), SHAPE_ACTOR_HIDDEN) for v in SHAPE_ACTOR_VIEWS]
+    return jobs
+
+
+def shape_builds(card: str) -> None:
+    """Phase 37, first: every shape library its launches need, one ``nvcc``
+    each, side by side; each build's seconds and each instantiation's
+    registers and spills."""
+    jobs = shape_jobs()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        list(pool.map(lambda job: fr.kernel_library(*job), jobs))
+    wall = time.perf_counter() - t0
+    keys = dict.fromkeys(_build.shape_key(name, fr.kernel_shape(name, env, h)) for name, env, h in jobs)
+    for key in keys:
+        if key not in _build.BUILD_INFO:
+            print(f"shape library {key}: already built", flush=True)
+            continue
+        seconds, log = _build.BUILD_INFO[key]
+        print(f"shape library ({card}) {key}: built in {seconds:.1f} s; {instantiation_report(log)}", flush=True)
+    phase(37, f"{len(keys)} shape libraries built side by side in {wall:.1f} s")
+
+
+def shape_rollout(env_id: str, v: int, num_envs: int, device, card: str) -> dict:
+    """Phase 37, the rollout kernel at view ``v``: ``rollout_random``
+    (fused="auto") and the observation-consuming ``fused_rollout`` at
+    ``num_envs`` x ``SHAPE_STEPS``, each held to the plain version on the
+    replayed actions and cache (the plain runs timed), the kernel timed with
+    observations."""
+    env = mgt.make(env_id, agent_view_size=v)
+    check(fused_eligible(env, device), f"{env_id} at view {v} must take the kernel on {device}")
+    resets = resets_for(env, SHAPE_STEPS)
+    gen = torch.Generator(device=device).manual_seed(v)
+    _, states = env.reset(num_envs, gen)
+    states = states.replace(step_count=randint(gen, num_envs, 0, states.max_steps))
+    snap_random = gen.get_state()
+    fr.KERNEL_LAUNCHES = 0
+    final, total_r, total_done, max_used = rollout_random(env, states, gen, SHAPE_STEPS, resets)
+    snap_obs = gen.get_state()
+    out_obs = fr.fused_rollout(env, states, gen, SHAPE_STEPS, resets, compute_obs=True)
+    torch.cuda.synchronize()
+    launches = fr.KERNEL_LAUNCHES
+    check(launches == 2, f"{env_id} at view {v}: {launches} kernel launches, expected 2")
+    check(int(total_done) > 0 and int(out_obs[2]) > 0, f"{env_id} at view {v}: no episode ended")
+    check(max(int(max_used), int(out_obs[4])) <= resets, f"{env_id} at view {v}: levels replayed")
+    _, _, plain_random = replay_rollout(env, states, snap_random, False, resets, SHAPE_STEPS)
+    err = compare((final, total_r, total_done, torch.zeros(()), max_used), plain_random, f"{env_id} v={v} random")
+    actions, cache, (plain_obs, p_ms) = replay_rollout(env, states, snap_obs, True, resets, SHAPE_STEPS, timed=True)
+    err = max(err, compare(out_obs, plain_obs, f"{env_id} v={v} fused_rollout compute_obs"))
+    k = partial(fr.fused_rollout_core, env, states, cache, actions, True)
+    k_ms = min(time_ms(k, 5), time_ms(k, 5))
+    episodes = int(out_obs[2])
+    b = rollout_bound(env, states, SHAPE_STEPS, levels_read(episodes, num_envs, resets), compute_obs=True)
+    print(
+        f"fused_rollout ({card}) {env_id} view {v} {num_envs}x{SHAPE_STEPS} compute_obs=True: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b[0]:.5f} ms ({b[1]}), {episodes} episodes, R={resets}",
+        flush=True,
+    )
+    phase(
+        37,
+        f"{env_id} view {v} {num_envs} envs x {SHAPE_STEPS} steps: {launches} kernel launches (rollout_random "
+        f"fused='auto', fused_rollout with observations), outputs == plain version, {episodes} episodes, "
+        f"checksum {int(out_obs[3])}",
+    )
+    return kernel_entry(f"fused_rollout[{env_id} view {v}, obs on]", SOURCE, REPLACES, launches, err, k_ms, p_ms, b)
+
+
+def shape_actor(env_id: str, v: int, hidden: int, device, card: str) -> dict:
+    """Phase 37, the actor kernel at view ``v`` and width ``hidden``:
+    ``actor_contract_check`` at ``SMALL_ENVS`` x ``SMALL_STEPS`` with
+    nonzero biases, then the kernel and its plain version timed at the PPO
+    size."""
+    env = mgt.make(env_id, agent_view_size=v)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, hidden), f"{env_id} v={v} h={hidden}: no actor kernel")
+    gen = torch.Generator(device=device).manual_seed(hidden + v)
+    weights = biased_weights(env, gen, device, hidden)
+    launches, episodes, err, ties = actor_contract_check(env, weights, gen, SMALL_ENVS, SMALL_STEPS)
+    states, cache, noise = actor_cached_case(env, gen, PPO_ENVS, PPO_STEPS, learner_resets(env, PPO_STEPS))
+    k = partial(ar.fused_actor_rollout_core, env, weights, states, cache, noise)
+    p = partial(plain_only, ar.actor_rollout_reference, env, weights, states, cache, noise)
+    k_ms, p_ms = min(time_ms(k, 3), time_ms(k, 3)), event_ms(p)
+    done = k()[1]["done"]
+    check_budget(f"{env_id} v={v} h={hidden}", done, cache, env.deterministic_generation)
+    b = actor_bound(env, states, weights, PPO_STEPS, int(done.sum()), cache.step_count.shape[1])
+    print(
+        f"actor_rollout ({card}) {env_id} view {v} hidden {hidden} {PPO_ENVS}x{PPO_STEPS}: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
+        flush=True,
+    )
+    phase(
+        37,
+        f"actor kernel {env_id} view {v} hidden {hidden} {SMALL_ENVS}x{SMALL_STEPS}: the three contracts hold "
+        f"({episodes} episodes, logp/value max abs err {err}, {ties} near-ties)",
+    )
+    return kernel_entry(
+        f"actor_rollout[{env_id} view {v} hidden {hidden}]", ACTOR_SOURCE, ACTOR_REPLACES, launches, err, k_ms, p_ms, b
+    )
+
+
+def shape_learner(make, config, env, hidden: int, device, impala: bool) -> tuple[tuple, float, int]:
+    """Phase 37, a learner at a shape beyond the built-in libraries:
+    ``SHAPE_TRAIN_STEPS`` train steps (launches, finite losses, no level
+    replayed), the last trajectory held to the actor kernel's contracts;
+    returns (launches a step, max abs err, near-ties)."""
+    init_fn, train_step = make(env, config, hidden=hidden)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_fn(gen, PPO_ENVS)
+    check(ar.supports_fused_actor(env, device, PPO_ENVS, hidden), f"{env.env_id} h={hidden}: no actor kernel")
+    want = learner_launches(config.num_minibatches, impala)
+    what = f"{'IMPALA' if impala else 'PPO'} {env.env_id} view {env.agent_view_size} hidden {hidden}"
+    _, per_step, last = train_and_keep_last(train_step, state, gen, want, what, SHAPE_TRAIN_STEPS)
+    _, _, _, _, _, err, ties = check_last_trajectory(env, last, device, what)
+    phase(
+        37,
+        f"{what} {PPO_ENVS} envs x {PPO_STEPS} steps: {SHAPE_TRAIN_STEPS} train steps, launches per step (actor, "
+        f"observation, embed fwd, embed bwd) {per_step}, last metrics { {k: float(x) for k, x in last[5].items()} }; "
+        f"the last trajectory == plain versions (logp/value max abs err {err}, {ties} near-ties)",
+    )
+    return per_step, err, ties
+
+
+def shapes_check(device, card: str) -> list[dict]:
+    """Phase 37: the kernels at the view sizes and hidden widths beyond the
+    built-in libraries', each against its plain version, and the learners
+    through them."""
+    shape_builds(card)
+    entries = [shape_rollout(DOORKEY_ID, v, NUM_ENVS, device, card) for v in SHAPE_VIEWS]
+    entries.append(shape_rollout(SHAPE_WIDE_ID, 31, BABYAI_ENVS, device, card))
+    actor = {}
+    for env_id in SHAPE_ACTOR_IDS:
+        for h in SHAPE_WIDTHS:
+            actor[env_id, 7, h] = shape_actor(env_id, 7, h, device, card)
+        for v in SHAPE_ACTOR_VIEWS:
+            actor[env_id, v, SHAPE_ACTOR_HIDDEN] = shape_actor(env_id, v, SHAPE_ACTOR_HIDDEN, device, card)
+    embed = {}
+    for h in SHAPE_EMBED_WIDTHS:
+        pair, fwd_err, bwd_err = embed_at(device, card, EMBED_SAMPLES, f" H={h}", h)
+        embed[h] = pair
+        phase(
+            37,
+            f"embed_dense1 at M={EMBED_SAMPLES}, H={h}: forward max abs err {fwd_err}, backward max abs err "
+            f"{bwd_err}, both bit-identical across calls",
+        )
+    zero_launch_counts()
+    per_step, _, _ = shape_learner(
+        make_ppo, PPOConfig(rollout_steps=PPO_STEPS), mgt.make(DOORKEY_ID), SHAPE_PPO_HIDDEN, device, False
+    )
+    actor[DOORKEY_ID, 7, SHAPE_PPO_HIDDEN]["launches"] += ar.KERNEL_LAUNCHES
+    embed[SHAPE_PPO_HIDDEN][0]["launches"] = ed.KERNEL_LAUNCHES["fwd"]
+    embed[SHAPE_PPO_HIDDEN][1]["launches"] = ed.KERNEL_LAUNCHES["bwd"]
+    zero_launch_counts()
+    env = mgt.make(ENV_ID, agent_view_size=SHAPE_IMPALA_VIEW)
+    shape_learner(make_impala, IMPALAConfig(rollout_steps=PPO_STEPS), env, SHAPE_ACTOR_HIDDEN, device, True)
+    actor[ENV_ID, SHAPE_IMPALA_VIEW, SHAPE_ACTOR_HIDDEN]["launches"] += ar.KERNEL_LAUNCHES
+    return entries + list(actor.values()) + [e for pair in embed.values() for e in pair]
 
 
 def main() -> None:
@@ -3403,13 +3621,15 @@ def main() -> None:
     profiler_entries = profiler_check(device, card, rollout_entry, actor_entry, embed_entries, obs_entry, solver_entry)
     print(f"phase 36 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
     user_entries = user_ext_check(device, card)
+    print(f"phase 37 begins (+{time.perf_counter() - START:.1f} s)", flush=True)
+    shape_entries = shapes_check(device, card)
     summary = {
         "kernels": [
             rollout_entry, *counter_entries, *cache_entries, *babyai_entries, *zoo_entries, boss_entry, wfc_entry,
             actor_entry, actor_ext_entry, doorkey_entry, *actor_cache_entries, gotolocal_entry, *zoo_actor_entries,
             keycorridor_entry, boss_actor_entry, wfc_actor_entry, *embed_entries, obs_entry, shim_entry,
             solver_entry, shim_solver_entry, demo_entry, *resume_entries, *cli_entries, *mesh_entries,
-            *profiler_entries, *user_entries,
+            *profiler_entries, *user_entries, *shape_entries,
         ]
     }
     print(json.dumps(summary), flush=True)

@@ -16,6 +16,16 @@ header, struct)`` builds the rollout kernels with that struct as
 path and struct and the bytes of every file in the header's directory, so
 an edited header is rebuilt (in the next process: a library is loaded once
 a process) and the built-in library is never replaced.
+
+The rollout kernels are templates over the view size and, for the actor
+kernel, the hidden width.  The built-in libraries hold view 7 (and widths 64
+and 256); any other ``Shape`` builds at its first launch, for the one family
+that launches it (``Shape.ext_id``, a built-in ext's kernel id, or a user
+ext's header) at its switches: ``-DMINIGRID_VIEW``, ``-DMINIGRID_HIDDEN``,
+``-DMINIGRID_ONLY_EXT`` and the three switches' defines into
+``ops/build/<name>-v<V>-h<H>-<hash>.so``
+(``-v<V>-`` alone without a width), the hash covering the sources, the flags
+and the shape.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -46,13 +57,50 @@ NVCC_FLAGS = (
 # into an include directory of its own.
 USER_SHIM = "minigrid_user_ext.cuh"
 
-# name, or (name, header as given, struct) for a user ext -> its library,
-# loaded once a process.
+# name, or (name, header as given, struct, shape) -> its library, loaded
+# once a process.
 _LIBS: dict[object, ctypes.CDLL] = {}
-# name (``name[struct]`` for a user ext) -> (seconds the build took, nvcc's
-# output including ptxas' register and spill report); absent when the
-# library was already built.
+# name (``name[struct]`` for a user ext, ``shape_key`` for a shape) ->
+# (seconds the build took, nvcc's output including ptxas' register and
+# spill report); absent when the library was already built.
 BUILD_INFO: dict[str, tuple[float, str]] = {}
+
+
+class Shape(NamedTuple):
+    """A rollout kernel's instantiation outside the built-in libraries: the
+    view size, the actor's hidden width (0 for the random-policy kernel),
+    the kernel id of the one built-in ext it holds (None with a user ext's
+    header, which holds that struct alone) and the family's switches
+    NO_OBJECTS, STATIC_MISSION and SEE_THROUGH (0 or 1 each), which the
+    library fixes (``csrc/fused_ext.cuh``'s ``LIBRARY_SWITCHES``).  One
+    define a value: ``nvcc`` splits an option's value at commas."""
+
+    view: int
+    hidden: int
+    ext_id: int | None
+    switches: tuple[int, int, int]
+
+    def flags(self) -> tuple[str, ...]:
+        out = (f"-DMINIGRID_VIEW={self.view}",)
+        if self.hidden:
+            out += (f"-DMINIGRID_HIDDEN={self.hidden}",)
+        if self.ext_id is not None:
+            out += (f"-DMINIGRID_ONLY_EXT={self.ext_id}",)
+        names = ("NO_OBJECTS", "STATIC_MISSION", "SEE_THROUGH")
+        return out + tuple(f"-DMINIGRID_{n}={int(bool(x))}" for n, x in zip(names, self.switches))
+
+    def tag(self) -> str:
+        """``v<V>`` or ``v<V>-h<H>``: the library file's shape part."""
+        return f"v{self.view}" + (f"-h{self.hidden}" if self.hidden else "")
+
+
+def shape_key(name: str, shape: Shape, struct: str | None = None) -> str:
+    """``BUILD_INFO``'s key of ``name``'s library at ``shape``:
+    ``<name>-<tag>[ext <id>, switches <abc>]``, the user ext's struct in
+    place of ``ext <id>``."""
+    ext = struct if struct is not None else f"ext {shape.ext_id}"
+    switches = "".join(str(int(bool(x))) for x in shape.switches)
+    return f"{name}-{shape.tag()}[{ext}, switches {switches}]"
 
 
 def _nvcc() -> str:
@@ -82,22 +130,27 @@ def _header_files(path: Path) -> list[Path]:
     return sorted(p for p in path.parent.iterdir() if p.is_file())
 
 
-def library_path(name: str, header=None, struct: str | None = None) -> Path:
+def library_path(name: str, header=None, struct: str | None = None, shape: Shape | None = None) -> Path:
     """Where ``load_library`` keeps ``csrc/<name>.cu``'s library: a hash of
-    every file of ``csrc/`` and the flags, and for a user ext (``header``
-    and ``struct``) of the header's path, the struct and every file in the
-    header's directory.  Computing it needs no ``nvcc``."""
+    every file of ``csrc/`` and the flags, for a user ext (``header`` and
+    ``struct``) of the header's path, the struct and every file in the
+    header's directory, and for a ``shape`` of its defines, which also name
+    the file.  Computing it needs no ``nvcc``."""
     digest = hashlib.sha256()
     for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
         digest.update(str(path.relative_to(CSRC)).encode() + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    if header is None:
-        return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    path = _user_header(header, struct)
-    digest.update(f"\0{path}\0{struct}\0".encode())
-    for f in _header_files(path):
-        digest.update(f.name.encode() + b"\0" + f.read_bytes())
-    return BUILD_DIR / f"{name}-user-{digest.hexdigest()[:16]}.so"
+    stem = name
+    if header is not None:
+        path = _user_header(header, struct)
+        digest.update(f"\0{path}\0{struct}\0".encode())
+        for f in _header_files(path):
+            digest.update(f.name.encode() + b"\0" + f.read_bytes())
+        stem += "-user"
+    if shape is not None:
+        digest.update(("\0" + " ".join(shape.flags())).encode())
+        stem += f"-{shape.tag()}"
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(src: Path, out: Path, flags: tuple[str, ...], info_key: str) -> None:
@@ -116,29 +169,39 @@ def _compile(src: Path, out: Path, flags: tuple[str, ...], info_key: str) -> Non
             os.unlink(tmp)
 
 
-def load_library(name: str, header=None, struct: str | None = None) -> ctypes.CDLL:
+def library_key(name: str, header=None, struct: str | None = None, shape: Shape | None = None):
+    """``_LIBS``' key of the library that ``load_library`` loads with these
+    arguments."""
+    return name if header is None and shape is None else (name, None if header is None else str(header), struct, shape)
+
+
+def load_library(name: str, header=None, struct: str | None = None, shape: Shape | None = None) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built on first use; with
     ``header`` and ``struct``, the one built with that user ext as
-    ``EXT_USER``.  A library is loaded once a process, as a Python module is
-    imported once, so that a launch makes no file-system call;
+    ``EXT_USER``; with a ``shape``, the one built for that view (and
+    width) and ext alone.  A library is loaded once a process, as a Python
+    module is imported once, so that a launch makes no file-system call;
     ``library_path`` keys the built files by content, so an edited header
     is rebuilt in the next process, never served from a stale build.  A
     failed build raises ``RuntimeError`` with ``nvcc``'s output."""
-    key = name if header is None else (name, str(header), struct)
+    key = library_key(name, header, struct, shape)
     if key not in _LIBS:
         src = CSRC / f"{name}.cu"
-        if header is None:
-            out = library_path(name)
-            if not out.exists():
-                _compile(src, out, NVCC_FLAGS, name)
-        else:
-            path = _user_header(header, struct)
-            out = library_path(name, path, struct)
-            if not out.exists():
+        path = None if header is None else _user_header(header, struct)
+        out = library_path(name, path, struct, shape)
+        if not out.exists():
+            flags = NVCC_FLAGS + (() if shape is None else shape.flags())
+            if shape is not None:
+                info_key = shape_key(name, shape, struct)
+            else:
+                info_key = name if path is None else f"{name}[{struct}]"
+            if path is None:
+                _compile(src, out, flags, info_key)
+            else:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 with tempfile.TemporaryDirectory(dir=BUILD_DIR) as shim_dir:
                     Path(shim_dir, USER_SHIM).write_text(f'#include "{path}"\n')
-                    flags = (*NVCC_FLAGS, "-I", shim_dir, "-I", str(CSRC), f"-DMINIGRID_USER_EXT={struct}")
-                    _compile(src, out, flags, f"{name}[{struct}]")
+                    flags += ("-I", shim_dir, "-I", str(CSRC), f"-DMINIGRID_USER_EXT={struct}")
+                    _compile(src, out, flags, info_key)
         _LIBS[key] = ctypes.CDLL(str(out))
     return _LIBS[key]

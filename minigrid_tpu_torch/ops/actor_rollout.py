@@ -39,15 +39,25 @@ from minigrid_tpu_torch.ops.fused_rollout import (
     ext_buffers,
     fresh_episodes,
     from_env_minor,
+    kernel_flags,
     kernel_library,
     to_env_minor,
+    view_refusal,
     with_extra,
 )
 from minigrid_tpu_torch.ops.prng import draw_seeds
 from minigrid_tpu_torch.parallel.vector import MAX_FUSED_CELLS, fused_eligible
 
-# Hidden sizes the CUDA source instantiates: PPO's 256 and the tests' 64.
-COMPILED_HIDDEN = (64, 256)
+# Hidden widths the kernel takes: multiples of HIDDEN_MULTIPLE up to
+# MAX_HIDDEN.  The built-in library holds PPO's 256 and the tests' 64 at
+# view 7; another width or view is built at its first launch
+# (``fused_rollout.kernel_library``).
+HIDDEN_MULTIPLE = 32
+MAX_HIDDEN = 512
+# Above this width layer 1 runs in two passes of hidden/4 columns a
+# warpgroup (``csrc/actor_rollout.cu``'s ``Smem::PASSES``), and W1's tiles
+# come a pass at a time.
+ONE_PASS_HIDDEN = 256
 # The kernel takes N that this divides: its blocks of 64 envs (one
 # tensor-core M tile) mask the empty half of a last block.
 NUM_ENVS_MULTIPLE = 32
@@ -103,7 +113,9 @@ class ActorTiles(NamedTuple):
     cores."""
 
     # W1 padded to ``onehot_words`` * 32 rows, as hi and lo (``split_w1``)
-    # per K tile: [words * 2, 2, H/8, 2, 8, 8]
+    # per K tile, a layer-1 pass's tiles after the pass before's: [passes *
+    # words * 2, 2, H/passes/8, 2, 8, 8], a pass's columns each warpgroup's
+    # share of it (``pass_columns``)
     w1: torch.Tensor
     w2: torch.Tensor  # W2 [H, H] bf16, row-major
     wh: torch.Tensor  # the head rows as B [H, 8] (zero past A + 1), [H/16, 1, 2, 8, 8]
@@ -127,6 +139,21 @@ def untile_b(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 4, 1, 3).reshape(kt * 16, nt * 8)
 
 
+def layer1_passes(hidden: int) -> int:
+    """Layer 1's passes over W1: one up to ``ONE_PASS_HIDDEN``, else two."""
+    return 1 if hidden <= ONE_PASS_HIDDEN else 2
+
+
+def pass_columns(hidden: int, index: int, device=None) -> torch.Tensor:
+    """W1's columns in layer-1 pass ``index``, on ``device``: warpgroup 0's
+    share of that pass (its columns hidden/2/passes * index onwards), then
+    warpgroup 1's (the same from hidden/2).  One pass is every column in
+    order."""
+    np_ = hidden // 2 // layer1_passes(hidden)
+    first = torch.arange(np_, device=device) + index * np_
+    return torch.cat([first, first + hidden // 2])
+
+
 def split_w1(w1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """bf16 W1 as hi + lo, both bf16 and exact: hi its bits from 2^-16 up
     (multiples of 2^-16), lo the rest (below 2^-16).  A sum of 148 hi values
@@ -141,7 +168,8 @@ def split_w1(w1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def tile_actor_weights(weights: ActorWeights, view_size: int) -> ActorTiles:
     """The kernel's tiled layout of ``weights``, made once per launch: W1's
     rows padded with zeros to whole one-hot words and split (``split_w1``),
-    the head rows padded to ``HEAD_ROWS``."""
+    its columns a layer-1 pass at a time (``pass_columns``), the head rows
+    padded to ``HEAD_ROWS``."""
     bf16 = torch.bfloat16
     f, hidden = weights.w1.shape
     w1 = torch.zeros((onehot_words(view_size) * 32, hidden), dtype=bf16, device=weights.w1.device)
@@ -149,9 +177,13 @@ def tile_actor_weights(weights: ActorWeights, view_size: int) -> ActorTiles:
     wh = torch.zeros((HEAD_ROWS, hidden), dtype=bf16, device=weights.wh.device)
     wh[: weights.wh.shape[0]] = weights.wh
     hi, lo = split_w1(w1)
-    return ActorTiles(
-        torch.stack([tile_b(hi), tile_b(lo)], dim=1).contiguous(), weights.w2.to(bf16).contiguous(), tile_b(wh.t())
-    )
+    passes = []
+    for index in range(layer1_passes(hidden)):
+        # Made on the weights' device: a copy from the host would wait for
+        # the card.
+        cols = pass_columns(hidden, index, w1.device)
+        passes.append(torch.stack([tile_b(hi[:, cols]), tile_b(lo[:, cols])], dim=1))
+    return ActorTiles(torch.cat(passes).contiguous(), weights.w2.to(bf16).contiguous(), tile_b(wh.t()))
 
 
 def draw_bits(generator: torch.Generator | None, shape, device) -> torch.Tensor:
@@ -205,8 +237,9 @@ def sample_actions(logits: torch.Tensor, bits: torch.Tensor):
 def shape_refusal(env, num_envs: int, hidden: int) -> str | None:
     """Why the kernel does not take ``num_envs`` envs of ``env`` at this
     hidden size, or None: at most ``MAX_FUSED_CELLS`` grid cells, a multiple
-    of ``NUM_ENVS_MULTIPLE`` envs, 1 to ``MAX_ACTIONS`` actions and a
-    compiled hidden size."""
+    of ``NUM_ENVS_MULTIPLE`` envs, 1 to ``MAX_ACTIONS`` actions, an odd
+    view from 3 to 31 and a hidden size that is a multiple of
+    ``HIDDEN_MULTIPLE`` up to ``MAX_HIDDEN``."""
     cells = env.width * env.height
     if cells > MAX_FUSED_CELLS:
         return f"{cells} grid cells; the kernel takes at most {MAX_FUSED_CELLS}"
@@ -214,8 +247,11 @@ def shape_refusal(env, num_envs: int, hidden: int) -> str | None:
         return f"num_envs {num_envs} is not a multiple of {NUM_ENVS_MULTIPLE}"
     if not 1 <= env.num_actions <= MAX_ACTIONS:
         return f"{env.num_actions} actions; the kernel takes 1 to {MAX_ACTIONS}"
-    if hidden not in COMPILED_HIDDEN:
-        return f"hidden size {hidden} has no compiled instantiation"
+    view = view_refusal(env.agent_view_size)
+    if view is not None:
+        return view
+    if hidden % HIDDEN_MULTIPLE != 0 or not HIDDEN_MULTIPLE <= hidden <= MAX_HIDDEN:
+        return f"hidden size {hidden}; the kernel takes multiples of {HIDDEN_MULTIPLE} up to {MAX_HIDDEN}"
     return None
 
 
@@ -386,7 +422,8 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
         "done": torch.empty((t, n), dtype=torch.bool, device=device),
     }
 
-    lib = kernel_library("actor_rollout", env)
+    lib = kernel_library("actor_rollout", env, hidden)
+    _require(lib.actor_rollout_supports(env.agent_view_size, hidden) == 1, "the library holds no such shape")
     _require(lib.actor_rollout_words(env.agent_view_size) == onehot_words(env.agent_view_size), "one-hot words")
     fn = lib.actor_rollout_launch
     fn.argtypes = _ARGTYPES
@@ -401,9 +438,7 @@ def _launch(env, weights: ActorWeights, states: EnvState, cache, noise: torch.Te
             0 if ext.scal is None else ext.scal.shape[0],
             0 if ext.planes is None else ext.planes.shape[0],
             na, hidden,
-            int(bool(env.fused_no_objects)),
-            int(bool(env.fused_static_mission)),
-            int(env.see_through_walls),
+            *kernel_flags(env),
             ext.ext_id,
             *ext.params,
             *ext.user,

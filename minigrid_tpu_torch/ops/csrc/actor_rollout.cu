@@ -53,7 +53,25 @@
 //      random-policy kernel; ext_id picks the instantiation).
 // The weights come in the layouts of ops/actor_rollout.tile_actor_weights,
 // made once per call in Python: W1 split, in the B layout, padded to
-// WORDS*32 rows; the heads in the B layout padded to 8 rows; W2 as it is.
+// WORDS*32 rows, its columns in layer 1's passes; the heads in the B
+// layout padded to 8 rows; W2 as it is.
+// Shapes.  The kernel is a template over the view V (odd, 3 to 31) and the
+// hidden width HID (a multiple of 32, 32 to 512).  The built-in library
+// holds V = 7 at HID 64 and 256; any other shape is built for the family
+// that launches it (ops/_build.Shape).  What a shape changes: layer 1 runs
+// at N = HID/2 a warpgroup (hopper.cuh's wgmma_cols), in two passes of
+// HID/4 above 256, whose accumulators would not fit the registers (W1's
+// tiles stream once a pass, an earlier pass's h1 kept as bf16 pairs in
+// registers until the bits are done with); W2 stays in shared memory where
+// it leaves two W1 stages (Smem::W2_RESIDENT), else layer 2 reads its rows
+// from device memory (L2); layer 2 takes HID/32 consecutive columns a lane
+// at widths 64, 128 and 256 and columns 32 apart otherwise, in passes of 8
+// above 256, whose h2 then goes beside h1; the heads take K tiles 16 at a
+// time.  A view above 7 keeps no V x V cells in registers and no obs tile:
+// its rows' lit masks first (view_lit), then its cells in order, each
+// written straight to obs and its 20 feature bits appended to the one-hot
+// words through a 64-bit buffer (31 x 31 cells make 602 words, 154 KB for
+// the block's 64 envs, over the activations).
 // The family's extra state (Ext::Extra, up to 19 ints for
 // Dynamic-Obstacles) lives in shared memory, one slot per env: in
 // registers it would be allocated to every thread.  The seeds, and a cached
@@ -135,14 +153,32 @@ constexpr int words_for(int V) { return (V * V * FEATURES_PER_CELL + 4 + 31) / 3
 template <int V, int HID, class Ext>
 struct Smem {
   static constexpr int WORDS = words_for(V);
-  static constexpr int STAGE = 2 * HID * 32;  // a K tile of W1: its hi and lo parts
-  static constexpr int HW = HID / 2 + 1;      // 32-bit words per activation row (odd: no bank conflicts)
-  static constexpr int W2 = 0;                // [HID][HID] bf16, row-major
-  static constexpr int WH = W2 + HID * HID * 2;
+  // Layer 1 runs in passes of at most 128 columns a warpgroup, whose hi and
+  // lo accumulators fit the registers: two above HID = 256.
+  static constexpr int PASSES = HID > 256 ? 2 : 1;
+  static constexpr int NP = HID / 2 / PASSES;           // a warpgroup's columns a pass
+  static constexpr int STAGE = 2 * (HID / PASSES) * 32;  // a K tile of W1's pass columns: its hi and lo parts
+  static constexpr int HW = HID / 2 + 1;                 // 32-bit words per activation row (odd: no bank conflicts)
+  // Layer 2 runs in passes of at most 8 columns a lane: two above HID =
+  // 256, and then h2 goes beside h1 instead of over it.
+  static constexpr int L2_PASSES = (HID / 32 + 7) / 8;
+  static constexpr int ACTS = L2_PASSES > 1 ? 2 : 1;
+  // A view up to 7 keeps its obs tile beside the one-hot bits; a wider one
+  // writes its obs straight out.
+  static constexpr bool WIDE = V > 7;
+  static constexpr int ENV_BYTES = EB * (WORDS + (WIDE ? 0 : V * V)) * 4;
+  // The activations [ACTS][EB][HW] (bf16 pairs); before layer 1's end the
+  // same space holds the one-hot bits [EB][WORDS] and the obs tile [EB][V*V].
+  static constexpr int ACT_BYTES = ACTS * EB * HW * 4 > ENV_BYTES ? ACTS * EB * HW * 4 : ENV_BYTES;
+  static constexpr int W2_BYTES = HID * HID * 2;
+  // W2 stays in shared memory where it leaves room for two W1 stages; a
+  // wider or a wide view's reads its rows from device memory (through L2).
+  static constexpr bool W2_RESIDENT =
+      (SMEM_LIMIT - W2_BYTES - HID * MAX_HEADS * 2 - ACT_BYTES - 2 * HID * 4 - EB * MAX_HEADS * 4 -
+       EB * (int)sizeof(typename Ext::Extra) - 16 - 16 * 17) / STAGE >= 2;
+  static constexpr int W2 = 0;  // [HID][HID] bf16, row-major
+  static constexpr int WH = W2 + (W2_RESIDENT ? W2_BYTES : 0);
   static constexpr int RING = WH + HID * MAX_HEADS * 2;
-  // The activations [EB][HW] (bf16 pairs); before layer 1's end the same
-  // space holds the one-hot bits [EB][WORDS] and the obs tile [EB][V*V].
-  static constexpr int ACT_BYTES = EB * HW * 4 > EB * (WORDS + V * V) * 4 ? EB * HW * 4 : EB * (WORDS + V * V) * 4;
   static constexpr int FIXED = RING + ACT_BYTES + 2 * HID * 4 + EB * MAX_HEADS * 4 +
                                EB * (int)sizeof(typename Ext::Extra) + 16;
   // As many stages as fit, at most 8.
@@ -157,6 +193,8 @@ struct Smem {
   static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8;
   static_assert(STAGES >= 2, "the W1 ring needs two stages");
   static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+  static_assert(HID % 32 == 0 && HID >= 32 && HID <= 512, "a hidden width that is a multiple of 32 up to 512");
+  static_assert(V % 2 == 1 && V >= 3 && V <= 31, "an odd view from 3 to 31");
 };
 
 // The env's one-hot words from its view and direction: word w holds
@@ -181,18 +219,10 @@ __device__ __forceinline__ void onehot_words(const int (&view)[V][V], int d, uin
   }
 }
 
-// One warpgroup's half of layer 1's N = HID columns.
-template <int HID>
-__device__ __forceinline__ void mma_half(float (&d)[HID / 4], const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (HID == 256) {
-    wgmma_m64n128k16_rs(d, a, desc);
-  } else {
-    wgmma_m64n32k16_rs(d, a, desc);
-  }
-}
-
-// Layer 2's share of a consumer thread of W2's row: HID/32 columns (8 at
-// HID = 256: one 16-byte load; a warp reads the whole row, conflict-free).
+// Layer 2's share of a consumer thread of W2's row where HID/32 is 2, 4
+// or 8: HID/32 consecutive columns (8 at HID = 256: one 16-byte load; a
+// warp reads the whole row, conflict-free).  Other widths take columns
+// 32 apart (w2_at).
 template <int HID>
 __device__ __forceinline__ void w2_row(const __nv_bfloat16* row, int cg, float (&w)[HID / 32]) {
   if constexpr (HID == 256) {
@@ -203,11 +233,25 @@ __device__ __forceinline__ void w2_row(const __nv_bfloat16* row, int cg, float (
       w[2 * q] = __uint_as_float(u[q] << 16);
       w[2 * q + 1] = __uint_as_float(u[q] & 0xFFFF0000u);
     }
+  } else if constexpr (HID == 128) {
+    const uint2 v = *reinterpret_cast<const uint2*>(row + 4 * cg);
+    w[0] = __uint_as_float(v.x << 16);
+    w[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    w[2] = __uint_as_float(v.y << 16);
+    w[3] = __uint_as_float(v.y & 0xFFFF0000u);
   } else {
     const uint32_t v = *reinterpret_cast<const uint32_t*>(row + 2 * cg);
     w[0] = __uint_as_float(v << 16);
     w[1] = __uint_as_float(v & 0xFFFF0000u);
   }
+}
+
+// W2's element `idx` as a float: from shared memory where W2 is resident,
+// else from device memory through the read-only path.
+template <bool RESIDENT>
+__device__ __forceinline__ float w2_at(const __nv_bfloat16* w2, int idx) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(w2);
+  return __uint_as_float((uint32_t)(RESIDENT ? u[idx] : __ldg(u + idx)) << 16);
 }
 
 template <int V, int HID, class Ext, bool NO_OBJECTS, bool STATIC_MISSION, bool SEE_THROUGH>
@@ -217,15 +261,19 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
   constexpr int WORDS = L::WORDS;
   constexpr int STAGES = L::STAGES;
   constexpr int HW = L::HW;
+  constexpr int PASSES = L::PASSES;
+  constexpr int NP = L::NP;
   constexpr int KT2 = HID / 16;  // K tiles of the heads
   constexpr int CPT = HID / 32;  // layer 2: columns per thread (8 envs each)
   extern __shared__ __align__(128) unsigned char smem[];
-  const __nv_bfloat16* w2_s = reinterpret_cast<const __nv_bfloat16*>(smem + L::W2);
+  // W2 in shared memory, or where the caller's tensor lies.
+  const __nv_bfloat16* w2_s = L::W2_RESIDENT ? reinterpret_cast<const __nv_bfloat16*>(smem + L::W2) : a.w2;
   const __nv_bfloat16* wh_s = reinterpret_cast<const __nv_bfloat16*>(smem + L::WH);
   unsigned char* ring = smem + L::RING;
-  uint32_t* act_s = reinterpret_cast<uint32_t*>(smem + L::ACT);  // [EB][HW] bf16 pairs
+  uint32_t* act_s = reinterpret_cast<uint32_t*>(smem + L::ACT);  // [EB][HW] bf16 pairs: h1
+  uint32_t* h2_s = act_s + (L::ACTS - 1) * EB * HW;              // h2: over h1, or beside it
   uint32_t* bits_s = act_s;                                         // [EB][WORDS], before layer 1's end
-  int* obs_s = reinterpret_cast<int*>(act_s + EB * WORDS);          // [EB][V2], likewise
+  int* obs_s = reinterpret_cast<int*>(act_s + EB * WORDS);          // [EB][V2], likewise (views up to 7)
   float* b1_s = reinterpret_cast<float*>(smem + L::B1);
   float* b2_s = reinterpret_cast<float*>(smem + L::B2);
   float* head_s = reinterpret_cast<float*>(smem + L::HEAD);         // [EB][MAX_HEADS]
@@ -255,21 +303,23 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
     // The producer: W2 and the heads once, then W1's K tiles (hi and lo),
     // a tile a stage, for every step, as fast as the ring frees.
     if (lane == 0) {
-      constexpr uint32_t W2_BYTES = HID * HID * 2, WH_BYTES = HID * MAX_HEADS * 2;
+      constexpr uint32_t W2_BYTES = L::W2_RESIDENT ? HID * HID * 2 : 0, WH_BYTES = HID * MAX_HEADS * 2;
       mbar_arrive_expect_tx(resident, W2_BYTES + WH_BYTES);
-      bulk_g2s(smem + L::W2, a.w2, W2_BYTES, resident);
+      if constexpr (L::W2_RESIDENT) bulk_g2s(smem + L::W2, a.w2, W2_BYTES, resident);
       bulk_g2s(smem + L::WH, a.wh, WH_BYTES, resident);
       int stage = 0;
       uint32_t phase = 0;
       const unsigned char* w1 = reinterpret_cast<const unsigned char*>(a.w1);
       for (int t = 0; t < a.T; ++t) {
-        for (int kt = 0; kt < 2 * WORDS; ++kt) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_arrive_expect_tx(&full[stage], L::STAGE);
-          bulk_g2s(ring + stage * L::STAGE, w1 + (size_t)kt * L::STAGE, L::STAGE, &full[stage]);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+        for (int ps = 0; ps < PASSES; ++ps) {
+          for (int kt = 0; kt < 2 * WORDS; ++kt) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&full[stage], L::STAGE);
+            bulk_g2s(ring + stage * L::STAGE, w1 + ((size_t)ps * 2 * WORDS + kt) * L::STAGE, L::STAGE, &full[stage]);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -320,25 +370,62 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
     // zero bits.
     if (tid < EB) {
       if (env_thread) {
-        int view[V][V];
-        view_cells<V>(grid, N, a.W, a.H, s, view);
-        hide_unseen<V, SEE_THROUGH>(view);
+        if constexpr (!L::WIDE) {
+          int view[V][V];
+          view_cells<V>(grid, N, a.W, a.H, s, view);
+          hide_unseen<V, SEE_THROUGH>(view);
 #pragma unroll
-        for (int i = 0; i < V; ++i)
+          for (int i = 0; i < V; ++i)
 #pragma unroll
-          for (int j = 0; j < V; ++j) obs_s[tid * V2 + i * V + j] = view[i][j];
-        a.dir[tn + n] = s.d;
-        onehot_words<V, WORDS>(view, s.d, bits_s + tid * WORDS);
+            for (int j = 0; j < V; ++j) obs_s[tid * V2 + i * V + j] = view[i][j];
+          a.dir[tn + n] = s.d;
+          onehot_words<V, WORDS>(view, s.d, bits_s + tid * WORDS);
+        } else {
+          // A wider view: its rows' lit masks, then its cells in order,
+          // each written out and its 20 feature bits appended to the
+          // words (a 64-bit buffer of the bits not yet written).
+          const ViewFrame f = view_frame(s.ax, s.ay, s.d);
+          uint32_t lit[V];
+          view_lit<V, SEE_THROUGH>(grid, N, a.W, a.H, f, s.carry, lit);
+          int* orow = a.obs + (tn + n) * V2;
+          uint32_t* brow = bits_s + tid * WORDS;
+          uint64_t pend = 0;
+          int held = 0, w = 0;
+#pragma unroll 1
+          for (int i = 0; i < V; ++i) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              const int v = (lit[j] >> i) & 1u ? view_value<V>(grid, N, a.W, a.H, f, s.carry, i, j) : 0;
+              orow[i * V + j] = v;
+              pend |= (uint64_t)cell_bits(v) << held;
+              held += FEATURES_PER_CELL;
+              if (held >= 32) {
+                brow[w++] = (uint32_t)pend;
+                pend >>= 32;
+                held -= 32;
+              }
+            }
+          }
+          pend |= (uint64_t)(s.d >= 0 && s.d < 4 ? 1u << s.d : 0u) << held;
+          for (; w < WORDS; ++w) {
+            brow[w] = (uint32_t)pend;
+            pend >>= 32;
+          }
+          a.dir[tn + n] = s.d;
+        }
       } else {
         for (int w = 0; w < WORDS; ++w) bits_s[tid * WORDS + w] = 0;
       }
     }
     named_sync(1, CONSUMERS);
-    int* obs_dst = a.obs + (tn + n0) * V2;
-    for (int k = tid; k < valid * V2; k += CONSUMERS) obs_dst[k] = obs_s[k];
+    if constexpr (!L::WIDE) {
+      int* obs_dst = a.obs + (tn + n0) * V2;
+      for (int k = tid; k < valid * V2; k += CONSUMERS) obs_dst[k] = obs_s[k];
+    }
 
     // 2. Layer 1: one-hot @ W1 on the tensor cores, a K tile per ring stage,
-    // each warpgroup half the columns.  W1 comes split as hi + lo (its bits
+    // each warpgroup half the columns (in two passes above HID = 256, a
+    // pass's W1 tiles streamed anew).  W1 comes split as hi + lo (its bits
     // from 2^-16 up, and the rest), so that each sum is exact in the f32
     // accumulators and their f32 sum is the exact sum rounded once, whatever
     // the order (a tiny weight's low bits would otherwise be truncated against
@@ -346,58 +433,83 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
     // between two register sets, so a tile's fragments are built while the
     // previous tile's wgmmas run.
     {
-      float acc[HID / 4], acc_lo[HID / 4];
+      // An earlier pass's h1, as bf16 pairs, until the bits are done with.
+      uint32_t h1p[PASSES > 1 ? PASSES - 1 : 1][NP / 4];
 #pragma unroll
-      for (int i = 0; i < HID / 4; ++i) acc[i] = acc_lo[i] = 0.f;
-      uint32_t frag[2][4];
-      int prev_stage = 0;
-      auto layer1_tile = [&](int kt, uint32_t(&cur)[4], uint32_t(&prev)[4]) {
-        const int shift = 16 * (kt & 1) + 2 * c;
-        const uint32_t w0 = bits_s[r0 * WORDS + kt / 2] >> shift;
-        const uint32_t w1 = bits_s[(r0 + 8) * WORDS + kt / 2] >> shift;
-        cur[0] = onehot_pair(w0);
-        cur[1] = onehot_pair(w1);
-        cur[2] = onehot_pair(w0 >> 8);
-        cur[3] = onehot_pair(w1 >> 8);
-        mbar_wait(&full[stage], phase);
-        const unsigned char* tile = ring + stage * L::STAGE + wg * HID * 16;  // this half's n groups
-        wgmma_fence();
-        mma_half<HID>(acc, cur, b_desc(tile));
-        mma_half<HID>(acc_lo, cur, b_desc(tile + HID * 32));
-        wgmma_commit();
-        // The previous tile's wgmmas are done: its stage and registers free.
-        wgmma_wait<1>();
+      for (int ps = 0; ps < PASSES; ++ps) {
+        float acc[NP / 2], acc_lo[NP / 2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) fence_operand(prev[i]);
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev_stage]);
-        prev_stage = stage;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
+        for (int i = 0; i < NP / 2; ++i) acc[i] = acc_lo[i] = 0.f;
+        uint32_t frag[2][4];
+        int prev_stage = 0;
+        auto layer1_tile = [&](int kt, uint32_t(&cur)[4], uint32_t(&prev)[4]) {
+          const int shift = 16 * (kt & 1) + 2 * c;
+          const uint32_t w0 = bits_s[r0 * WORDS + kt / 2] >> shift;
+          const uint32_t w1 = bits_s[(r0 + 8) * WORDS + kt / 2] >> shift;
+          cur[0] = onehot_pair(w0);
+          cur[1] = onehot_pair(w1);
+          cur[2] = onehot_pair(w0 >> 8);
+          cur[3] = onehot_pair(w1 >> 8);
+          mbar_wait(&full[stage], phase);
+          const unsigned char* tile = ring + stage * L::STAGE + wg * NP * 32;  // this half's n groups
+          wgmma_fence();
+          wgmma_cols<NP>(acc, cur, b_desc(tile));
+          wgmma_cols<NP>(acc_lo, cur, b_desc(tile + 2 * NP * 32));
+          wgmma_commit();
+          // The previous tile's wgmmas are done: its stage and registers free.
+          wgmma_wait<1>();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(prev[i]);
+          if (kt > 0 && lane == 0) mbar_arrive(&empty[prev_stage]);
+          prev_stage = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        };
+        for (int kt = 0; kt < 2 * WORDS; kt += 2) {
+          layer1_tile(kt, frag[0], frag[1]);
+          layer1_tile(kt + 1, frag[1], frag[0]);
         }
-      };
-      for (int kt = 0; kt < 2 * WORDS; kt += 2) {
-        layer1_tile(kt, frag[0], frag[1]);
-        layer1_tile(kt + 1, frag[1], frag[0]);
-      }
-      wgmma_wait<0>();
+        wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < HID / 4; ++i) {
-        fence_operand(acc[i]);
-        fence_operand(acc_lo[i]);
-        acc[i] += acc_lo[i];
-      }
-      if (lane == 0) mbar_arrive(&empty[prev_stage]);
-      named_sync(1, CONSUMERS);  // every thread is done with the bits
+        for (int i = 0; i < NP / 2; ++i) {
+          fence_operand(acc[i]);
+          fence_operand(acc_lo[i]);
+          acc[i] += acc_lo[i];
+        }
+        if (lane == 0) mbar_arrive(&empty[prev_stage]);
+        if (ps + 1 < PASSES) {
+          // h1 = bf16(ReLU(acc + b1)), kept until the last pass.
+#pragma unroll
+          for (int j = 0; j < NP / 8; ++j) {
+            const int col = HID / 2 * wg + ps * NP + 8 * j + 2 * c;
+            const float2 b = *reinterpret_cast<const float2*>(b1_s + col);
+            h1p[ps][2 * j] = pack_bf16(fmaxf(acc[4 * j] + b.x, 0.f), fmaxf(acc[4 * j + 1] + b.y, 0.f));
+            h1p[ps][2 * j + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + b.x, 0.f), fmaxf(acc[4 * j + 3] + b.y, 0.f));
+          }
+          continue;
+        }
+        named_sync(1, CONSUMERS);  // every thread is done with the bits
 
-      // h1 = bf16(ReLU(acc + b1)) into the activation rows.
+        // h1 = bf16(ReLU(acc + b1)) into the activation rows, the earlier
+        // passes' columns first.
 #pragma unroll
-      for (int j = 0; j < HID / 16; ++j) {
-        const int col = HID / 2 * wg + 8 * j + 2 * c;
-        const float2 b = *reinterpret_cast<const float2*>(b1_s + col);
-        act_s[r0 * HW + col / 2] = pack_bf16(fmaxf(acc[4 * j] + b.x, 0.f), fmaxf(acc[4 * j + 1] + b.y, 0.f));
-        act_s[(r0 + 8) * HW + col / 2] =
-            pack_bf16(fmaxf(acc[4 * j + 2] + b.x, 0.f), fmaxf(acc[4 * j + 3] + b.y, 0.f));
+        for (int pp = 0; pp < ps; ++pp)
+#pragma unroll
+          for (int j = 0; j < NP / 8; ++j) {
+            const int col = HID / 2 * wg + pp * NP + 8 * j + 2 * c;
+            act_s[r0 * HW + col / 2] = h1p[pp][2 * j];
+            act_s[(r0 + 8) * HW + col / 2] = h1p[pp][2 * j + 1];
+          }
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j) {
+          const int col = HID / 2 * wg + ps * NP + 8 * j + 2 * c;
+          const float2 b = *reinterpret_cast<const float2*>(b1_s + col);
+          act_s[r0 * HW + col / 2] = pack_bf16(fmaxf(acc[4 * j] + b.x, 0.f), fmaxf(acc[4 * j + 1] + b.y, 0.f));
+          act_s[(r0 + 8) * HW + col / 2] =
+              pack_bf16(fmaxf(acc[4 * j + 2] + b.x, 0.f), fmaxf(acc[4 * j + 3] + b.y, 0.f));
+        }
       }
     }
     named_sync(1, CONSUMERS);
@@ -406,63 +518,116 @@ __global__ void __launch_bounds__(THREADS, 1) actor_kernel(const Args a, const E
     // order, the plain version's product (a tensor-core sum, in another
     // order, flips the bf16 rounding of h2 often enough to move the value
     // past PLAIN_ATOL); then + b2, ReLU, bf16.
-    float acc2[8 * CPT];
+    if constexpr (CPT == 2 || CPT == 4 || CPT == 8) {
+      float acc2[8 * CPT];
 #pragma unroll
-    for (int i = 0; i < 8 * CPT; ++i) acc2[i] = 0.f;
+      for (int i = 0; i < 8 * CPT; ++i) acc2[i] = 0.f;
 #pragma unroll 2
-    for (int k = 0; k < HID; k += 2) {
-      float x0[8], x1[8];
+      for (int k = 0; k < HID; k += 2) {
+        float x0[8], x1[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const uint32_t v = act_s[(8 * eg + e) * HW + k / 2];
-        x0[e] = __uint_as_float(v << 16);
-        x1[e] = __uint_as_float(v & 0xFFFF0000u);
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t v = act_s[(8 * eg + e) * HW + k / 2];
+          x0[e] = __uint_as_float(v << 16);
+          x1[e] = __uint_as_float(v & 0xFFFF0000u);
+        }
+        float w0[CPT], w1[CPT];
+        w2_row<HID>(w2_s + (size_t)k * HID, cg, w0);
+        w2_row<HID>(w2_s + (size_t)(k + 1) * HID, cg, w1);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x0[e], w0[q], acc2[e * CPT + q]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x1[e], w1[q], acc2[e * CPT + q]);
       }
-      float w0[CPT], w1[CPT];
-      w2_row<HID>(w2_s + (size_t)k * HID, cg, w0);
-      w2_row<HID>(w2_s + (size_t)(k + 1) * HID, cg, w1);
+      named_sync(1, CONSUMERS);  // every thread is done with h1
 #pragma unroll
       for (int e = 0; e < 8; ++e)
 #pragma unroll
-        for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x0[e], w0[q], acc2[e * CPT + q]);
+        for (int q = 0; q < CPT; q += 2) {
+          const int col = CPT * cg + q;
+          act_s[(8 * eg + e) * HW + col / 2] = pack_bf16(fmaxf(acc2[e * CPT + q] + b2_s[col], 0.f),
+                                                       fmaxf(acc2[e * CPT + q + 1] + b2_s[col + 1], 0.f));
+        }
+    } else {
+      // Other widths: lane cg takes columns cg + 32 q, QP of them a pass
+      // (two passes above HID = 256, whose h2 goes beside h1).
+      constexpr int QP = CPT < 8 ? CPT : 8;
+      __nv_bfloat16* h2b = reinterpret_cast<__nv_bfloat16*>(h2_s);
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
+      for (int q0 = 0; q0 < CPT; q0 += QP) {
+        float acc2[8 * QP];
 #pragma unroll
-        for (int q = 0; q < CPT; ++q) acc2[e * CPT + q] = fmaf(x1[e], w1[q], acc2[e * CPT + q]);
+        for (int i = 0; i < 8 * QP; ++i) acc2[i] = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < HID; k += 2) {
+          float x0[8], x1[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const uint32_t v = act_s[(8 * eg + e) * HW + k / 2];
+            x0[e] = __uint_as_float(v << 16);
+            x1[e] = __uint_as_float(v & 0xFFFF0000u);
+          }
+          float w0[QP], w1[QP];
+#pragma unroll
+          for (int q = 0; q < QP; ++q) {
+            const int col = cg + 32 * (q0 + q);
+            w0[q] = q0 + q < CPT ? w2_at<L::W2_RESIDENT>(w2_s, k * HID + col) : 0.f;
+            w1[q] = q0 + q < CPT ? w2_at<L::W2_RESIDENT>(w2_s, (k + 1) * HID + col) : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int q = 0; q < QP; ++q) acc2[e * QP + q] = fmaf(x0[e], w0[q], acc2[e * QP + q]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int q = 0; q < QP; ++q) acc2[e * QP + q] = fmaf(x1[e], w1[q], acc2[e * QP + q]);
+        }
+        if constexpr (L::ACTS == 1) named_sync(1, CONSUMERS);  // every thread is done with h1, which h2 overwrites
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int q = 0; q < QP; ++q) {
+            const int col = cg + 32 * (q0 + q);
+            if (q0 + q < CPT) {
+              h2b[(8 * eg + e) * 2 * HW + col] = __float2bfloat16_rn(fmaxf(acc2[e * QP + q] + b2_s[col], 0.f));
+            }
+          }
+      }
     }
-    named_sync(1, CONSUMERS);  // every thread is done with h1
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-      for (int q = 0; q < CPT; q += 2) {
-        const int col = CPT * cg + q;
-        act_s[(8 * eg + e) * HW + col / 2] = pack_bf16(fmaxf(acc2[e * CPT + q] + b2_s[col], 0.f),
-                                                     fmaxf(acc2[e * CPT + q + 1] + b2_s[col + 1], 0.f));
-      }
     named_sync(1, CONSUMERS);
 
-    // 4. Heads on the tensor cores: h2 @ the head rows, + f32 bias.
+    // 4. Heads on the tensor cores: h2 @ the head rows, + f32 bias, in
+    // groups of up to 16 K tiles (their A fragments in registers).
     if (head_warp) {
-      uint32_t h[KT2][4];
-#pragma unroll
-      for (int kk = 0; kk < KT2; ++kk) {
-        h[kk][0] = act_s[r0 * HW + 8 * kk + c];
-        h[kk][1] = act_s[(r0 + 8) * HW + 8 * kk + c];
-        h[kk][2] = act_s[r0 * HW + 8 * kk + 4 + c];
-        h[kk][3] = act_s[(r0 + 8) * HW + 8 * kk + 4 + c];
-      }
+      constexpr int KG = KT2 < 16 ? KT2 : 16;
       float hd[4] = {0.f, 0.f, 0.f, 0.f};
-      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KT2; ++kk) wgmma_m64n8k16_rs(hd, h[kk], b_desc(wh_s + kk * MAX_HEADS * 16));
-      wgmma_commit();
-      wgmma_wait<0>();
+      for (int k0 = 0; k0 < KT2; k0 += KG) {
+        uint32_t h[KG][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) fence_operand(hd[i]);
+        for (int kk = 0; kk < KG; ++kk) {
+          h[kk][0] = h2_s[r0 * HW + 8 * (k0 + kk) + c];
+          h[kk][1] = h2_s[(r0 + 8) * HW + 8 * (k0 + kk) + c];
+          h[kk][2] = h2_s[r0 * HW + 8 * (k0 + kk) + 4 + c];
+          h[kk][3] = h2_s[(r0 + 8) * HW + 8 * (k0 + kk) + 4 + c];
+        }
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KT2; ++kk)
+        for (int kk = 0; kk < KG; ++kk) wgmma_m64n8k16_rs(hd, h[kk], b_desc(wh_s + (k0 + kk) * MAX_HEADS * 16));
+        wgmma_commit();
+        wgmma_wait<0>();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) fence_operand(h[kk][i]);
+        for (int i = 0; i < 4; ++i) fence_operand(hd[i]);
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(h[kk][i]);
+      }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int col = 2 * c + u;
@@ -565,31 +730,66 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 
 }  // namespace
 
-// Hidden sizes with an instantiation: the PPO configuration's 256 and the
-// narrow 64 of the tests.
-extern "C" int actor_rollout_supports_hidden(int hidden) { return hidden == 256 || hidden == 64; }
+// The shapes (view, hidden width) this library holds: the built-in one view
+// 7 at the PPO configuration's 256 and the tests' narrow 64; a library
+// built for one family's shape (ops/_build.Shape: -DMINIGRID_VIEW,
+// -DMINIGRID_HIDDEN, and -DMINIGRID_ONLY_EXT for a built-in ext) that one.
+#ifdef MINIGRID_VIEW
+#define ACTOR_SHAPES(X) X(MINIGRID_VIEW, MINIGRID_HIDDEN)
+#else
+#define ACTOR_SHAPES(X) X(7, 256) X(7, 64)
+#endif
+
+// Whether the library holds view V at this hidden width.
+extern "C" int actor_rollout_supports(int V, int hidden) {
+#define ACTOR_HOLDS(v, h) \
+  if (V == (v) && hidden == (h)) return 1;
+  ACTOR_SHAPES(ACTOR_HOLDS)
+#undef ACTOR_HOLDS
+  return 0;
+}
 
 // One-hot words per env at view size V: W1 comes padded to 32 rows per word.
 extern "C" int actor_rollout_words(int V) { return words_for(V); }
 
-// Dynamic shared memory (bytes) and W1 ring stages of the instantiations of
-// `ext_id` at `hidden` (V = 7), for reports; 0 for an unknown id or size.
-extern "C" int actor_rollout_smem_bytes(int hidden, int ext_id) {
-  int bytes = 0;
+// Dynamic shared memory (bytes), W1 ring stages and whether W2 stays in
+// shared memory (1) or is read from device memory (0), of the
+// instantiations of `ext_id` at view V and width `hidden`, for reports;
+// -1 for an unknown id or shape.
+extern "C" int actor_rollout_smem_bytes(int V, int hidden, int ext_id) {
+  int bytes = -1;
   with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
-    bytes = hidden == 256 ? Smem<7, 256, Ext>::BYTES : hidden == 64 ? Smem<7, 64, Ext>::BYTES : 0;
+#define ACTOR_BYTES(v, h) \
+  if (V == (v) && hidden == (h)) bytes = Smem<(v), (h), Ext>::BYTES;
+    ACTOR_SHAPES(ACTOR_BYTES)
+#undef ACTOR_BYTES
   });
   return bytes;
 }
 
-extern "C" int actor_rollout_stages(int hidden, int ext_id) {
-  int stages = 0;
+extern "C" int actor_rollout_stages(int V, int hidden, int ext_id) {
+  int stages = -1;
   with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
-    stages = hidden == 256 ? Smem<7, 256, Ext>::STAGES : hidden == 64 ? Smem<7, 64, Ext>::STAGES : 0;
+#define ACTOR_STAGES(v, h) \
+  if (V == (v) && hidden == (h)) stages = Smem<(v), (h), Ext>::STAGES;
+    ACTOR_SHAPES(ACTOR_STAGES)
+#undef ACTOR_STAGES
   });
   return stages;
+}
+
+extern "C" int actor_rollout_w2_resident(int V, int hidden, int ext_id) {
+  int resident = -1;
+  with_ext(ext_id, [&](auto ext) {
+    using Ext = decltype(ext);
+#define ACTOR_W2(v, h) \
+  if (V == (v) && hidden == (h)) resident = Smem<(v), (h), Ext>::W2_RESIDENT;
+    ACTOR_SHAPES(ACTOR_W2)
+#undef ACTOR_W2
+  });
+  return resident;
 }
 
 // Launches the collection on `stream`; returns a cudaError_t (0 on success).
@@ -614,8 +814,8 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
                                     int num_crossings, int obstacle_cell, int start_x, int start_y,
                                     int start_dir, int user0, int user1, int user2, int user3,
                                     void* stream) {
-  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % 32 != 0 || K < 0 || P < 0 || NA < 1 ||
-      NA > MAX_HEADS - 1 || !actor_rollout_supports_hidden(hidden)) {
+  if (!actor_rollout_supports(V, hidden) || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || N % 32 != 0 || K < 0 ||
+      P < 0 || NA < 1 || NA > MAX_HEADS - 1) {
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir,
@@ -633,11 +833,10 @@ extern "C" int actor_rollout_launch(const int* noise, int* grid, int* cont, int*
     using Ext = decltype(ext);
     ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, P, flags, scal, cscal, seeds, planes, cplanes);
     if (!ok || N == 0) return;
-    if (hidden == 256) {
-      dispatch<7, 256, Ext>(a, p, flags, s);
-    } else {
-      dispatch<7, 64, Ext>(a, p, flags, s);
-    }
+#define ACTOR_LAUNCH(v, h) \
+  if (V == (v) && hidden == (h)) dispatch<(v), (h), Ext>(a, p, flags, s);
+    ACTOR_SHAPES(ACTOR_LAUNCH)
+#undef ACTOR_LAUNCH
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return N == 0 ? (int)cudaSuccess : (int)cudaGetLastError();

@@ -722,9 +722,10 @@ __global__ void embed_bwd_reduce_kernel(const float* __restrict__ part, float* _
   }
 }
 
-// Hidden sizes of both directions: a power of two from 4 to 512 (the
-// forward's slabs of up to 64 columns, a narrower H padded to 8).
-bool hidden_ok(int H) { return H >= 4 && H <= 512 && (H & (H - 1)) == 0; }
+// Hidden sizes of the forward: a multiple of 32 or a power of two, from 4
+// to 512 (slabs of 64 columns, the last one the rest of H, whose columns
+// past H are zeros; a narrower H is one slab padded to 8).
+bool hidden_ok(int H) { return H >= 4 && H <= 512 && (H % 32 == 0 || (H & (H - 1)) == 0); }
 
 // The forward's slab width and warpgroups for V2 view cells at hidden size
 // H: the widest slab (64 columns, or H's own width from 8 up) that leaves
@@ -764,9 +765,13 @@ bool fwd_config(int V2, int H, int* ns, int* nwg, bool* streamed = nullptr) {
   return true;
 }
 
-// Hidden sizes of the backward: whole slabs of 64 columns per warpgroup
-// (a narrower dy comes padded to 64 columns).
-bool bwd_hidden_ok(int H) { return H == 64 || H == 128 || H == 256 || H == 512; }
+// Hidden sizes of the backward: whole slabs of 64 columns, one a
+// warpgroup (a dy of another width comes padded to a multiple of 64).
+bool bwd_hidden_ok(int H) { return H >= 64 && H <= 512 && H % 64 == 0; }
+
+// The backward's warpgroups a CTA at width H: 4, 2 or 1, whichever
+// divides its slabs of 64 (the grid's third dimension takes the rest).
+int bwd_warpgroups(int H) { return (H / 64) % 4 == 0 ? 4 : (H / 64) % 2 == 0 ? 2 : 1; }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -896,22 +901,22 @@ extern "C" int embed_dense1_fwd_launch(const int* packed, const int* dir, const 
 // Dynamic shared memory (bytes) of the backward's pass 1 at hidden size H.
 extern "C" int embed_dense1_bwd_smem_bytes(int H) {
   if (!bwd_hidden_ok(H)) return 0;
-  const int nwg = min(H / 64, 4);
+  const int nwg = bwd_warpgroups(H);
   return nwg == 1 ? BwdSmem<1>::BYTES : nwg == 2 ? BwdSmem<2>::BYTES : BwdSmem<4>::BYTES;
 }
 
 // Number of chunks, so the caller can size `part` as [chunks, V2*20+5, H] f32.
 extern "C" int embed_dense1_bwd_chunks(int M) { return (M + CHUNK - 1) / CHUNK; }
 
-// f32 dw1 [V2*20+4, H] and db1 [H] from bf16 dy [M, H], H one of 64, 128,
-// 256, 512; `part` is scratch.
+// f32 dw1 [V2*20+4, H] and db1 [H] from bf16 dy [M, H], H a multiple of 64
+// up to 512; `part` is scratch.
 extern "C" int embed_dense1_bwd_launch(const int* packed, const int* dir, const void* dy,
                                        float* part, float* dw1, float* db1, int M, int V2, int H,
                                        void* stream) {
   if (M < 1 || V2 < 1 || !bwd_hidden_ok(H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = (M + CHUNK - 1) / CHUNK;
-  const int nwg = min(H / 64, 4);
+  const int nwg = bwd_warpgroups(H);
   const dim3 grid1((V2 + 1 + CELLS_PER_TILE - 1) / CELLS_PER_TILE, chunks, H / (64 * nwg));
   CUtensorMap dy_map;
   if (!dy_tensor_map(&dy_map, dy, M, H)) return (int)cudaErrorNotSupported;

@@ -7,7 +7,9 @@
 // minigrid_user_ext.cuh, which includes the family's own header), the
 // library holds that one struct instead, as EXT_USER: a family written
 // outside the package, a cached ext or a counter-reset one, pays for its
-// own instantiations only.
+// own instantiations only.  Built with MINIGRID_ONLY_EXT=<id> (a library
+// of one view or width, ops/_build.Shape), it holds the ext of that id
+// alone: the family that launched the build.
 
 #pragma once
 
@@ -32,8 +34,17 @@
 
 namespace minigrid {
 
+// Whether this library holds the built-in ext of `ext_id`.
+constexpr bool holds_ext(int ext_id) {
+#ifdef MINIGRID_ONLY_EXT
+  return ext_id == MINIGRID_ONLY_EXT;
+#else
+  return ext_id >= 0;
+#endif
+}
+
 // Calls f(Ext{}) with the ext struct of `ext_id`; does nothing for an
-// unknown id.
+// unknown id or one the library does not hold.
 template <class F>
 void with_ext(int ext_id, F&& f) {
   switch (ext_id) {
@@ -43,43 +54,43 @@ void with_ext(int ext_id, F&& f) {
       break;
 #else
     case EXT_NONE:
-      f(NoExt{});
+      if constexpr (holds_ext(EXT_NONE)) f(NoExt{});
       break;
     case EXT_EMPTY_RANDOM:
-      f(EmptyRandomExt{});
+      if constexpr (holds_ext(EXT_EMPTY_RANDOM)) f(EmptyRandomExt{});
       break;
     case EXT_CROSSING:
-      f(CrossingExt{});
+      if constexpr (holds_ext(EXT_CROSSING)) f(CrossingExt{});
       break;
     case EXT_DYNAMIC_OBSTACLES:
-      f(DynamicObstaclesExt{});
+      if constexpr (holds_ext(EXT_DYNAMIC_OBSTACLES)) f(DynamicObstaclesExt{});
       break;
     case EXT_GOTO_TARGET:
-      f(GoToTargetExt{});
+      if constexpr (holds_ext(EXT_GOTO_TARGET)) f(GoToTargetExt{});
       break;
     case EXT_FETCH:
-      f(FetchExt{});
+      if constexpr (holds_ext(EXT_FETCH)) f(FetchExt{});
       break;
     case EXT_BABYAI:
-      f(BabyAIExt{});
+      if constexpr (holds_ext(EXT_BABYAI)) f(BabyAIExt{});
       break;
     case EXT_UNLOCK:
-      f(UnlockExt{});
+      if constexpr (holds_ext(EXT_UNLOCK)) f(UnlockExt{});
       break;
     case EXT_PICKUP_TARGET:
-      f(PickupTargetExt{});
+      if constexpr (holds_ext(EXT_PICKUP_TARGET)) f(PickupTargetExt{});
       break;
     case EXT_OBSTRUCTED_MAZE:
-      f(ObstructedMazeExt{});
+      if constexpr (holds_ext(EXT_OBSTRUCTED_MAZE)) f(ObstructedMazeExt{});
       break;
     case EXT_MEMORY:
-      f(MemoryExt{});
+      if constexpr (holds_ext(EXT_MEMORY)) f(MemoryExt{});
       break;
     case EXT_PUT_NEAR:
-      f(PutNearExt{});
+      if constexpr (holds_ext(EXT_PUT_NEAR)) f(PutNearExt{});
       break;
     case EXT_RED_BLUE_DOORS:
-      f(RedBlueDoorsExt{});
+      if constexpr (holds_ext(EXT_RED_BLUE_DOORS)) f(RedBlueDoorsExt{});
       break;
 #endif
   }

@@ -303,16 +303,27 @@ bool ext_params_ok(int ext_id, const ExtParams& p, int W, int H, int K) {
   }
 }
 
-// Switch i of ext Ext: its SWITCHES entry, SWITCH_ANY past them (the
-// random-policy kernel's COMPUTE_OBS).
+// The switches that a library built for one family's shape fixes to that
+// family's flags (ops/_build.Shape: -DMINIGRID_NO_OBJECTS=0|1,
+// -DMINIGRID_STATIC_MISSION, -DMINIGRID_SEE_THROUGH); none in the built-in
+// libraries.
+#ifdef MINIGRID_NO_OBJECTS
+constexpr int LIBRARY_SWITCHES[3] = {MINIGRID_NO_OBJECTS, MINIGRID_STATIC_MISSION, MINIGRID_SEE_THROUGH};
+#else
+constexpr int LIBRARY_SWITCHES[3] = {SWITCH_ANY, SWITCH_ANY, SWITCH_ANY};
+#endif
+
+// Switch i of ext Ext: its SWITCHES entry, else the library's, SWITCH_ANY
+// past them (the random-policy kernel's COMPUTE_OBS).
 template <class Ext>
 constexpr int ext_switch(int i) {
-  return i < 3 ? Ext::SWITCHES[i] : SWITCH_ANY;
+  return i >= 3 ? SWITCH_ANY : Ext::SWITCHES[i] != SWITCH_ANY ? Ext::SWITCHES[i] : LIBRARY_SWITCHES[i];
 }
 
 // Whether a whole-rollout kernel takes ext Ext (id `ext_id`) with these
 // sizes, runtime flags (NO_OBJECTS, STATIC_MISSION, SEE_THROUGH first) and
-// buffers.  The flags must meet the ext's SWITCHES, and P its NUM_PLANES.
+// buffers.  The flags must meet the ext's SWITCHES (and the library's), and
+// P its NUM_PLANES.
 // NoExt reads an R >= 1 reset cache and no extra scalars.  A cached ext
 // (extra scalars, no COUNTER_RESET) reads an R >= 1 reset cache with its
 // K = MAX_K scalars ([R, K, N] `cscal`) and its P planes ([R, P, W*H, N]

@@ -43,14 +43,19 @@
 // contiguous run on either side of the copy: each warp access is whole
 // lines, in 16-byte vectors where the row allows.  NO_OBJECTS,
 // STATIC_MISSION, SEE_THROUGH and COMPUTE_OBS are compile-time switches, as
-// in the TPU kernel; the view size V is a template parameter (7 is
-// instantiated).  An ext is instantiated only at the switches its SWITCHES
-// fixes (the built-in counter-reset exts without objects and with a
-// constant mission; a counter reset that writes contents, a mission or
-// planes gets them as a ResetCtx of the env's rows; GoToTarget, Fetch and PutNear with
-// objects, a per-episode mission and see-through walls; BabyAI and the
-// RoomGrid, Memory and RedBlueDoors exts with objects, a per-episode
-// mission and occluding walls); ext_launch_ok refuses other flags.
+// in the TPU kernel; the view size V is a template parameter: the built-in
+// library instantiates 7, and a library built for one family at another
+// odd V from 3 to 31 (ops/_build.Shape: -DMINIGRID_VIEW, and
+// -DMINIGRID_ONLY_EXT for the family's ext) holds that V alone.  Views up
+// to 7 hold their V x V cells in registers; a wider one takes its rows' lit
+// masks first (view_lit) and then reads the cells they light, from L1.  An
+// ext is instantiated only at the switches its SWITCHES fixes (the
+// built-in counter-reset exts without objects and with a constant mission;
+// a counter reset that writes contents, a mission or planes gets them as a
+// ResetCtx of the env's rows; GoToTarget, Fetch and PutNear with objects,
+// a per-episode mission and see-through walls; BabyAI and the RoomGrid,
+// Memory and RedBlueDoors exts with objects, a per-episode mission and
+// occluding walls); ext_launch_ok refuses other flags.
 //
 // What bounds it.  The bytes it must move are the actions, the state in
 // and out and the levels its resets read (chip_smoke.rollout_bytes); per
@@ -81,6 +86,11 @@ namespace {
 using namespace minigrid;
 
 constexpr int THREADS = 128;
+
+#ifndef MINIGRID_VIEW
+#define MINIGRID_VIEW 7
+#endif
+static_assert(MINIGRID_VIEW >= 3 && MINIGRID_VIEW <= 31 && MINIGRID_VIEW % 2 == 1, "an odd view from 3 to 31");
 
 // The phases of a step that tools/rollout_split.py times: it builds a copy
 // of this file with SPLIT_BEGIN, SPLIT_MARK, SPLIT_SYNC and SPLIT_END
@@ -328,13 +338,26 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const Args a, const Ex
     SPLIT_SYNC(PH_WAIT);
     if (COMPUTE_OBS && active) {
       // Sum of the visible packed cells (_obs_checksum_block).
-      int view[V][V];
-      view_cells<V>(grid, 1, W, H, s, view);
-      hide_unseen<V, SEE_THROUGH>(view);
+      if constexpr (V <= 7) {
+        int view[V][V];
+        view_cells<V>(grid, 1, W, H, s, view);
+        hide_unseen<V, SEE_THROUGH>(view);
 #pragma unroll
-      for (int i = 0; i < V; ++i)
+        for (int i = 0; i < V; ++i)
 #pragma unroll
-        for (int j = 0; j < V; ++j) obs_sum += (uint32_t)view[i][j];
+          for (int j = 0; j < V; ++j) obs_sum += (uint32_t)view[i][j];
+      } else {
+        // A wider view: the rows' lit masks, then the cells they light.
+        const ViewFrame f = view_frame(s.ax, s.ay, s.d);
+        uint32_t lit[V];
+        view_lit<V, SEE_THROUGH>(grid, 1, W, H, f, s.carry, lit);
+#pragma unroll 1
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            if ((lit[j] >> i) & 1u) obs_sum += (uint32_t)view_value<V>(grid, 1, W, H, f, s.carry, i, j);
+          }
+      }
     }
     SPLIT_MARK(PH_OBS);
   }
@@ -371,6 +394,9 @@ void dispatch(const Args& a, const ExtParams& p, const int* flags, cudaStream_t 
 
 }  // namespace
 
+// The view size this library holds.
+extern "C" int fused_rollout_view() { return MINIGRID_VIEW; }
+
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
 // ext_id 0 (NoExt) takes the reset cache (R >= 1; scal, cscal, planes,
 // cplanes and seeds unused); a cached ext takes the cache with its K extra
@@ -390,7 +416,7 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
                                     int ext_id, int max_steps, int n_obstacles, int num_crossings,
                                     int obstacle_cell, int start_x, int start_y, int start_dir, int user0,
                                     int user1, int user2, int user3, void* stream) {
-  if (V != 7 || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0 || P < 0) {
+  if (V != MINIGRID_VIEW || W < 1 || H < 1 || M < 0 || T < 0 || N < 0 || K < 0 || P < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const ExtParams p{max_steps, n_obstacles, num_crossings, obstacle_cell, start_x, start_y, start_dir,
@@ -404,7 +430,7 @@ extern "C" int fused_rollout_launch(const int* actions, int* grid, int* cont, in
   with_ext(ext_id, [&](auto ext) {
     using Ext = decltype(ext);
     ok = ext_launch_ok<Ext>(ext_id, p, W, H, R, K, P, flags, scal, cscal, seeds, planes, cplanes);
-    if (ok && N > 0) dispatch<7, Ext>(a, p, flags, st);
+    if (ok && N > 0) dispatch<MINIGRID_VIEW, Ext>(a, p, flags, st);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return N == 0 ? (int)cudaSuccess : (int)cudaGetLastError();

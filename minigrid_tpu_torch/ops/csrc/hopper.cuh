@@ -262,6 +262,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+// D[64, N] += A[64, 16] (registers) x B[16, N] (shared memory, descriptor)
+// for any N that is a multiple of 8 up to 256: the widest product above
+// that fits (128, 64, 32, 16 or 8 columns), then the rest, whose columns
+// lie that product's N / 8 groups of 256 bytes further (2 N in the
+// descriptor's 16-byte units) and whose accumulators N / 2 further on.
+template <int N>
+__device__ __forceinline__ void wgmma_cols(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "N a multiple of 8 up to 256");
+  constexpr int P = N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32 : N >= 16 ? 16 : 8;
+  if constexpr (P == 128) {
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(d), a, desc_b);
+  } else if constexpr (P == 64) {
+    wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(d), a, desc_b);
+  } else if constexpr (P == 32) {
+    wgmma_m64n32k16_rs(*reinterpret_cast<float(*)[16]>(d), a, desc_b);
+  } else if constexpr (P == 16) {
+    wgmma_m64n16k16_rs(*reinterpret_cast<float(*)[8]>(d), a, desc_b);
+  } else {
+    wgmma_m64n8k16_rs(*reinterpret_cast<float(*)[4]>(d), a, desc_b);
+  }
+  if constexpr (N > P) wgmma_cols<N - P>(d + P / 2, a, desc_b + 2 * P);
+}
+
 // Bytes (a multiple of 4 bytes, both addresses 4-byte aligned) from global
 // to shared memory without passing through registers (cp.async); complete
 // once the thread's cp_async_wait_all returns.

@@ -288,6 +288,55 @@ __device__ __forceinline__ void hide_unseen(int view[V][V]) {
   }
 }
 
+// Views wider than 7, whose V x V cells the rollout kernels do not hold in
+// registers: the flood on 32-bit unsigned masks (flood_row's, exact up to
+// V = 32 by wraparound; the kernels take up to 31), the value of one view
+// cell, and the lit mask of every view row.
+
+template <int V>
+__device__ __forceinline__ uint32_t flood_row_u32(uint32_t t, uint32_t& up) {
+  constexpr uint32_t FULL = V >= 32 ? 0xFFFFFFFFu : (1u << V) - 1u;
+  const uint32_t m_r = up | ((((up & t) + t) & FULL) ^ t);
+  const uint32_t cond_r = m_r & t & (FULL >> 1);
+  const uint32_t new_up = cond_r | ((cond_r << 1) & FULL);
+  uint32_t m_l = m_r;
+#pragma unroll
+  for (int k = 0; k < V - 1; ++k) m_l |= (m_l & t) >> 1;
+  const uint32_t cond_l = m_l & t & ~1u;
+  up = new_up | cond_l | (cond_l >> 1);
+  return m_l;
+}
+
+// View cell (i, j) before occlusion: the carried object (or empty) at the
+// agent cell, else view_cell.
+template <int V>
+__device__ __forceinline__ int view_value(const int* grid, size_t stride, int W, int H, const ViewFrame& f,
+                                          int carry, int i, int j) {
+  if (i == V / 2 && j == V - 1) return carry != 0 ? (carry & 0xFFFF) : OBJ_EMPTY;
+  return view_cell<V>(grid, stride, W, H, f, i, j);
+}
+
+// lit[j], bit i: whether view cell (i, j) is seen (hide_unseen's flood,
+// on the cells view_value gives), every bit with SEE_THROUGH.  The rows
+// are unrolled so that lit stays in registers; a row's cells are not.
+template <int V, bool SEE_THROUGH>
+__device__ __forceinline__ void view_lit(const int* grid, size_t stride, int W, int H, const ViewFrame& f,
+                                         int carry, uint32_t (&lit)[V]) {
+  constexpr uint32_t FULL = V >= 32 ? 0xFFFFFFFFu : (1u << V) - 1u;
+  uint32_t up = 1u << (V / 2);
+#pragma unroll
+  for (int j = V - 1; j >= 0; --j) {
+    if (SEE_THROUGH) {
+      lit[j] = FULL;
+      continue;
+    }
+    uint32_t t = 0;
+#pragma unroll 1
+    for (int i = 0; i < V; ++i) t |= see_behind(view_value<V>(grid, stride, W, H, f, carry, i, j)) ? 1u << i : 0u;
+    lit[j] = flood_row_u32<V>(t, up);
+  }
+}
+
 // The learner's one-hot features (rl/model.embed_obs_packed): per view cell
 // 11 type, 6 color and 3 state rows, cells major, then 4 direction rows.
 constexpr int FEATURES_PER_CELL = NUM_OBJECTS + NUM_COLORS + 3;

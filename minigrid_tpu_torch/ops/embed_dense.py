@@ -85,23 +85,25 @@ def _check_inputs(packed, direction) -> tuple[int, int]:
     return m, v2
 
 
-def _hidden_ok(hidden: int) -> bool:
-    # What the sources take: a power of two from 4 to 512 (the forward's
-    # slabs of up to 64 columns, a narrower width padded to 8; the backward
-    # pads below 64, ``backward_width``).
-    return 4 <= hidden <= 512 and hidden % 4 == 0 and 256 % (hidden // 4) == 0
+def hidden_ok(hidden: int) -> bool:
+    """Whether both directions take this hidden width: a multiple of 32 or
+    a power of two, from 4 to 512 (the forward's slabs of 64 columns, the
+    last one ragged, a narrower width one slab padded to 8; the backward
+    pads to whole slabs of 64, ``backward_width``)."""
+    return 4 <= hidden <= 512 and (hidden % 32 == 0 or hidden & (hidden - 1) == 0)
 
 
-# The backward kernel's narrowest width: one warpgroup's 64 hidden columns.
+# The backward kernel's slab: one warpgroup's 64 hidden columns.
 BWD_MIN_WIDTH = 64
 # Samples per backward chunk (``CHUNK`` of ``csrc/embed_dense.cu``).
 BWD_CHUNK = 7296
 
 
 def backward_width(hidden: int) -> int:
-    """The hidden width the backward kernel runs at: ``hidden``, or 64 for a
-    narrower dy, padded with zero columns (their gradients are dropped)."""
-    return max(hidden, BWD_MIN_WIDTH)
+    """The hidden width the backward kernel runs at: ``hidden`` rounded up
+    to whole slabs of 64, dy padded with zero columns (their gradients are
+    dropped)."""
+    return -(-hidden // BWD_MIN_WIDTH) * BWD_MIN_WIDTH
 
 
 def backward_scratch_shape(m: int, v2: int, hidden: int) -> tuple[int, int, int]:
@@ -114,7 +116,7 @@ def _forward(w1, b1, packed, direction) -> torch.Tensor:
     m, v2 = _check_inputs(packed, direction)
     _require(w1.dim() == 2 and w1.shape[0] == v2 * 20 + 4, f"w1 must be [{v2 * 20 + 4}, H], got {tuple(w1.shape)}")
     hidden = w1.shape[1]
-    _require(_hidden_ok(hidden), f"hidden size {hidden} is not one the kernel takes")
+    _require(hidden_ok(hidden), f"hidden size {hidden} is not one the kernel takes")
     _require(b1.shape == (hidden,), f"b1 must be [{hidden}], got {tuple(b1.shape)}")
     _require(w1.device == packed.device and b1.device == packed.device, "w1, b1 and packed on different devices")
     _require(w1.is_floating_point() and b1.is_floating_point(), "w1 and b1 must be floating point")
@@ -162,7 +164,7 @@ def _backward(packed, direction, dy) -> tuple[torch.Tensor, torch.Tensor]:
     _require(m >= 1, "the backward needs at least one sample")
     _require(dy.dim() == 2 and dy.shape[0] == m, f"dy must be [{m}, H], got {tuple(dy.shape)}")
     hidden = dy.shape[1]
-    _require(_hidden_ok(hidden), f"hidden size {hidden} is not one the kernel takes")
+    _require(hidden_ok(hidden), f"hidden size {hidden} is not one the kernel takes")
     _require(dy.dtype == torch.bfloat16, f"dy must be bf16, got {dy.dtype}")
     _require(dy.device == packed.device, "dy and packed on different devices")
     width = backward_width(hidden)

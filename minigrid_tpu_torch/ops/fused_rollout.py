@@ -31,12 +31,17 @@ import torch
 from minigrid_tpu_torch.core.env import MiniGridEnv, cache_slot
 from minigrid_tpu_torch.core.obs import view_and_vis
 from minigrid_tpu_torch.core.state import EnvState, select
-from minigrid_tpu_torch.ops._build import load_library
+from minigrid_tpu_torch.ops._build import Shape, load_library
 from minigrid_tpu_torch.ops.fused_ext import EXT_USER, USER_SLOTS, user_slots
 from minigrid_tpu_torch.ops.prng import draw_seeds
 
-# View sizes the CUDA source instantiates (every registered family uses 7).
-COMPILED_VIEW_SIZES = (7,)
+# The view size of the built-in libraries (every registered family's) and
+# the actor kernel's widths there (PPO's 256 and the tests' 64); the kernels
+# take every odd view from 3 to MAX_VIEW, any other shape built at its first
+# launch for the family that launches it (``kernel_library``).
+BUILTIN_VIEW = 7
+BUILTIN_HIDDEN = (64, 256)
+MAX_VIEW = 31
 # Launches of the CUDA kernel since import (or since a caller reset it).
 KERNEL_LAUNCHES = 0
 
@@ -82,6 +87,15 @@ def compiled_ext(env) -> bool:
         return False
     flags = (env.fused_no_objects, env.fused_static_mission, env.see_through_walls)
     return all(s is None or s == bool(f) for s, f in zip(ext.kernel_switches, flags))
+
+
+def view_refusal(view_size: int) -> str | None:
+    """Why the rollout kernels do not take this view size, or None: they
+    take every odd view from 3 to ``MAX_VIEW``, whose rows' masks fit the
+    flood's 32-bit words."""
+    if view_size % 2 != 1 or not 3 <= view_size <= MAX_VIEW:
+        return f"view size {view_size}; the kernels take odd views from 3 to {MAX_VIEW}"
+    return None
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -188,18 +202,47 @@ def fresh_episodes(env, cache: EnvState | None, reset_seeds: torch.Tensor | None
     return env.fused_ext.reset_block(env, reset_seeds, used)
 
 
-def kernel_library(name: str, env):
-    """The library of rollout kernel ``name`` (``fused_rollout`` or
-    ``actor_rollout``) for ``env``: the built-in one, or the one built with
-    the family's own ext header (``FusedExt.kernel_source``), whose struct
-    must declare what the Python twin does (``ValueError`` otherwise): its
-    ``MAX_K``, ``NUM_PLANES``, ``SWITCHES``, ``COUNTER_RESET`` and
-    ``PRE_STEP`` are the twin's ``n_scalars``, ``n_planes``,
-    ``kernel_switches``, ``covers_reset`` and ``covers_pre_step``."""
+def kernel_shape(name: str, env, hidden: int | None = None) -> Shape | None:
+    """The ``_build.Shape`` that rollout kernel ``name`` runs ``env`` at
+    (``hidden`` the actor's width; None, one the built-in library holds),
+    or None where the built-in library holds it: view ``BUILTIN_VIEW`` and,
+    for the actor kernel, a width of ``BUILTIN_HIDDEN``.  The shape's
+    library holds the family's ext alone, at the family's switches
+    (``kernel_flags``)."""
+    v = env.agent_view_size
+    if v == BUILTIN_VIEW and (name == "fused_rollout" or hidden is None or hidden in BUILTIN_HIDDEN):
+        return None
+    if name != "fused_rollout" and hidden is None:
+        raise ValueError(f"{name} at view {v}: name the hidden width of its library")
     ext = env.fused_ext
+    user = ext is not None and ext.kernel_source is not None
+    ext_id = None if user else (0 if ext is None else ext.kernel_id)
+    return Shape(v, 0 if name == "fused_rollout" else int(hidden), ext_id, kernel_flags(env))
+
+
+def kernel_flags(env) -> tuple[int, int, int]:
+    """The rollout kernels' switches NO_OBJECTS, STATIC_MISSION and
+    SEE_THROUGH for ``env``, as its launches pass them."""
+    return int(bool(env.fused_no_objects)), int(bool(env.fused_static_mission)), int(env.see_through_walls)
+
+
+def kernel_library(name: str, env, hidden: int | None = None):
+    """The library of rollout kernel ``name`` (``fused_rollout`` or
+    ``actor_rollout``) for ``env`` (at the actor's ``hidden`` width): the
+    built-in one, the one built with the family's own ext header
+    (``FusedExt.kernel_source``), or, at another view or width
+    (``kernel_shape``), the one built for that shape and the family's ext.
+    A user struct must declare what the Python twin does (``ValueError``
+    otherwise): its ``MAX_K``, ``NUM_PLANES``, ``SWITCHES``,
+    ``COUNTER_RESET`` and ``PRE_STEP`` are the twin's ``n_scalars``,
+    ``n_planes``, ``kernel_switches``, ``covers_reset`` and
+    ``covers_pre_step``."""
+    ext = env.fused_ext
+    shape = kernel_shape(name, env, hidden)
+    at_shape = {} if shape is None else {"shape": shape}
     if ext is None or ext.kernel_source is None:
-        return load_library(name)
-    lib = load_library(name, ext.kernel_source, ext.kernel_struct)
+        return load_library(name, **at_shape)
+    lib = load_library(name, ext.kernel_source, ext.kernel_struct, **at_shape)
     layout = (ctypes.c_int * 7)()
     _require(lib.minigrid_ext_layout(EXT_USER, layout) == 1, "the user library holds no EXT_USER", name)
     switch = {1: True, 0: False, -1: None}
@@ -245,17 +288,16 @@ def check_ext(env, states: EnvState, cache: EnvState | None, what: str) -> None:
 def check_env_and_state(env, states: EnvState, cache: EnvState | None, what: str) -> int:
     """Raise unless a whole-rollout kernel takes this env, state and reset
     cache (CUDA, hooks it runs, a compiled fused ext where the family has
-    one, a compiled view size, int32 leaves of the right shapes on one
-    device); returns R, which is 0 for a counter-reset family (``cache``
-    None)."""
+    one, a view it takes, int32 leaves of the right shapes on one device);
+    returns R, which is 0 for a counter-reset family (``cache`` None)."""
     device = states.device
     name = type(env).__name__
     _require(device.type == "cuda", f"state on {device}, need CUDA (or CPU for the plain version)", what)
     check_ext(env, states, cache, what)
     _require(supports_fused(env), f"{name} has step hooks the kernel does not run", what)
     _require(compiled_ext(env), f"{name}'s fused ext has no compiled CUDA twin", what)
-    v = env.agent_view_size
-    _require(v in COMPILED_VIEW_SIZES, f"view size {v} has no compiled instantiation", what)
+    refusal = view_refusal(env.agent_view_size)
+    _require(refusal is None, refusal, what)
     n = states.step_count.shape[0]
     w, h = env.width, env.height
     m = states.mission.shape[-1]
@@ -516,6 +558,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
     done = torch.zeros_like(used)
 
     lib = kernel_library("fused_rollout", env)
+    _require(lib.fused_rollout_view() == env.agent_view_size, f"the library holds no view {env.agent_view_size}")
     fn = lib.fused_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -528,9 +571,7 @@ def _launch(env, states: EnvState, cache, actions: torch.Tensor, compute_obs: bo
             env.width, env.height, env.agent_view_size, r, states.mission.shape[-1], t, n,
             0 if ext.scal is None else env.fused_ext.n_scalars,
             0 if ext.planes is None else env.fused_ext.n_planes,
-            int(bool(env.fused_no_objects)),
-            int(bool(env.fused_static_mission)),
-            int(env.see_through_walls),
+            *kernel_flags(env),
             int(bool(compute_obs)),
             ext.ext_id,
             *ext.params,

@@ -11,7 +11,7 @@ import torch
 
 from minigrid_tpu_torch.core.env import cached_autoreset
 from minigrid_tpu_torch.core.state import resolve_device, select
-from minigrid_tpu_torch.ops.fused_rollout import COMPILED_VIEW_SIZES, compiled_ext, fused_rollout, supports_fused
+from minigrid_tpu_torch.ops.fused_rollout import compiled_ext, fused_rollout, supports_fused
 from minigrid_tpu_torch.parallel.reset_budget import check_pool, chunk_resets, pool_size
 
 # Largest grid the kernel takes (MultiRoom-scale 25x25), as in the JAX gate.
@@ -110,15 +110,17 @@ def fused_eligible(env, device) -> bool:
     """Whether the whole-rollout CUDA kernel (ops/fused_rollout.py) runs this
     configuration: a CUDA device, a default-hook family or one whose fused
     ext the kernel has compiled (``compiled_ext``: the counter-reset and
-    the cached exts, BabyAI's with its two planes), at most
-    ``MAX_FUSED_CELLS`` grid cells and a compiled view size.  The kernel
-    keeps the reset cache in device memory, so R does not gate it."""
+    the cached exts, BabyAI's with its two planes) and at most
+    ``MAX_FUSED_CELLS`` grid cells.  The view does not gate it, as it does
+    not gate the JAX package's kernel: any odd view from 3 to 31 runs
+    (another view size than 7 built at its first launch), and the kernel
+    raises for a wider one.  The kernel keeps the reset cache in device
+    memory, so R does not gate it."""
     return (
         torch.device(device).type == "cuda"
         and supports_fused(env)
         and compiled_ext(env)
         and env.width * env.height <= MAX_FUSED_CELLS
-        and env.agent_view_size in COMPILED_VIEW_SIZES
     )
 
 

@@ -152,9 +152,15 @@ class _TimedLaunch:
 
 
 class _TimedLibrary:
+    """A loaded rollout library whose ``fused_rollout_launch`` records CUDA
+    events around each launch; every other symbol is the library's."""
+
     def __init__(self, lib):
         self.lib = lib
         self.fused_rollout_launch = _TimedLaunch(lib.fused_rollout_launch)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
 
 
 def rows_inputs(mgt, device, rows=ROWS):

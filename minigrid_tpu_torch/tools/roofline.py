@@ -53,6 +53,18 @@ def rollout_bytes(env, states, steps: int, resets: float = 0, seeds: bool = Fals
     return int(4 * steps * n + 2 * state + resets * state + 8 * n * seeds + 16 * n)
 
 
+def rollout_bound(env, states, steps: int, resets: float = 0, compute_obs: bool = False) -> tuple[float, str]:
+    """The random-policy kernel's bound for ``steps`` steps of ``states``
+    reading ``resets`` levels per env (``rollout_bytes``); with
+    observations, each step also adds its view's v*v cells into the
+    checksum, an integer add per cell on the CUDA cores, which a view of
+    31 makes the larger of the two at 65536 envs."""
+    n = states.step_count.shape[0]
+    v2 = env.agent_view_size**2
+    ops = steps * n * v2 if compute_obs else 0
+    return bound(rollout_bytes(env, states, steps, resets), ops / CUDA_CORE_OPS_PER_S)
+
+
 def levels_read(episodes: int, n: int, r: int) -> float:
     """Reset-cache levels per env a rollout reads: one per ended episode,
     at most R per env (past R the last slot is read again)."""

@@ -36,7 +36,7 @@ from minigrid_tpu_torch.ops import actor_rollout as ar
 from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.rollout import Trajectory
 from minigrid_tpu_torch.utils.bridge import state_from_numpy
-from torch_port_util import HIDDEN, flax_params, jax_to_numpy, port_model, to_port, with_bias_noise
+from torch_port_util import HIDDEN, flax_params, jax_learner_init, jax_to_numpy, port_model, to_port, with_bias_noise
 
 N, T, R = 1024, 8, 2  # T > max_steps: every env ends an episode
 MAX_STEPS = 5
@@ -116,7 +116,7 @@ def test_ppo_update_on_doorkey_matches_jax():
     env_id = "MiniGrid-DoorKey-5x5-v0"
     config = jppo.PPOConfig(rollout_steps=16, num_minibatches=1)
     init_fn, step = jppo.make_ppo(mg.make(env_id, max_steps=12), config, hidden=HIDDEN)
-    state = init_fn(jax.random.PRNGKey(2), 64)
+    state = jax_learner_init(init_fn, jax.random.PRNGKey(2), 64)
     params = with_bias_noise(jax.tree.map(np.array, state.params), 2)
     env_states, key, traj = step.rollout(jax.tree.map(jnp.asarray, params), state.env_states, state.key)
     shift = np.random.default_rng(3).normal(0, 0.3, traj.logp.shape).astype(np.float32)

@@ -196,8 +196,9 @@ def test_split_w1_sums_are_exact_in_float32():
 
 
 class _Shape:
-    def __init__(self, width=8, height=8, num_actions=7):
+    def __init__(self, width=8, height=8, num_actions=7, agent_view_size=7):
         self.width, self.height, self.num_actions = width, height, num_actions
+        self.agent_view_size = agent_view_size
 
 
 @pytest.mark.parametrize(
@@ -210,8 +211,16 @@ class _Shape:
         (0, 256, _Shape(), True),
         (48, 256, _Shape(), False),
         (8200, 256, _Shape(), False),
-        (64, 128, _Shape(), False),
-        (64, 96, _Shape(), False),
+        (64, 128, _Shape(), True),
+        (64, 96, _Shape(), True),
+        (64, 32, _Shape(), True),
+        (64, 512, _Shape(), True),
+        (64, 100, _Shape(), False),
+        (64, 544, _Shape(), False),
+        (64, 1024, _Shape(), False),
+        (64, 64, _Shape(agent_view_size=3), True),
+        (64, 64, _Shape(agent_view_size=31), True),
+        (64, 64, _Shape(agent_view_size=33), False),
         (64, 256, _Shape(25, 25), True),
         (64, 256, _Shape(26, 25), False),
         (64, 256, _Shape(num_actions=1), True),
@@ -219,9 +228,10 @@ class _Shape:
     ],
 )
 def test_actor_kernel_takes_the_same_shapes(monkeypatch, n, hidden, env, accepted):
-    # N any multiple of 32 (a last block of 64 half empty), hidden 64 or
-    # 256, 1 to 7 actions, at most 625 cells: the shapes the kernel took
-    # before its blocks grew to 64 envs.
+    # N any multiple of 32 (a last block of 64 half empty), 1 to 7 actions,
+    # at most 625 cells: the shapes the kernel took before its blocks grew
+    # to 64 envs; a hidden width that is a multiple of 32 up to 512 and an
+    # odd view up to 31, at which the JAX package's kernel traces too.
     assert (ar.shape_refusal(env, n, hidden) is None) == accepted
     monkeypatch.setattr(ar, "fused_eligible", lambda env, device: True)
     assert ar.supports_fused_actor(env, "cuda", n, hidden) == accepted

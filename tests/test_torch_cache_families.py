@@ -307,7 +307,13 @@ def test_ext_twins_declare_their_cuda_ids_and_switches(env_id, header):
     source = (CSRC / "ext" / f"{header}.cuh").read_text()
     struct = re.search(r"struct (\w+) : NoExt", source).group(1)
     ids = dict(re.findall(r"(EXT_\w+) = (\d+)", (CSRC / "fused_ext.cuh").read_text()))
-    cases = dict(re.findall(r"case (EXT_\w+):\s+f\((\w+)\{\}\)", (CSRC / "exts.cuh").read_text()))
+    # A library of one shape holds one built-in ext: ``if constexpr
+    # (holds_ext(EXT_...))`` guards each call.
+    cases = dict(
+        re.findall(
+            r"case (EXT_\w+):\s+(?:if constexpr \(holds_ext\(\1\)\) )?f\((\w+)\{\}\)", (CSRC / "exts.cuh").read_text()
+        )
+    )
     assert {int(ids[name]) for name, s in cases.items() if s == struct} == {ext.kernel_id}
     declared = re.search(r"SWITCHES\[3\] = \{([^}]*)\}", source).group(1).split(",")
     value = {"1": True, "0": False, "SWITCH_ANY": None}

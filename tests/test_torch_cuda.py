@@ -108,13 +108,14 @@ def test_rollout_random_takes_the_kernel_on_empty(device):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(device):
-    env = mgt.make("MiniGrid-Empty-8x8-v0", agent_view_size=5)
-    _, states = env.reset(32, None, device)
-    cache = env.batch_reset_cache(32, 1, None, device)
-    actions = torch.zeros((4, 32), dtype=torch.int32, device=device)
-    with pytest.raises(ValueError, match="view size 5"):
-        fr.fused_rollout_core(env, states, cache, actions)
+    # States of view 7 (a reset at view 33 would stop in the observation
+    # kernel, which takes views up to 31 too).
     env7 = mgt.make("MiniGrid-Empty-8x8-v0")
+    _, states = env7.reset(32, None, device)
+    cache = env7.batch_reset_cache(32, 1, None, device)
+    actions = torch.zeros((4, 32), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="view size 33"):
+        fr.fused_rollout_core(mgt.make("MiniGrid-Empty-8x8-v0", agent_view_size=33), states, cache, actions)
     with pytest.raises(ValueError, match="actions"):
         fr.fused_rollout_core(env7, states, cache, actions[:, :16])
 
@@ -587,30 +588,108 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(device):
         ar.fused_actor_rollout_core(env, weights, states, cache, noise[:, :3])
     with pytest.raises(ValueError, match="w1 must be"):
         ar.fused_actor_rollout_core(env, weights._replace(w1=weights.w1.float()), states, cache, noise)
-    with pytest.raises(ValueError, match="hidden size 96"):
+    with pytest.raises(ValueError, match="hidden size 100"):
         wide = ar.ActorWeights(
-            torch.zeros(984, 96, dtype=torch.bfloat16, device=device), torch.zeros(96, device=device),
-            torch.zeros(96, 96, dtype=torch.bfloat16, device=device), torch.zeros(96, device=device),
-            torch.zeros(8, 96, dtype=torch.bfloat16, device=device), torch.zeros(8, device=device),
+            torch.zeros(984, 100, dtype=torch.bfloat16, device=device), torch.zeros(100, device=device),
+            torch.zeros(100, 100, dtype=torch.bfloat16, device=device), torch.zeros(100, device=device),
+            torch.zeros(8, 100, dtype=torch.bfloat16, device=device), torch.zeros(8, device=device),
         )
         ar.fused_actor_rollout_core(env, wide, states, cache, noise)
     with pytest.raises(ValueError, match="multiple of 32"):
         ar.fused_actor_rollout_core(
             env, weights, states.map(lambda x: x[:48]), cache.map(lambda x: x[:48]), noise[:, :, :48]
         )
-    env5 = mgt.make("MiniGrid-Empty-5x5-v0", agent_view_size=5)
-    with pytest.raises(ValueError, match="view size 5"):
-        ar.fused_actor_rollout_core(env5, weights, states, cache, noise)
+    env33 = mgt.make("MiniGrid-Empty-5x5-v0", agent_view_size=33)
+    with pytest.raises(ValueError, match="view size 33"):
+        ar.fused_actor_rollout_core(env33, weights, states, cache, noise)
     with pytest.raises(ValueError, match="need CUDA"):
         ar._launch(env, weights, states.map(lambda x: x.cpu()), cache, noise)
 
 
 def test_learner_raises_where_the_actor_kernel_does_not_run(device):
     env = mgt.make("MiniGrid-Empty-8x8-v0")
-    init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=8, num_minibatches=1), hidden=96)
+    init_fn, train_step = make_ppo(env, PPOConfig(rollout_steps=8, num_minibatches=1), hidden=100)
     state = init_fn(torch.Generator(device=device).manual_seed(0), 64)
-    with pytest.raises(ValueError, match="hidden size 96"):
+    with pytest.raises(ValueError, match="hidden size 100"):
         train_step(state)
+
+
+# The shapes beyond the built-in libraries (chip_smoke.py phase 37), each
+# built at its first launch: views 3-31 for the rollout kernel, widths
+# 32-512 and views 5 and 31 for the actor kernel, widths for the embed +
+# dense-1 kernels.
+@pytest.mark.parametrize("view", [3, 5, 9, 15, 17, 31])
+def test_rollout_kernel_at_other_views(device, view):
+    env = mgt.make("MiniGrid-DoorKey-8x8-v0", agent_view_size=view)
+    assert fused_eligible(env, device)
+    gen = torch.Generator(device=device).manual_seed(view)
+    _, states = env.reset(1024, gen, device)
+    states = states.replace(step_count=randint(gen, 1024, 0, states.max_steps))
+    cache = env.batch_reset_cache(1024, 4, gen, device)
+    actions = torch.randint(0, 7, (32, 1024), generator=gen, device=device, dtype=torch.int32)
+    for compute_obs in (False, True):
+        before = fr.KERNEL_LAUNCHES
+        got = fr.fused_rollout_core(env, states, cache, actions, compute_obs)
+        torch.cuda.synchronize()
+        assert fr.KERNEL_LAUNCHES == before + 1
+        _assert_same(got, fr.fused_rollout_reference(env, states, cache, actions, compute_obs))
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-Empty-8x8-v0", "MiniGrid-DoorKey-8x8-v0"])
+@pytest.mark.parametrize("view, hidden", [(7, 32), (7, 96), (7, 128), (7, 512), (5, 64), (31, 64)])
+def test_actor_kernel_at_other_shapes(device, env_id, view, hidden):
+    # 1024 x 32 positions: about 1% of them are near-ties, and the contract
+    # compares at least 99%.
+    n, t = 1024, 32
+    env = mgt.make(env_id, agent_view_size=view)
+    assert ar.supports_fused_actor(env, device, n, hidden)
+    gen = torch.Generator(device=device).manual_seed(hidden + view)
+    _, states = env.reset(n, gen, device)
+    states = states.replace(step_count=randint(gen, n, 0, states.max_steps))
+    cache = env.batch_reset_cache(n, learner_resets(env, t), gen, device)
+    model = ActorCritic(hidden, env.num_actions, view, generator=gen, device=device)
+    with torch.no_grad():
+        for i in range(4):
+            bias = getattr(model, f"Dense_{i}").bias
+            bias.copy_(0.1 * torch.randn(bias.shape, generator=gen, device=device))
+    weights = ar.repack_actor_params(model)
+    noise = ar.draw_bits(gen, (t, env.num_actions, n), device)
+    before = ar.KERNEL_LAUNCHES
+    final, traj = ar.fused_actor_rollout_core(env, weights, states, cache, noise)
+    torch.cuda.synchronize()
+    assert ar.KERNEL_LAUNCHES == before + 1 and int(traj["done"].sum()) > 0
+    ar.check_trajectory(env, weights, states, cache, noise, final, traj, atol=ar.PLAIN_ATOL)
+
+
+@pytest.mark.parametrize("hidden", [32, 96, 128, 512])
+def test_embed_kernels_at_other_widths(device, hidden):
+    packed, direction, w1, b1, dy = _embed_inputs(device, 4096, hidden, 3)
+    before = dict(ed.KERNEL_LAUNCHES)
+    out = ed.embed_dense1(w1, b1, packed, direction)
+    want = ed.embed_dense1_reference(w1, b1, packed, direction)
+    assert out.shape == (4096, hidden)
+    assert float((out.float() - want.float()).abs().max()) <= 2e-2
+    w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+    got = torch.autograd.grad(ed.embed_dense1(w1g, b1g, packed, direction), (w1g, b1g), dy)
+    plain = torch.autograd.grad(ed.embed_dense1_reference(w1g, b1g, packed, direction), (w1g, b1g), dy)
+    for g, p in zip(got, plain):
+        assert float((g - p.float()).abs().max()) <= 2e-2 * max(1.0, float(p.abs().max()))
+    assert ed.KERNEL_LAUNCHES == {"fwd": before["fwd"] + 2, "bwd": before["bwd"] + 1}
+
+
+@pytest.mark.parametrize("make, config, view, hidden, embeds", [
+    (make_ppo, PPOConfig(rollout_steps=8, num_minibatches=2), 7, 128, (3, 2)),
+    (make_impala, IMPALAConfig(rollout_steps=8, num_minibatches=2), 5, 64, (4, 2)),
+])
+def test_learners_take_the_kernels_at_other_shapes(device, make, config, view, hidden, embeds):
+    env = mgt.make("MiniGrid-DoorKey-8x8-v0", agent_view_size=view)
+    init_fn, train_step = make(env, config, hidden=hidden)
+    state = init_fn(torch.Generator(device=device).manual_seed(0), 64)
+    before = _launches()
+    state, metrics = train_step(state)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, *embeds)
+    assert all(np.isfinite(float(metrics[k])) for k in ("pg_loss", "value_loss", "entropy"))
 
 
 def _obs_inputs(states):

@@ -24,7 +24,7 @@ from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.model import apply_packed_fused
 from minigrid_tpu_torch.rl.rollout import Trajectory
 from minigrid_tpu_torch.utils.bridge import params_to_flax
-from torch_port_util import one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
+from torch_port_util import jax_learner_init, one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
 
 HIDDEN = 64
 ENV_ID = "MiniGrid-Empty-5x5-v0"
@@ -63,7 +63,7 @@ def jax_case():
     config = jimpala.IMPALAConfig(rollout_steps=16, num_minibatches=2)
     env = mg.make(ENV_ID)
     init_fn, train_step = jimpala.make_impala(env, config, hidden=HIDDEN)
-    state = init_fn(jax.random.PRNGKey(0), 64)
+    state = jax_learner_init(init_fn, jax.random.PRNGKey(0), 64)
     state = state._replace(params=jax.tree.map(jnp.asarray, with_bias_noise(jax.tree.map(np.array, state.params), 3)))
     model = jimpala.ActorCritic(hidden=HIDDEN, num_actions=env.num_actions)
 

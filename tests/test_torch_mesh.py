@@ -35,7 +35,7 @@ from minigrid_tpu_torch.rl import impala as timpala
 from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.model import ActorCritic
 from minigrid_tpu_torch.rl.rollout import Trajectory
-from torch_port_util import port_model, to_port, with_bias_noise
+from torch_port_util import jax_learner_init, port_model, to_port, with_bias_noise
 
 HIDDEN = 64
 ENV_ID = "MiniGrid-Empty-5x5-v0"
@@ -84,7 +84,7 @@ def ppo_case():
     two-device mesh, the trajectory sharded on its env axis."""
     config = jppo.PPOConfig(rollout_steps=T, num_minibatches=4)
     init_fn, step = jppo.make_ppo(mg.make(ENV_ID), config, hidden=HIDDEN)
-    state = init_fn(jax.random.PRNGKey(0), N)
+    state = jax_learner_init(init_fn, jax.random.PRNGKey(0), N)
     params = jax.tree.map(jnp.asarray, with_bias_noise(jax.tree.map(np.array, state.params), 0))
     env_states, key, traj = step.rollout(params, state.env_states, state.key)
     rng = np.random.default_rng(1)

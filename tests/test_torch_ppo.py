@@ -22,7 +22,7 @@ from minigrid_tpu_torch.rl import ppo as tppo
 from minigrid_tpu_torch.rl.model import apply_packed_fused
 from minigrid_tpu_torch.rl.rollout import Trajectory
 from minigrid_tpu_torch.utils.bridge import params_from_flax, params_to_flax
-from torch_port_util import one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
+from torch_port_util import jax_learner_init, one_torch_thread, port_model, to_port, with_bias_noise  # noqa: F401
 
 HIDDEN = 64
 
@@ -48,7 +48,7 @@ def jax_batch():
     ratio is exercised, and its update's metrics (one minibatch)."""
     config = jppo.PPOConfig(rollout_steps=16, num_minibatches=1)
     init_fn, step = jppo.make_ppo(mg.make("MiniGrid-Empty-5x5-v0"), config, hidden=HIDDEN)
-    state = init_fn(jax.random.PRNGKey(0), 64)
+    state = jax_learner_init(init_fn, jax.random.PRNGKey(0), 64)
     state = state._replace(params=jax.tree.map(jnp.asarray, with_bias_noise(jax.tree.map(np.array, state.params), 0)))
     env_states, key, traj = step.rollout(state.params, state.env_states, state.key)
     shift = np.random.default_rng(1).normal(0, 0.3, traj.logp.shape).astype(np.float32)

@@ -5,6 +5,7 @@ cross between the two as numpy arrays (``minigrid_tpu_torch.utils.bridge``)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,17 @@ from minigrid_tpu_torch.utils.bridge import params_from_flax, state_from_numpy, 
 from minigrid_tpu_torch.utils.synthetic import random_states
 
 HIDDEN = 64  # the narrow width of the network tests
+
+# Under pytest-xdist the workers share the machine's cores: torch's CPU ops
+# take each worker's share of them (at least one thread), as
+# ``one_torch_thread`` gives the learners' tests.  At full width every
+# worker's pool of threads contends with the others' (one profiler case,
+# ``tests/test_torch_profiler.py``'s IMPALA step chain, took 186 s among six
+# workers on 8 cores and 1.6 s alone on one thread).  Every worker imports
+# this module while it collects the suite, so the share holds for all of
+# its tests.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def jax_to_numpy(state) -> dict:
@@ -107,6 +119,13 @@ def observations(n_each=128, seed=0):
         np.concatenate([np.asarray(p) for p in packed]),
         np.concatenate([np.asarray(states.agent_dir), np.asarray(rich.agent_dir)]),
     )
+
+
+def jax_learner_init(init_fn, key, num_envs: int):
+    """A JAX learner's ``init_fn(key, num_envs)`` under one ``jax.jit``: the
+    same state from one compile, where op-by-op dispatch of its vmapped
+    reset, observation and flax init takes 10-14 s on the CPU."""
+    return jax.jit(init_fn, static_argnums=1)(key, num_envs)
 
 
 def with_bias_noise(params, seed, scale=0.1):
